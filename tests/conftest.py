@@ -38,6 +38,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "timeout(seconds): fail the test if it runs longer "
         "(conftest SIGALRM fallback for the absent pytest-timeout plugin)")
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device; skips (inside the test) where "
+        "torch.cuda.is_available() is False")
 
 
 @pytest.hookimpl(hookwrapper=True)
