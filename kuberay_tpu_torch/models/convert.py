@@ -46,3 +46,22 @@ def params_from_jax(cfg, np_tree: Dict[str, Any], device="cuda"
         raise ValueError(f"parameter tree keys {sorted(params)} != "
                          f"{sorted(expected)}")
     return params
+
+
+def state_from_jax(cfg, np_state: Dict[str, Any], device="cuda"
+                   ) -> Dict[str, Any]:
+    """A JAX train state (``init_train_state`` / ``make_train_step``'s
+    output, leaves through ``np.asarray``) as the port's state.
+
+    The JAX optimizer state is optax's chain(clip_by_global_norm,
+    adamw): ``(EmptyState, (ScaleByAdamState(count, mu, nu), EmptyState,
+    ScaleByScheduleState(count)))``; its Adam count, mu and nu become the
+    port's {"count", "mu", "nu"} (the two optax counts always agree).
+    """
+    adam = np_state["opt_state"][1][0]
+    count, mu, nu = adam[0], adam[1], adam[2]
+    return {"step": int(np.asarray(np_state["step"])),
+            "params": params_from_jax(cfg, np_state["params"], device),
+            "opt_state": {"count": int(np.asarray(count)),
+                          "mu": params_from_jax(cfg, mu, device),
+                          "nu": params_from_jax(cfg, nu, device)}}

@@ -5,18 +5,38 @@ Port of ``kuberay_tpu/models/llama.py``: the same ``LlamaConfig`` fields
 same parameter tree, a plain dict whose layer leaves are stacked on a
 leading ``[n_layers]`` axis, with matmul weights stored ``[in, out]`` so
 ``x @ w`` reads as in the reference.  The serving path runs the model
-through ``serve/kv_cache.py::forward_with_cache``; the training forward,
-loss and remat come with the training port.
+through ``serve/kv_cache.py::forward_with_cache``; training runs
+``forward_hidden`` / ``forward`` / ``loss_fn`` below.
+
+Training forward: the JAX package ``lax.scan``s one layer body over the
+stacked leaves under ``jax.checkpoint``.  Here each forward slices the
+stacked leaves once with ``torch.unbind`` (whose backward stacks the layer
+gradients once; indexing ``leaf[i]`` would write a full-size zero
+gradient per layer) and loops over the layers, each under
+``torch.utils.checkpoint`` when ``cfg.remat``: ``"full"`` recomputes the
+whole layer in the backward, ``"dots"`` saves the matmul outputs and
+recomputes the rest (JAX's ``dots_with_no_batch_dims_saveable``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
+from kuberay_tpu_torch.ops.attention import attention_ref, flash_attention
+from kuberay_tpu_torch.ops.rmsnorm import rmsnorm
+from kuberay_tpu_torch.ops.rope import apply_rope, rope_frequencies
+from kuberay_tpu_torch.ops.xent import chunked_softmax_xent_loss, logits_f32
 from kuberay_tpu_torch.utils.device import resolve_device
 
 
@@ -33,8 +53,10 @@ class LlamaConfig:
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
     dtype: Any = torch.bfloat16
-    # Training-side fields, kept so configs read as in the JAX package;
-    # the serving path does not consume them.
+    # Training-side fields (the serving path does not read them).
+    # attn_impl: "auto"/"pallas" = the flash kernels (their plain versions
+    # on CPU tensors); "xla" = attention_ref, the plain attention the JAX
+    # package's "xla" names; "ring"/"ring_rdma" are not ported yet.
     attn_impl: str = "auto"
     remat: bool = True
     remat_policy: str = "full"
@@ -117,3 +139,113 @@ def init_params(cfg: LlamaConfig, generator: Optional[torch.Generator] = None,
     if not cfg.tie_embeddings:
         params["lm_head"] = rnd((d, v), std)
     return params
+
+
+# --------------------------------------------------------------------------
+# Training forward and loss
+# --------------------------------------------------------------------------
+
+def _attention(cfg: LlamaConfig, q, k, v):
+    if cfg.attn_impl in ("ring", "ring_rdma"):
+        raise NotImplementedError(
+            f"attn_impl={cfg.attn_impl!r}: sequence-parallel ring attention "
+            f"is not ported yet (ROADMAP C6)")
+    if cfg.attn_impl == "xla":
+        return attention_ref(q, k, v, causal=True)
+    if cfg.attn_impl in ("auto", "pallas", "pallas_interpret"):
+        return flash_attention(q, k, v, causal=True)
+    raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
+
+
+def _layer(cfg: LlamaConfig, x: torch.Tensor, lp: Dict[str, torch.Tensor],
+           cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """One transformer block.  x: [B, S, d]."""
+    B, S, d = x.shape
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    h = rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
+    q = (h @ lp["wq"]).reshape(B, S, hq, hd)
+    kk = (h @ lp["wk"]).reshape(B, S, hkv, hd)
+    vv = (h @ lp["wv"]).reshape(B, S, hkv, hd)
+    q = apply_rope(q, cos, sin)
+    kk = apply_rope(kk, cos, sin)
+    attn = _attention(cfg, q, kk, vv)
+    x = x + (attn.reshape(B, S, hq * hd) @ lp["wo"]).to(x.dtype)
+    h = rmsnorm(x, lp["mlp_norm"], cfg.norm_eps)
+    gated = F.silu(h @ lp["w_gate"]) * (h @ lp["w_up"])
+    return x + (gated @ lp["w_down"]).to(x.dtype)
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """``"dots"`` remat: keep the (batch-free) matmul outputs, recompute
+    everything else."""
+    return (CheckpointPolicy.MUST_SAVE if op == torch.ops.aten.mm.default
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def forward_hidden(cfg: LlamaConfig, params: Dict[str, Any],
+                   tokens: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens: [B, S] -> (final hidden [B, S, d], head [d, V])."""
+    B, S = tokens.shape
+    x = params["embed"][tokens]                            # [B, S, d]
+    cos, sin = rope_frequencies(cfg.head_dim, S, float(cfg.rope_theta),
+                                device=tokens.device)
+    names = sorted(params["layers"])
+    per_layer = zip(*(torch.unbind(params["layers"][n], 0) for n in names))
+    if cfg.remat and cfg.remat_policy not in ("full", "dots"):
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r} "
+                         f"(expected 'full' or 'dots')")
+    for leaves in per_layer:
+        lp = dict(zip(names, leaves))
+        if not cfg.remat:
+            x = _layer(cfg, x, lp, cos, sin)
+        elif cfg.remat_policy == "full":
+            x = checkpoint(_layer, cfg, x, lp, cos, sin, use_reentrant=False)
+        else:
+            x = checkpoint(_layer, cfg, x, lp, cos, sin, use_reentrant=False,
+                           context_fn=functools.partial(
+                               create_selective_checkpoint_contexts,
+                               _save_matmuls))
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    head = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
+    return x, head
+
+
+def forward(cfg: LlamaConfig, params: Dict[str, Any],
+            tokens: torch.Tensor) -> torch.Tensor:
+    """tokens: [B, S] -> logits [B, S, vocab] float32."""
+    x, head = forward_hidden(cfg, params, tokens)
+    B, S, d = x.shape
+    return logits_f32(x.reshape(B * S, d), head).reshape(B, S, -1)
+
+
+def loss_fn(cfg: LlamaConfig, params: Dict[str, Any], tokens: torch.Tensor,
+            targets: torch.Tensor, mask: Optional[torch.Tensor] = None,
+            z_loss: float = 1e-4
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross entropy with z-loss.  tokens/targets: [B, S];
+    mask: [B, S] (1 = counts).  With ``cfg.xent_chunk`` the [B, S, V]
+    logits are never formed (``ops/xent.py``, the same math)."""
+    if mask is not None:
+        mask = mask.float()
+    if cfg.xent_chunk:
+        x, head = forward_hidden(cfg, params, tokens)
+        return chunked_softmax_xent_loss(
+            x.reshape(-1, x.shape[-1]), head, targets.reshape(-1),
+            mask=None if mask is None else mask.reshape(-1),
+            z_loss=z_loss, chunk=cfg.xent_chunk)
+    logits = forward(cfg, params, tokens)                  # [B, S, V] f32
+    logz = torch.logsumexp(logits, dim=-1)
+    true_logit = logits.gather(-1, targets.long()[..., None])[..., 0]
+    nll = logz - true_logit
+    zl = z_loss * torch.square(logz)
+    if mask is None:
+        mask = torch.ones_like(nll)
+    denom = torch.clamp(mask.sum(), min=1.0)
+    loss = ((nll + zl) * mask).sum() / denom
+    metrics = {
+        "loss": (nll * mask).sum() / denom,
+        "z_loss": (zl * mask).sum() / denom,
+        "accuracy": ((logits.argmax(-1) == targets) * mask).sum() / denom,
+    }
+    return loss, metrics

@@ -1,7 +1,10 @@
 """Fused RMSNorm: a Triton kernel for CUDA tensors, plain torch on the CPU.
 
 Replaces ``kuberay_tpu/ops/rmsnorm.py::_rmsnorm_kernel`` (via
-``rmsnorm_pallas``).  Forward only: the serving path needs no gradient.
+``rmsnorm_pallas``).  ``rmsnorm`` is differentiable: its forward is the
+kernel, and its backward recomputes through ``rmsnorm_ref`` under autograd,
+as the JAX package takes the vjp of ``rmsnorm_xla`` (``_rmsnorm_bwd``); the
+JAX package has no backward kernel, so neither has the port.
 
 Bound on an H100: bytes.  The kernel reads x and the weight once and writes
 y once (2 * rows * d * 2 B + d * 2 B for bf16); at the 8B decode shape
@@ -62,12 +65,10 @@ def _get_kernel():
         return _kernel
 
 
-def rmsnorm(x: torch.Tensor, weight: torch.Tensor,
-            eps: float = 1e-5) -> torch.Tensor:
-    """RMSNorm over the last axis.  x: [..., d]; weight: [d].
-
-    CPU tensors take ``rmsnorm_ref``; CUDA tensors launch the Triton
-    kernel or raise."""
+def rmsnorm_fwd(x: torch.Tensor, weight: torch.Tensor,
+                eps: float = 1e-5) -> torch.Tensor:
+    """The forward alone.  CPU tensors take ``rmsnorm_ref``; CUDA tensors
+    launch the Triton kernel or raise."""
     global launches
     if x.device.type == "cpu":
         return rmsnorm_ref(x, weight, eps)
@@ -93,3 +94,36 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor,
                                num_warps=8 if block >= 2048 else 4)
         launches += 1
     return out.reshape(x.shape)
+
+
+class _RMSNorm(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, weight, eps):
+        ctx.save_for_backward(x, weight)
+        ctx.eps = eps
+        return rmsnorm_fwd(x, weight, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        with torch.enable_grad():
+            xx = x.detach().requires_grad_(ctx.needs_input_grad[0])
+            ww = weight.detach().requires_grad_(ctx.needs_input_grad[1])
+            y = rmsnorm_ref(xx, ww, ctx.eps)
+            wanted = [t for t in (xx, ww) if t.requires_grad]
+            grads = iter(torch.autograd.grad(y, wanted, g))
+        return (next(grads) if xx.requires_grad else None,
+                next(grads) if ww.requires_grad else None, None)
+
+
+def rmsnorm(x: torch.Tensor, weight: torch.Tensor,
+            eps: float = 1e-5) -> torch.Tensor:
+    """RMSNorm over the last axis.  x: [..., d]; weight: [d].
+
+    CPU tensors take ``rmsnorm_ref``; CUDA tensors launch the Triton
+    kernel or raise.  Differentiable in x and weight; without a gradient
+    to record (the serving path) it calls the forward directly."""
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad):
+        return _RMSNorm.apply(x, weight, eps)
+    return rmsnorm_fwd(x, weight, eps)

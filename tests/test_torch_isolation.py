@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from kuberay_tpu_torch.models import llama
+from kuberay_tpu_torch.ops import attention as fa
 from kuberay_tpu_torch.ops import decode_attention as da
 from kuberay_tpu_torch.ops import rmsnorm as rn
 from kuberay_tpu_torch.serve import engine, server
@@ -19,7 +20,7 @@ torch.set_num_threads(2)
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "kuberay_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "kuberay_tpu")
+FORBIDDEN = ("jax", "jaxlib", "optax", "kuberay_tpu")
 
 
 def _imported_modules(tree):
@@ -70,7 +71,8 @@ def test_engine_rejects_params_on_another_device():
 def test_kernel_modules_have_no_fallback():
     """No try/except in the kernel wrappers or the build: a CUDA tensor
     launches the kernel or raises."""
-    for name in ("rmsnorm.py", "decode_attention.py", "_build.py"):
+    for name in ("rmsnorm.py", "decode_attention.py", "attention.py",
+                 "_build.py"):
         tree = ast.parse(
             (ROOT / "kuberay_tpu_torch" / "ops" / name).read_text())
         assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)], name
@@ -84,3 +86,10 @@ def test_wrappers_refuse_devices_other_than_cpu_and_cuda():
     c = torch.empty(2, 8, 2, 16, device="meta")
     with pytest.raises(ValueError):
         da.decode_attention(q, c, c, torch.empty(2, device="meta"))
+    q = torch.empty(1, 64, 2, 64, device="meta")
+    k = torch.empty(1, 64, 1, 64, device="meta")
+    with pytest.raises(ValueError):
+        fa.flash_fwd(q, k, k)
+    lse = torch.empty(1, 2, 64, device="meta")
+    with pytest.raises(ValueError):
+        fa.flash_bwd(q, k, k, q, lse, q)
