@@ -9,10 +9,23 @@
    kernel's wrapper at the Llama-3-8B shapes the serving path gives it, and
    holds the result against the plain PyTorch version on the same inputs
    (bf16: RMSNorm atol 1.6e-2, one bf16 ulp for |y| < 4; decode attention
-   atol 2e-2).  Times kernel, plain version and one PyTorch library call
+   element by element, as the flash kernels below).  Times kernel, plain
+   version and one PyTorch library call
    (yardstick only) with CUDA events, eagerly and replayed from a CUDA
    graph (device time without the host's launch cost), and computes each
    kernel's bound.
+   The int8 decode kernel likewise (S 8, M 2048, 32 q / 8 kv heads of 128
+   with lens 0..2048; M 1000; D 64 group 1), against its plain version
+   (dequantise to bf16, then dense) and against the same attention with
+   the cache dequantised in float32 (only the output rounded), with SDPA
+   over the dequantised bf16 cache as the library yardstick (the
+   dequantisation not timed).  The paged kernel at the same serving shape
+   with block size 16 and a scrambled table whose slots share some
+   physical pages (lens 0..2048, not multiples of 16), and at block size
+   8 with D 64; SDPA over the gathered view (the gather not timed) and the
+   dense decode kernel at the same live lengths beside it; also the paged
+   int8 path's per-layer gather of contiguous int8 views.  All three
+   decode kernels are held to the flash kernels' element-wise limits.
    The three flash-attention kernels of the training path likewise, at
    llama_1b's shape (B 4, S 2048, 16 q / 8 kv heads of 128, causal), the
    Llama-3-8B head layout (32 / 8) at S 1024, a ragged S (1000), Skv > Sq
@@ -24,14 +37,31 @@
    forward+backward times as yardsticks.  Chunked cross entropy at
    llama3_8b's head (T 2048, d 4096, V 128256, chunk 16384, bf16): loss,
    dx and dhead against the dense loss.
-3. Serve: builds llama3_8b at full width (seeded random bf16 weights),
-   starts ServeEngine(max_slots=8, max_len=2048) behind ServeFrontend on
-   127.0.0.1, POSTs 8 concurrent greedy /v1/completions and then a repeat
-   of the first prompt.  Checks every response, the repeat's tokens, and
-   that both kernels' launch counts over this phase are exactly
-   65 RMSNorms per forward and 32 decode attentions per decode step.
-   Then checks the served tokens of the first request against a
-   full-recompute (no-cache) forward of the same sequence.
+3. Serve: builds llama3_8b at full width (seeded random bf16 weights)
+   once for every serve phase.  Starts ServeEngine(max_slots=8,
+   max_len=2048) behind ServeFrontend on 127.0.0.1, POSTs 8 concurrent
+   greedy /v1/completions and then the first prompt twice more.  Checks
+   every response, that the repeats' tokens equal the batch's, and that
+   the launch counts over this phase are exactly 65 RMSNorms per forward
+   and 32 decode attentions per decode step.  Then checks the served
+   tokens of the first request against a full-recompute (no-cache)
+   forward of the same sequence.
+   The same weights then serve through PagedServeEngine (block size 16,
+   the dense footprint of 1024 blocks) in bf16, then in int8, and through
+   ServeEngine with kv_quant="int8": 8 concurrent greedy requests, 4 of
+   which share a 512-token prefix, then one of the four twice more.
+   Checks the prefix hits (3 x 512 tokens in the batch, every full block
+   of the prompt on each repeat), that the two repeats agree (and, for
+   the dense engine, equal the batch's tokens: a paged engine prefills
+   past however much was cached, and bf16 matmuls of other shapes round
+   differently), exact launch counts (32 paged or int8 decode attentions
+   per decode step, none of the other decode kernels, 65 RMSNorms per
+   forward), and all 32 of the batch's and of the repeat's tokens against
+   the bf16 no-cache recompute: within 5% of the largest |logit| for the
+   bf16 pool and 10% for int8 (int8 K/V carry about 6x bf16's relative
+   rounding error, per element).  Where the repeat leaves the batch's
+   tokens, the recompute's logits of the two tokens at the first
+   difference are recorded (a near-tie or a fault).
 4. Train: runs the launcher (``kuberay_tpu_torch.train.launcher.main``)
    on llama_1b at full width and depth, batch 4 x 2048, 8 steps, bf16
    masters, on the synthetic shard; then 8 steps of make_train_step on
@@ -73,20 +103,26 @@ from kuberay_tpu_torch.models import llama
 from kuberay_tpu_torch.ops import _build
 from kuberay_tpu_torch.ops import attention as fa
 from kuberay_tpu_torch.ops import decode_attention as da
+from kuberay_tpu_torch.ops import paged_attention as pa
 from kuberay_tpu_torch.ops import rmsnorm as rn
 from kuberay_tpu_torch.ops import xent
 from kuberay_tpu_torch.train import launcher
 from kuberay_tpu_torch.train import train_step as ts
 from kuberay_tpu_torch.serve.engine import ServeEngine
-from kuberay_tpu_torch.serve.kv_cache import forward_with_cache, init_kv_cache
+from kuberay_tpu_torch.serve.kv_cache import (
+    forward_with_cache,
+    init_kv_cache,
+    quantize_kv,
+)
+from kuberay_tpu_torch.serve.paged_engine import PagedServeEngine
+from kuberay_tpu_torch.serve.paged_kv import quant_view
 from kuberay_tpu_torch.serve.server import ServeFrontend
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_S = 3.35e12          # H100 SXM device memory rate
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core peak
 RMS_ATOL = 1.6e-2
-DECODE_ATOL = 2e-2
-# Flash kernels vs plain, element by element against the element's own
+# Flash and decode kernels vs plain, element by element against the element's own
 # magnitude, since |out| and |grad| fall with the number of keys a row
 # sees (|out| ~ 1/sqrt(r)): |k - r| <= 2^-7 |r| (one bf16 ulp: both sides
 # round f32 results that differ in the last bits) + 2^-5 rms(row), the
@@ -98,7 +134,10 @@ DECODE_ATOL = 2e-2
 # whose exact value is 0 (query row 0's dQ: dS = P (dP - delta), with dP
 # and delta summed in other orders on the two sides).  Also the norm of
 # the whole difference <= 2^-7 of the reference's.  lse: f32 on both
-# sides (measured 1e-6).
+# sides (measured 1e-6).  The decode kernels' outputs (rows of D per slot
+# and q head) are held to the same limits: a decode row over 2048 unit-
+# normal keys is about 0.02 in size, so a skipped or misread tile or page
+# moves it by far more than 2^-5 of its RMS.
 FLASH_RTOL, FLASH_ROW_TOL, FLASH_NORM_TOL = 2 ** -7, 2 ** -5, 2 ** -7
 FLASH_FLOOR = 2 ** -12
 FLASH_LSE_ATOL = 1e-4
@@ -109,6 +148,13 @@ D_MODEL, HQ, HKV, HD = 4096, 32, 8, 128
 SLOTS, MAX_LEN = 8, 2048
 PROMPT_LENS = (7, 33, 64, 200, 511, 900, 1024, 1500)
 MAX_TOKENS = 32
+# Paged and int8 serving: four prompts share a 512-token (32-block)
+# prefix, followed by suffixes of these lengths; four stand alone.
+BLOCK_SIZE, SHARED = 16, 512
+SHARED_SUFFIXES = (7, 33, 200, 511)
+OTHER_LENS = (64, 900, 1024, 1500)
+REPEAT = 1                     # the request repeated after the batch
+RECOMPUTE_MARGIN = {"bf16": 0.05, "int8": 0.1}
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -186,6 +232,11 @@ def local_err(got: torch.Tensor, ref: torch.Tensor) -> dict:
             "ref_rms": rms.item()}
 
 
+def within_local(rec: dict) -> bool:
+    """``local_err``'s numbers inside the limits."""
+    return rec["worst"] <= 1.0 and rec["norm_rel"] <= FLASH_NORM_TOL
+
+
 def check_rmsnorm(gen: torch.Generator) -> dict:
     """RMSNorm at decode (8 rows), ragged and prefill row counts of the 8B
     serving path, and llama_1b's training shape (4 x 2048 rows of 2048)."""
@@ -238,14 +289,12 @@ def check_decode(gen: torch.Generator) -> dict:
                                device="cuda").bfloat16()) for _ in range(4)]
         ck, cv = caches[0]
         out = da.decode_attention(q, ck, cv, lens_t)
-        err = max_err(out, da.decode_attention_ref(q, ck, cv, lens_t))
-        if not err <= DECODE_ATOL:
-            raise AssertionError(f"decode M={M} lens={lens}: max abs err "
-                                 f"{err} > {DECODE_ATOL}")
+        loc = local_err(out, da.decode_attention_ref(q, ck, cv, lens_t))
+        if not within_local(loc):
+            raise AssertionError(f"decode M={M} lens={lens}: {loc}")
         if out[0].abs().max().item() != 0.0:
             raise AssertionError("decode: a lens=0 slot must give 0")
-        mask = (torch.arange(M, device="cuda")[None, :] < lens_t[:, None]
-                )[:, None, None, :]
+        mask = lens_mask(lens_t, M)
         it = iter(range(1 << 30))
 
         def run(fn):
@@ -256,15 +305,182 @@ def check_decode(gen: torch.Generator) -> dict:
                   + lens_t.numel() * 4)
         flops = 4 * live * HQ * HD
         shapes.append({
-            "max_len": M, "lens": lens, "max_abs_err": err,
+            "max_len": M, "lens": lens, "max_abs_err": loc["max_abs_err"],
+            "local": loc,
             **timings(
                 run(lambda k, v: da.decode_attention(q, k, v, lens_t)),
                 run(lambda k, v: da.decode_attention_ref(q, k, v, lens_t)),
-                run(lambda k, v: F.scaled_dot_product_attention(
-                    q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
-                    attn_mask=mask, enable_gqa=True)), 100, 20),
+                run(lambda k, v: sdpa_decode(q, k, v, mask)), 100, 20),
             **bound(nbytes, flops)})
         print(f"decode M={M}: {json.dumps(shapes[-1])}", flush=True)
+    return {"shapes": shapes, "main": shapes[0]}
+
+
+def lens_mask(lens_t: torch.Tensor, M: int) -> torch.Tensor:
+    """SDPA's boolean mask [S, 1, 1, M] of each slot's live positions."""
+    return (torch.arange(M, device="cuda")[None, :] < lens_t[:, None]
+            )[:, None, None, :]
+
+
+def sdpa_decode(q, ck, cv, mask):
+    """The library yardstick of one-token attention: SDPA over a
+    [S, M, Hkv, D] cache."""
+    return F.scaled_dot_product_attention(
+        q[:, :, None], ck.transpose(1, 2), cv.transpose(1, 2),
+        attn_mask=mask, enable_gqa=True)
+
+
+def int8_cache(gen, S, M, Hkv, D):
+    """A random int8 cache in the serving layout: kq/vq [S, M, Hkv, D]
+    int8, ks/vs [S, Hkv, M] float32 (quantize_kv of normal K/V)."""
+    out = []
+    for _ in range(2):
+        x8, s = quantize_kv(torch.randn(S, M, Hkv, D, generator=gen,
+                                        device="cuda"))
+        out += [x8, s[..., 0].transpose(1, 2).contiguous()]
+    return tuple(out)                      # kq, ks, vq, vs
+
+
+def check_decode_quant(gen: torch.Generator) -> dict:
+    """The int8 decode kernel at the 8B decode shape, at a cache length
+    (1000) that no 64-row tile divides, and at D 64 with group 1."""
+    shapes = []
+    for S, M, Hq, Hkv, D, lens in (
+            (SLOTS, MAX_LEN, HQ, HKV, HD, [0, 1, 17, 1000, 2048, 2047, 64, 65]),
+            (SLOTS, 1000, HQ, HKV, HD, [0, 1, 63, 64, 65, 500, 999, 1000]),
+            (4, 512, 8, 8, 64, [0, 5, 300, 512])):
+        lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        q = torch.randn(S, Hq, D, generator=gen, device="cuda").bfloat16()
+        caches = [int8_cache(gen, S, M, Hkv, D) for _ in range(4)]
+        kq, ks, vq, vs = caches[0]
+        out = da.decode_attention_quant(q, kq, ks, vq, vs, lens_t)
+        loc = local_err(out, da.decode_attention_quant_ref(q, kq, ks, vq, vs,
+                                                           lens_t))
+        # The same attention with the cache dequantised in float32: only
+        # the output is rounded, so this holds the kernel's own arithmetic.
+        loc32 = local_err(out, da.decode_attention_ref(
+            q, da.dequant_lanes(kq, ks, torch.float32),
+            da.dequant_lanes(vq, vs, torch.float32), lens_t))
+        if not (within_local(loc) and within_local(loc32)):
+            raise AssertionError(f"int8 decode M={M} D={D} lens={lens}: "
+                                 f"vs plain {loc}, vs f32 dequant {loc32}")
+        if out[0].abs().max().item() != 0.0:
+            raise AssertionError("int8 decode: a lens=0 slot must give 0")
+        rec = {"S": S, "max_len": M, "Hq": Hq, "Hkv": Hkv, "D": D,
+               "lens": lens, "max_abs_err": loc["max_abs_err"],
+               "local": loc, "local_f32_dequant": loc32}
+        if M == MAX_LEN:
+            # The library's operands: each copy dequantised to bf16 once,
+            # outside the timed calls.
+            deq = [(da.dequant_lanes(kq, ks, torch.bfloat16),
+                    da.dequant_lanes(vq, vs, torch.bfloat16))
+                   for kq, ks, vq, vs in caches]
+            mask = lens_mask(lens_t, M)
+            it = iter(range(1 << 30))
+
+            def run(fn, pool):
+                return lambda: fn(*pool[next(it) % 4])
+
+            live = int(sum(lens))
+            nbytes = (2 * live * Hkv * (D + 4) + 2 * q.numel() * 2
+                      + lens_t.numel() * 4)
+            rec.update(**timings(
+                run(lambda kq, ks, vq, vs: da.decode_attention_quant(
+                    q, kq, ks, vq, vs, lens_t), caches),
+                run(lambda kq, ks, vq, vs: da.decode_attention_quant_ref(
+                    q, kq, ks, vq, vs, lens_t), caches),
+                run(lambda k, v: sdpa_decode(q, k, v, mask), deq), 100, 20),
+                **bound(nbytes, 4 * live * Hq * D),
+                library_of="SDPA over the cache dequantised to bf16 "
+                           "(the dequantisation not timed)")
+            del deq
+        shapes.append(rec)
+        print(f"int8 decode M={M} D={D}: {json.dumps(rec)}", flush=True)
+        del caches
+    torch.cuda.empty_cache()
+    return {"shapes": shapes, "main": shapes[0]}
+
+
+def scrambled_tables(gen, S, max_blocks, num_blocks, shared):
+    """Block tables [S, max_blocks] int32 over a random permutation of the
+    pool, with slots 1 and 2 reading slot 0's first ``shared`` pages (as
+    requests with a cached prefix do)."""
+    perm = torch.randperm(num_blocks, generator=gen, device="cuda")
+    tables = perm[:S * max_blocks].reshape(S, max_blocks).clone()
+    tables[1:3, :shared] = tables[0, :shared]
+    return tables.int().contiguous()
+
+
+def check_paged(gen: torch.Generator) -> dict:
+    """The paged kernel at the 8B decode shape (block size 16, pool of
+    1024 blocks, scrambled tables with shared pages) and at block size 8
+    with D 64, group 1."""
+    shapes = []
+    for S, Hq, Hkv, D, bs, nblk, maxb, lens in (
+            (SLOTS, HQ, HKV, HD, BLOCK_SIZE, SLOTS * MAX_LEN // BLOCK_SIZE,
+             MAX_LEN // BLOCK_SIZE, [0, 1, 17, 1000, 2048, 2047, 64, 65]),
+            (4, 8, 8, 64, 8, 256, 64, [0, 5, 300, 512])):
+        lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        q = torch.randn(S, Hq, D, generator=gen, device="cuda").bfloat16()
+        tables = scrambled_tables(gen, S, maxb, nblk, shared=10)
+        pools = [tuple(torch.randn(Hkv, nblk * bs, D, generator=gen,
+                                   device="cuda").bfloat16()
+                       for _ in range(2)) for _ in range(4)]
+        pk, pv = pools[0]
+        out = pa.paged_decode_attention(q, pk, pv, lens_t, tables, bs)
+        loc = local_err(out, pa.paged_decode_attention_ref(q, pk, pv, lens_t,
+                                                           tables, bs))
+        if not within_local(loc):
+            raise AssertionError(f"paged decode bs={bs} D={D} lens={lens}: "
+                                 f"{loc}")
+        if out[0].abs().max().item() != 0.0:
+            raise AssertionError("paged decode: a lens=0 slot must give 0")
+        rec = {"S": S, "Hq": Hq, "Hkv": Hkv, "D": D, "block_size": bs,
+               "num_blocks": nblk, "lens": lens,
+               "max_abs_err": loc["max_abs_err"], "local": loc}
+        if bs == BLOCK_SIZE:
+            # Gathered per-request views of each pool copy, made outside
+            # the timed calls: the library's operands and the dense
+            # decode kernel's.
+            views = [tuple(pa.gather_view(p, tables, bs).contiguous()
+                           for p in pool) for pool in pools]
+            mask = lens_mask(lens_t, maxb * bs)
+            it = iter(range(1 << 30))
+
+            def run(fn, pool):
+                return lambda: fn(*pool[next(it) % 4])
+
+            live = int(sum(lens))
+            pages = sum(-(-n // bs) for n in lens)
+            nbytes = (2 * live * Hkv * D * 2 + 2 * q.numel() * 2
+                      + pages * 4 + lens_t.numel() * 4)
+            rec.update(**timings(
+                run(lambda k, v: pa.paged_decode_attention(
+                    q, k, v, lens_t, tables, bs), pools),
+                run(lambda k, v: pa.paged_decode_attention_ref(
+                    q, k, v, lens_t, tables, bs), pools),
+                run(lambda k, v: sdpa_decode(q, k, v, mask), views), 100, 20),
+                **bound(nbytes, 4 * live * Hq * D),
+                library_of="SDPA over the gathered view (the gather not "
+                           "timed)",
+                dense_decode_ms=cuda_ms(run(
+                    lambda k, v: da.decode_attention(q, k, v, lens_t),
+                    views), 100))
+            # What the paged int8 path pays per layer and decode step
+            # besides its kernel: the contiguous int8 views of K and V
+            # (values and scales) gathered through the tables.
+            pools8 = [{"q": x8, "s": sc[..., 0]}
+                      for x8, sc in map(quantize_kv, pools[0])]
+
+            def int8_views():
+                return [quant_view(p8, tables, bs, True) for p8 in pools8]
+            rec.update(int8_view_ms=cuda_ms(int8_views, 50),
+                       int8_view_graph_ms=graph_ms(int8_views, 50))
+            del views, pools8
+        shapes.append(rec)
+        print(f"paged decode bs={bs} D={D}: {json.dumps(rec)}", flush=True)
+        del pools
+    torch.cuda.empty_cache()
     return {"shapes": shapes, "main": shapes[0]}
 
 
@@ -312,8 +528,7 @@ def check_flash(gen: torch.Generator) -> dict:
             rec[key] = local_err(g, r)
         print(f"flash {name}: {json.dumps(rec)}", flush=True)
         if not (rec["lse_err"] <= FLASH_LSE_ATOL
-                and all(rec[t]["worst"] <= 1.0
-                        and rec[t]["norm_rel"] <= FLASH_NORM_TOL
+                and all(within_local(rec[t])
                         for t in ("out", "dq", "dk", "dv"))):
             raise AssertionError(f"flash kernels disagree with the plain "
                                  f"versions at {name}: {rec}")
@@ -426,19 +641,21 @@ def post(url: str, body: dict, timeout: float = 600.0):
         return resp.status, dict(resp.headers), json.load(resp)
 
 
-def serve(seed: int = 0) -> dict:
-    """llama3_8b at full width behind the HTTP frontend."""
-    cfg = llama.CONFIGS["llama3_8b"]
-    t0 = time.perf_counter()
-    params = llama.init_params(
-        cfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")
-    engine = ServeEngine(cfg, params, max_slots=SLOTS, max_len=MAX_LEN,
-                         device="cuda")
-    torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
-    rng = np.random.default_rng(seed)
-    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
-               for n in PROMPT_LENS]
+def serve_counts() -> dict:
+    return {"rmsnorm": rn.launches, "decode_attention": da.launches,
+            "decode_attention_quant": da.launches_quant,
+            "paged_decode_attention": pa.launches}
+
+
+def drive(engine, prompts, repeat: int, same_as_batch: bool) -> dict:
+    """The engine behind ServeFrontend on 127.0.0.1: every prompt POSTed
+    at once (greedy, MAX_TOKENS new tokens each), then prompts[repeat]
+    twice more.  The two repeats run the same computation and must give
+    the same tokens; with ``same_as_batch`` they must also equal the
+    batch's (a dense engine prefills a prompt the same way each time; a
+    paged engine prefills past however much of it was cached, and bf16
+    matmuls of other shapes round differently).  Launch counts are set to
+    0 just before and read just after."""
     fe = ServeFrontend(engine)
     srv, url = fe.serve_background("127.0.0.1", 0)
     results, errors = {}, []
@@ -462,9 +679,11 @@ def serve(seed: int = 0) -> dict:
         for t in threads:
             t.join(timeout=900)
         batch_s = time.perf_counter() - t0
-        repeat = post(url, {"prompt_tokens": prompts[0],
+        batch_stats = fe.stats()
+        again = [post(url, {"prompt_tokens": prompts[repeat],
                             "max_tokens": MAX_TOKENS, "temperature": 0.0})
-        launches = {"rmsnorm": rn.launches, "decode_attention": da.launches}
+                 for _ in range(2)]
+        launches = serve_counts()
         stats = fe.stats()
     finally:
         srv.shutdown()
@@ -472,6 +691,7 @@ def serve(seed: int = 0) -> dict:
         fe.close()
     if errors or any(t.is_alive() for t in threads):
         raise AssertionError(f"serve requests failed: {errors}")
+    vocab = engine.cfg.vocab_size
     for i, (status, headers, body) in sorted(results.items()):
         n = len(body["tokens"])
         if status != 200 or not (
@@ -480,40 +700,141 @@ def serve(seed: int = 0) -> dict:
             raise AssertionError(f"request {i}: status {status}, body {body}")
         if not headers.get("X-TPU-Queue-Depth", "").isdigit():
             raise AssertionError(f"request {i}: no load headers {headers}")
-        if body["prompt_len"] != PROMPT_LENS[i] or \
-                not all(0 <= t < cfg.vocab_size for t in body["tokens"]):
+        if body["prompt_len"] != len(prompts[i]) or \
+                not all(0 <= t < vocab for t in body["tokens"]):
             raise AssertionError(f"request {i}: bad body {body}")
-    if repeat[0] != 200 or repeat[2]["tokens"] != results[0][2]["tokens"]:
-        raise AssertionError(f"repeat differs: {repeat[2]['tokens']} vs "
-                             f"{results[0][2]['tokens']}")
+    first = results[repeat][2]["tokens"]
+    tokens = [r[2]["tokens"] for r in again]
+    if any(r[0] != 200 for r in again) or tokens[0] != tokens[1] or (
+            same_as_batch and tokens[0] != first):
+        raise AssertionError(f"repeats differ: {tokens} (batch: {first})")
     forwards = stats["prefills"] + stats["decode_steps"]
-    want = {"rmsnorm": (2 * cfg.n_layers + 1) * forwards,
-            "decode_attention": cfg.n_layers * stats["decode_steps"]}
-    if launches != want or stats["decode_steps"] == 0:
-        raise AssertionError(f"kernel launches {launches} != expected {want} "
-                             f"(stats {stats})")
+    if stats["decode_steps"] == 0 or \
+            launches["rmsnorm"] != (2 * engine.cfg.n_layers + 1) * forwards:
+        raise AssertionError(f"rmsnorm launches {launches} (stats {stats})")
+    return {"batch_wall_s": batch_s,
+            "ttft_ms": [results[i][2]["ttft_ms"] for i in sorted(results)],
+            "decode_tokens_per_s": stats["decode_tokens"] / stats["decode_s"],
+            "decode_step_ms": 1e3 * stats["decode_s"] / stats["decode_steps"],
+            "max_memory_allocated_gb":
+                torch.cuda.max_memory_allocated() / 1e9,
+            "launches": launches, "engine": stats,
+            "engine_after_batch": batch_stats,
+            "tokens": [results[i][2]["tokens"] for i in sorted(results)],
+            "repeat_tokens": tokens[0],
+            "repeat_equals_batch": tokens[0] == first}
+
+
+def expect_decode_kernel(run: dict, kernel: str, n_layers: int) -> None:
+    """Every decode step launched ``kernel`` once per layer and no other
+    decode-attention kernel ran."""
+    steps = run["engine"]["decode_steps"]
+    want = {k: 0 for k in ("decode_attention", "decode_attention_quant",
+                           "paged_decode_attention")}
+    want[kernel] = n_layers * steps
+    got = {k: run["launches"][k] for k in want}
+    if got != want:
+        raise AssertionError(f"decode launches {got} != expected {want} "
+                             f"(stats {run['engine']})")
+
+
+def serve(cfg, params, seed: int = 0) -> dict:
+    """llama3_8b at full width through the dense bf16 engine behind the
+    HTTP frontend."""
+    t0 = time.perf_counter()
+    engine = ServeEngine(cfg, params, max_slots=SLOTS, max_len=MAX_LEN,
+                         device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in PROMPT_LENS]
+    run = drive(engine, prompts, repeat=0, same_as_batch=True)
+    expect_decode_kernel(run, "decode_attention", cfg.n_layers)
     ref = check_against_recompute(cfg, params, prompts[0],
-                                  results[0][2]["tokens"][:8])
-    ttfts = [results[i][2]["ttft_ms"] for i in sorted(results)]
-    out = {
-        "model": "llama3_8b", "params": cfg.num_params(), "setup_s": setup_s,
-        "batch_wall_s": batch_s, "ttft_ms": ttfts,
-        "decode_tokens_per_s": stats["decode_tokens"] / stats["decode_s"],
-        "decode_step_ms": 1e3 * stats["decode_s"] / stats["decode_steps"],
-        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "launches": launches, "engine": stats, "recompute_check": ref,
-        "repeat_tokens_equal": True,
-    }
-    del params, engine
+                                  run["tokens"][0][:8])
+    del engine
+    torch.cuda.empty_cache()
+    return {"model": "llama3_8b", "params": cfg.num_params(),
+            "setup_s": setup_s, **run, "recompute_check": ref}
+
+
+def shared_prefix_prompts(vocab: int, seed: int):
+    """Four prompts that share one SHARED-token prefix, then four that
+    share nothing."""
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(0, vocab, SHARED).tolist()
+    return ([prefix + rng.integers(0, vocab, n).tolist()
+             for n in SHARED_SUFFIXES]
+            + [rng.integers(0, vocab, n).tolist() for n in OTHER_LENS])
+
+
+def serve_cached(cfg, params, kv_quant: str, paged: bool,
+                 seed: int = 1) -> dict:
+    """llama3_8b through the paged engine (bf16 or int8 pool) or the
+    dense engine with the int8 cache, behind the HTTP frontend, on
+    shared-prefix traffic."""
+    t0 = time.perf_counter()
+    if paged:
+        engine = PagedServeEngine(cfg, params, max_slots=SLOTS,
+                                  max_len=MAX_LEN, block_size=BLOCK_SIZE,
+                                  device="cuda", kv_quant=kv_quant)
+        kernel = "paged_decode_attention" if kv_quant == "none" \
+            else "decode_attention_quant"
+    else:
+        engine = ServeEngine(cfg, params, max_slots=SLOTS, max_len=MAX_LEN,
+                             device="cuda", kv_quant=kv_quant)
+        kernel = "decode_attention_quant"
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    prompts = shared_prefix_prompts(cfg.vocab_size, seed)
+    run = drive(engine, prompts, repeat=REPEAT, same_as_batch=not paged)
+    expect_decode_kernel(run, kernel, cfg.n_layers)
+    out = {"paged": paged, "kv_quant": kv_quant, "setup_s": setup_s, **run}
+    if paged:
+        # Admissions run one at a time, each publishing its full prompt
+        # blocks, so the three later sharers hit the whole prefix; the
+        # repeats hit every full block of the prompt.
+        batch_hits = run["engine_after_batch"]["prefix_hit_tokens"]
+        repeat_hits = (run["engine"]["prefix_hit_tokens"] - batch_hits) // 2
+        full = len(prompts[REPEAT]) // BLOCK_SIZE * BLOCK_SIZE
+        out.update(prefix_hit_tokens_batch=batch_hits,
+                   prefix_hit_tokens_repeat=repeat_hits)
+        print(f"prefix hits: batch {batch_hits}, repeat {repeat_hits}",
+              flush=True)
+        if batch_hits != (len(SHARED_SUFFIXES) - 1) * SHARED or \
+                repeat_hits != full:
+            raise AssertionError(f"prefix hits: batch {batch_hits} != "
+                                 f"{(len(SHARED_SUFFIXES) - 1) * SHARED} or "
+                                 f"repeat {repeat_hits} != {full}")
+    # The repeat was served past a cached prefix (paged) and through the
+    # kernel of the phase; so was the batch's request, unless it was the
+    # first of the sharers admitted.  Every served token is checked.
+    margin = RECOMPUTE_MARGIN["int8" if kv_quant == "int8" else "bf16"]
+    batch, again = run["tokens"][REPEAT], run["repeat_tokens"]
+    out["recompute_check"] = {
+        "batch": check_against_recompute(cfg, params, prompts[REPEAT], batch,
+                                         margin, other=again),
+        "repeat": check_against_recompute(cfg, params, prompts[REPEAT],
+                                          again, margin)}
+    print(f"recompute {'paged' if paged else 'dense'} {kv_quant}: "
+          f"{json.dumps(out['recompute_check'])}", flush=True)
+    del engine
     torch.cuda.empty_cache()
     return out
 
 
-def check_against_recompute(cfg, params, prompt, served) -> dict:
+def check_against_recompute(cfg, params, prompt, served,
+                            margin_frac: float = RECOMPUTE_MARGIN["bf16"],
+                            other=None) -> dict:
     """Greedy tokens served through the cache (prefill + decode kernel)
-    vs one no-cache forward of prompt + served tokens (multi-token plain
-    attention): each served token must be the reference's argmax, or within
-    a bf16-noise margin of its max logit."""
+    vs one no-cache bf16 forward of prompt + served tokens (multi-token
+    plain attention): each served token must be the reference's argmax, or
+    within ``margin_frac`` of the largest |logit| below its max logit.
+    With ``other`` (tokens served for the same prompt another time), the
+    first position where the two differ and the reference's logits of
+    both tokens there (the prefixes before it are the same, so one forward
+    gives both)."""
     seq = torch.tensor([prompt + served], device="cuda")
     T = seq.shape[1]
     cache = init_kv_cache(cfg, 1, T, "cuda")
@@ -526,17 +847,27 @@ def check_against_recompute(cfg, params, prompt, served) -> dict:
         raise AssertionError("recompute logits are not finite")
     served_t = torch.tensor(served, device="cuda")
     gap = rows.max(-1).values - rows.gather(-1, served_t[:, None])[:, 0]
-    margin = 0.05 * rows.abs().max().item()
+    margin = margin_frac * rows.abs().max().item()
     agree = int((rows.argmax(-1) == served_t).sum())
     if gap.max().item() > margin:
         raise AssertionError(f"served tokens are not the recompute's greedy "
                              f"choices: gaps {gap.tolist()} > {margin}")
-    return {"tokens": len(served), "argmax_agree": agree,
-            "max_gap": gap.max().item(), "margin": margin}
+    out = {"tokens": len(served), "argmax_agree": agree,
+           "max_gap": gap.max().item(), "margin": margin}
+    if other is not None:
+        i = next((i for i, (a, b) in enumerate(zip(served, other))
+                  if a != b), None)
+        out["divergence"] = None if i is None else {
+            "index": i, "served": served[i], "other": other[i],
+            "served_logit": rows[i, served[i]].item(),
+            "other_logit": rows[i, other[i]].item(),
+            "max_logit": rows[i].max().item(),
+            "gap": (rows[i, served[i]] - rows[i, other[i]]).item()}
+    return out
 
 
 def reset_counts() -> None:
-    rn.launches = da.launches = 0
+    rn.launches = da.launches = da.launches_quant = pa.launches = 0
     fa.fwd_launches = fa.bwd_dkv_launches = fa.bwd_dq_launches = 0
 
 
@@ -694,22 +1025,40 @@ def main(argv=None) -> None:
     gen = torch.Generator(device="cuda").manual_seed(0)
     rms = check_rmsnorm(gen)
     dec = check_decode(gen)
+    decq = check_decode_quant(gen)
+    paged = check_paged(gen)
     flash = check_flash(gen)
     xe = check_xent(gen)
     torch.cuda.empty_cache()
-    srv = serve()
-    print(f"serve: {json.dumps({k: v for k, v in srv.items() if k != 'engine'})}",
-          flush=True)
+    # One llama3_8b tree (16 GB of bf16 weights) serves every serve phase.
+    cfg = llama.CONFIGS["llama3_8b"]
+    params = llama.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    srv = serve(cfg, params)
+    cached = {"serve_paged": serve_cached(cfg, params, "none", paged=True),
+              "serve_int8_paged": serve_cached(cfg, params, "int8",
+                                               paged=True),
+              "serve_int8_dense": serve_cached(cfg, params, "int8",
+                                               paged=False)}
+    del params
+    torch.cuda.empty_cache()
+    for name, run in {"serve": srv, **cached}.items():
+        print(f"{name}: " + json.dumps(
+            {k: v for k, v in run.items()
+             if k not in ("engine", "engine_after_batch", "tokens")}),
+            flush=True)
     trn = train(profile=args.profile)
     print(f"train: {json.dumps(trn)}", flush=True)
-    by_path = {"serve": srv["launches"], "train": trn["launcher"]["launches"]}
+    by_path = {"serve": srv["launches"],
+               **{name: run["launches"] for name, run in cached.items()},
+               "train": trn["launcher"]["launches"]}
 
-    def entry(name, route, source, replaces, res, launches):
+    def entry(name, route, source, replaces, res):
         m = res["main"]
+        paths = {p: c[name] for p, c in by_path.items() if c.get(name)}
         return {"name": name, "route": route, "source": source,
-                "replaces": replaces, "launches": launches,
-                "launches_by_path": {p: c[name] for p, c in by_path.items()
-                                     if name in c},
+                "replaces": replaces, "launches": sum(paths.values()),
+                "launches_by_path": paths,
                 "max_abs_err": max(s["max_abs_err"] for s in res["shapes"]),
                 "ms": m["ms"], "plain_ms": m["plain_ms"],
                 "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
@@ -719,16 +1068,18 @@ def main(argv=None) -> None:
 
     kernels = {"kernels": [
         entry("rmsnorm", "triton", "kuberay_tpu_torch/ops/rmsnorm.py",
-              "kuberay_tpu/ops/rmsnorm.py:27", rms,
-              srv["launches"]["rmsnorm"]
-              + trn["launcher"]["launches"]["rmsnorm"]),
+              "kuberay_tpu/ops/rmsnorm.py:27", rms),
         entry("decode_attention", "cuda",
               "kuberay_tpu_torch/csrc/decode_attention.cu",
-              "kuberay_tpu/ops/decode_attention.py:150", dec,
-              srv["launches"]["decode_attention"]),
+              "kuberay_tpu/ops/decode_attention.py:150", dec),
+        entry("decode_attention_quant", "cuda",
+              "kuberay_tpu_torch/csrc/decode_attention.cu",
+              "kuberay_tpu/ops/decode_attention.py:150", decq),
+        entry("paged_decode_attention", "cuda",
+              "kuberay_tpu_torch/csrc/paged_attention.cu",
+              "kuberay_tpu/ops/paged_attention.py:69", paged),
         *(entry(name, "cuda", "kuberay_tpu_torch/csrc/flash_attention.cu",
-                f"kuberay_tpu/ops/attention.py:{line}", flash[name],
-                trn["launcher"]["launches"][name])
+                f"kuberay_tpu/ops/attention.py:{line}", flash[name])
           for name, line in (("flash_fwd", 70), ("flash_bwd_dkv", 172),
                              ("flash_bwd_dq", 222))),
     ]}
@@ -739,8 +1090,10 @@ def main(argv=None) -> None:
         "build_s": build_s,
         "build_log": {p.name: p.with_suffix(".log").read_text()
                       for p in libs},
-        "rmsnorm": rms, "decode_attention": dec, "flash": flash,
-        "chunked_xent": xe, "serve": srv, "train": trn,
+        "rmsnorm": rms, "decode_attention": dec,
+        "decode_attention_quant": decq, "paged_decode_attention": paged,
+        "flash": flash, "chunked_xent": xe, "serve": srv, **cached,
+        "train": trn,
         **kernels}, indent=1))
     print(smi, flush=True)
     print(json.dumps(kernels), flush=True)

@@ -1,12 +1,15 @@
 """Continuous-batching inference engine, in PyTorch.
 
 Port of the core of ``kuberay_tpu/serve/engine.py::ServeEngine``: a fixed
-slot count over a static dense KV cache; new requests prefill into free
-slots while the others keep decoding; prompt lengths are bucketed to
-powers of two; greedy, temperature, top-p and top-k sampling per request;
-eos and stop tokens; TTFT per request.  The host loop does bookkeeping
-only; every step runs ``serve/kv_cache.py::forward_with_cache`` on the
-engine's device.
+slot count over a static dense KV cache (bf16, or int8 with
+``kv_quant="int8"``); new requests prefill into free slots while the
+others keep decoding; prompt lengths are bucketed to powers of two;
+greedy, temperature, top-p and top-k sampling per request; eos and stop
+tokens; TTFT per request.  The host loop does bookkeeping only; every step
+runs ``serve/kv_cache.py::forward_with_cache`` (or its int8 wrapper) on
+the engine's device.  The paged engine (``serve/paged_engine.py``)
+subclasses it through the hooks ``_init_cache``, ``_prefill_forward``,
+``_decode_forward`` and ``_admit``.
 
 Where the JAX prefill runs every slot's row (one of them real) and computes
 logits at every position, this one prefills only the target slot and takes
@@ -29,7 +32,12 @@ import numpy as np
 import torch
 
 from kuberay_tpu_torch.models.llama import LlamaConfig
-from kuberay_tpu_torch.serve.kv_cache import forward_with_cache, init_kv_cache
+from kuberay_tpu_torch.serve.kv_cache import (
+    forward_with_cache,
+    init_kv_cache,
+    make_quantized_forward,
+    tree_map,
+)
 from kuberay_tpu_torch.utils.device import resolve_device
 
 
@@ -50,7 +58,7 @@ class Request:
 class Response:
     request_id: str
     tokens: List[int]                 # generated tokens (no prompt)
-    finish_reason: str = "length"     # length|eos|cancelled
+    finish_reason: str = "length"     # length|eos|cancelled|preempted
     prompt_len: int = 0
     created: float = 0.0
     # Enqueue -> first-token seconds (None for cancelled requests).
@@ -75,7 +83,7 @@ def _gumbel(shape, generator: torch.Generator, device) -> torch.Tensor:
 class ServeEngine:
     def __init__(self, cfg: LlamaConfig, params: Dict[str, Any],
                  max_slots: int = 8, max_len: int = 2048,
-                 rng_seed: int = 0, device="cuda"):
+                 rng_seed: int = 0, device="cuda", kv_quant: str = "none"):
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params are on {params['embed'].device}, the "
@@ -87,7 +95,10 @@ class ServeEngine:
         self.params = params
         self.max_slots = max_slots
         self.max_len = max_len
-        self.cache = init_kv_cache(cfg, max_slots, max_len, self.device)
+        self.kv_quant = kv_quant
+        self.cache = self._init_cache()
+        self._forward = make_quantized_forward() if kv_quant == "int8" \
+            else forward_with_cache
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(rng_seed)
         # Streaming hook: token_callback(request_id, [tokens]) as tokens are
@@ -114,16 +125,39 @@ class ServeEngine:
     # device steps
     # ------------------------------------------------------------------
 
+    def _init_cache(self):
+        return init_kv_cache(self.cfg, self.max_slots, self.max_len,
+                             self.device, quant=self.kv_quant)
+
+    def _prefill_forward(self, tokens: torch.Tensor, slot: int,
+                         start: torch.Tensor, real_len: int,
+                         logits_index: torch.Tensor) -> torch.Tensor:
+        """The prefill's model call: one row, ``tokens`` [1, T] written at
+        ``start`` into the slot's cache rows (a slot view of every cache
+        leaf, whose slot axis is the second)."""
+        view = tree_map(lambda t: t[:, slot:slot + 1], self.cache)
+        logits, _ = self._forward(self.cfg, self.params, tokens, view, start,
+                                  logits_index=logits_index)
+        return logits
+
+    def _decode_forward(self, tokens: torch.Tensor, lens: torch.Tensor,
+                        mask: torch.Tensor) -> torch.Tensor:
+        """The decode step's model call over every slot."""
+        logits, _ = self._forward(self.cfg, self.params, tokens, self.cache,
+                                  lens, mask)
+        return logits
+
     @torch.no_grad()
     def _prefill(self, padded: np.ndarray, slot: int, real_len: int,
-                 samp: np.ndarray) -> int:
-        """Prefill one request into one slot; returns its first token."""
+                 samp: np.ndarray, start_pos: int = 0) -> int:
+        """Prefill ``real_len`` new tokens of one request into one slot at
+        cache offset ``start_pos`` (past a prefix served from cache);
+        returns its first generated token."""
         tokens = torch.from_numpy(padded).to(self.device, torch.long)[None]
-        view = {k: v[:, slot:slot + 1] for k, v in self.cache.items()}
-        start = torch.zeros(1, dtype=torch.long, device=self.device)
+        start = torch.full((1,), start_pos, dtype=torch.long,
+                           device=self.device)
         idx = torch.tensor([real_len - 1], device=self.device)
-        logits, _ = forward_with_cache(self.cfg, self.params, tokens, view,
-                                       start, logits_index=idx)
+        logits = self._prefill_forward(tokens, slot, start, real_len, idx)
         sample = self._sample if self._filters_on(samp) else self._sample_plain
         samp_t = torch.from_numpy(samp).to(self.device)[None]
         noise = self._noise(logits[:, 0], samp[None])
@@ -137,10 +171,9 @@ class ServeEngine:
         t0 = time.perf_counter()
         dev = self.device
         tokens = torch.from_numpy(last).to(dev, torch.long)[:, None]
-        logits, _ = forward_with_cache(
-            self.cfg, self.params, tokens, self.cache,
-            torch.from_numpy(self.lens).to(dev),
-            torch.from_numpy(mask).to(dev))
+        logits = self._decode_forward(tokens,
+                                      torch.from_numpy(self.lens).to(dev),
+                                      torch.from_numpy(mask).to(dev))
         sample = self._sample if self._filters_on(temps) else self._sample_plain
         noise = self._noise(logits[:, 0], temps)
         toks = sample(logits[:, 0], torch.from_numpy(temps).to(dev), noise)
@@ -246,14 +279,16 @@ class ServeEngine:
                 or bool(self._finished))
 
     def step(self) -> List[Response]:
-        """One engine iteration: admit (prefill) into every free slot, then
+        """One engine iteration: admit (prefill) into every free slot until
+        an admission is blocked (the paged engine waits for memory), then
         decode all active slots.  Returns finished responses."""
         while self.queue:
             free = next((i for i, r in enumerate(self.active) if r is None),
                         None)
             if free is None:
                 break
-            self._admit(self.queue.pop(0), free)
+            if not self._admit(self.queue.pop(0), free):
+                break
         if self.num_active:
             self._decode_all()
         out, self._finished = self._finished, []
@@ -276,7 +311,10 @@ class ServeEngine:
         return np.array([req.temperature, req.top_p, float(req.top_k)],
                         np.float32)
 
-    def _admit(self, req: Request, slot: int) -> None:
+    def _admit(self, req: Request, slot: int) -> bool:
+        """Prefill a request into a free slot and return True.  The paged
+        engine returns False when the admission is blocked on memory (the
+        request goes back to the queue)."""
         plen = len(req.prompt_tokens)
         bucket = _bucket(plen, self.max_len)
         padded = np.zeros(bucket, dtype=np.int64)
@@ -284,10 +322,15 @@ class ServeEngine:
         tok = self._prefill(padded, slot, plen, self._samp(req))
         # The slot's cache holds `bucket` rows; only plen are real, and
         # decode overwrites the padding rows from position plen on.
+        self._finalize_admit(req, slot, tok)
+        return True
+
+    def _finalize_admit(self, req: Request, slot: int, tok: int) -> None:
+        """Activate a prefilled slot: TTFT, lengths, the first token."""
         arrival = self._arrival.pop(req.request_id, None)
         self._ttft[slot] = (time.time() - arrival) if arrival is not None \
             else None
-        self.lens[slot] = plen
+        self.lens[slot] = len(req.prompt_tokens)
         self.active[slot] = req
         self.generated[slot] = [tok]
         self.budget[slot] = req.max_new_tokens - 1
@@ -343,6 +386,8 @@ class ServeEngine:
             self._finish(slot, reason)
 
     def _finish(self, slot: int, reason: str) -> None:
+        """The one finish path (length, eos or preemption); the paged
+        engine hooks it to release the slot's blocks."""
         req = self.active[slot]
         self._finished.append(Response(
             req.request_id, list(self.generated[slot]), reason,

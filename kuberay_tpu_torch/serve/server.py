@@ -16,6 +16,11 @@ Streaming, the KV-block endpoints, coordinator registration and
 multi-host serving are not ported yet.
 
 Run:  python -m kuberay_tpu_torch.serve.server --model llama3_8b
+          [--paged [--block-size 16] [--num-blocks N]] [--kv-quant int8]
+
+``--paged`` serves from the paged KV pool with prefix caching
+(``serve/paged_engine.py``); ``--kv-quant int8`` stores K/V in int8, in
+the paged pool or, without ``--paged``, in the dense cache.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from http.server import ThreadingHTTPServer
 from typing import Any, Dict, Optional
 
 from kuberay_tpu_torch.serve.engine import Request, Response, ServeEngine
+from kuberay_tpu_torch.serve.paged_engine import PagedServeEngine
 from kuberay_tpu_torch.utils import constants as C
 from kuberay_tpu_torch.utils.httpjson import JsonHandler, serve_background
 
@@ -263,6 +269,15 @@ def main(argv=None):
     ap.add_argument("--max-len", type=int, default=2048)
     ap.add_argument("--device", default="cuda",
                     help="torch device (cuda, or cpu for the plain paths)")
+    ap.add_argument("--paged", action="store_true",
+                    help="paged KV pool with prefix caching")
+    ap.add_argument("--block-size", type=int, default=16,
+                    help="paged KV block size (tokens)")
+    ap.add_argument("--num-blocks", type=int, default=0,
+                    help="paged pool blocks (0 = the dense cache's footprint)")
+    ap.add_argument("--kv-quant", default="none", choices=["none", "int8"],
+                    help="KV cache storage: bf16 (none) or int8 with "
+                         "per-position scales")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
 
@@ -270,12 +285,21 @@ def main(argv=None):
     # Seed-0 random init: no checkpoint loading in the port yet.
     gen = torch.Generator(device=device).manual_seed(0)
     params = llama.init_params(cfg, gen, device)
-    engine = ServeEngine(cfg, params, max_slots=args.max_slots,
-                         max_len=args.max_len, device=device)
+    if args.paged:
+        engine = PagedServeEngine(
+            cfg, params, max_slots=args.max_slots, max_len=args.max_len,
+            num_blocks=args.num_blocks, block_size=args.block_size,
+            device=device, kv_quant=args.kv_quant)
+    else:
+        engine = ServeEngine(cfg, params, max_slots=args.max_slots,
+                             max_len=args.max_len, device=device,
+                             kv_quant=args.kv_quant)
     frontend = ServeFrontend(engine)
     srv = frontend.make_server(args.host, args.port)
+    kind = "paged" if args.paged else "dense"
     print(f"serving {args.model} on {args.host}:{srv.server_address[1]} "
-          f"({device})", flush=True)
+          f"({device}, {kind} KV cache, kv quant {args.kv_quant})",
+          flush=True)
 
     def _on_term(signum, frame):
         # srv.shutdown() must not run on the thread inside serve_forever.

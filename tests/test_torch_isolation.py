@@ -12,8 +12,9 @@ import torch
 from kuberay_tpu_torch.models import llama
 from kuberay_tpu_torch.ops import attention as fa
 from kuberay_tpu_torch.ops import decode_attention as da
+from kuberay_tpu_torch.ops import paged_attention as pa
 from kuberay_tpu_torch.ops import rmsnorm as rn
-from kuberay_tpu_torch.serve import engine, server
+from kuberay_tpu_torch.serve import engine, paged_engine, server
 
 torch.set_num_threads(2)
 
@@ -55,10 +56,24 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         engine.ServeEngine(cfg, params, max_slots=1, max_len=16)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         server.main(["--model", "llama_tiny", "--port", "0"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        paged_engine.PagedServeEngine(cfg, params, max_slots=1, max_len=16,
+                                      block_size=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        engine.ServeEngine(cfg, params, max_slots=1, max_len=16,
+                           kv_quant="int8")
+    for extra in (["--paged"], ["--paged", "--kv-quant", "int8"],
+                  ["--kv-quant", "int8"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            server.main(["--model", "llama_tiny", "--port", "0", *extra])
     # Asked for the CPU, they run.
     eng = engine.ServeEngine(cfg, params, max_slots=1, max_len=16,
                              device="cpu")
     assert eng.device.type == "cpu"
+    eng = paged_engine.PagedServeEngine(cfg, params, max_slots=1, max_len=16,
+                                        block_size=8, device="cpu",
+                                        kv_quant="int8")
+    assert eng.cache["k"]["q"].device.type == "cpu"
 
 
 def test_engine_rejects_params_on_another_device():
@@ -71,8 +86,8 @@ def test_engine_rejects_params_on_another_device():
 def test_kernel_modules_have_no_fallback():
     """No try/except in the kernel wrappers or the build: a CUDA tensor
     launches the kernel or raises."""
-    for name in ("rmsnorm.py", "decode_attention.py", "attention.py",
-                 "_build.py"):
+    for name in ("rmsnorm.py", "decode_attention.py", "paged_attention.py",
+                 "attention.py", "_build.py"):
         tree = ast.parse(
             (ROOT / "kuberay_tpu_torch" / "ops" / name).read_text())
         assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)], name
@@ -86,6 +101,15 @@ def test_wrappers_refuse_devices_other_than_cpu_and_cuda():
     c = torch.empty(2, 8, 2, 16, device="meta")
     with pytest.raises(ValueError):
         da.decode_attention(q, c, c, torch.empty(2, device="meta"))
+    c8 = torch.empty(2, 8, 2, 16, dtype=torch.int8, device="meta")
+    s8 = torch.empty(2, 2, 8, device="meta")
+    with pytest.raises(ValueError):
+        da.decode_attention_quant(q, c8, s8, c8, s8,
+                                  torch.empty(2, device="meta"))
+    pool = torch.empty(2, 32, 16, device="meta")
+    with pytest.raises(ValueError):
+        pa.paged_decode_attention(q, pool, pool, torch.empty(2, device="meta"),
+                                  torch.empty(2, 4, device="meta"), 8)
     q = torch.empty(1, 64, 2, 64, device="meta")
     k = torch.empty(1, 64, 1, 64, device="meta")
     with pytest.raises(ValueError):
