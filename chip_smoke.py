@@ -37,6 +37,21 @@
    forward+backward times as yardsticks.  Chunked cross entropy at
    llama3_8b's head (T 2048, d 4096, V 128256, chunk 16384, bf16): loss,
    dx and dhead against the dense loss.
+   The ring-attention step kernel (sequence parallelism, one ring step's
+   block attention and online merge) at llama_1b's heads, B 2, shards of
+   1024 of a 4096 sequence: a diagonal, a past and a future block (the
+   state left bit for bit as it was), a 4-step chain ending in the
+   normalisation, a ragged shard of 1000 at q_off 3000, and D 64 with
+   group 1, each against its plain version (acc or out element by element
+   as the flash kernels, lse atol 1e-4).  Then the whole ring over
+   LocalRing(4), ring_attention(impl="rdma") at B 2 x S 4096, forward and
+   backward with a seeded dO, against the port's flash_attention over the
+   whole sequence element by element, and against the plain ring (the
+   forward element by element, the gradients in norm against the plain
+   ring run in float32 from the same bf16 values).  Times:
+   the step and its plain version, the whole ring's forward, the plain
+   ring's, SDPA (causal, GQA; the library yardstick) and flash_fwd over the
+   whole sequence, eagerly and from a CUDA graph, with their bounds.
 3. Serve: builds llama3_8b at full width (seeded random bf16 weights)
    once for every serve phase.  Starts ServeEngine(max_slots=8,
    max_len=2048) behind ServeFrontend on 127.0.0.1, POSTs 8 concurrent
@@ -73,6 +88,15 @@
    run again under full remat), 16 dK/dV, 16 dQ and 65 RMSNorms.  With
    ``--profile``, one more fixed-batch step runs under torch.profiler:
    device time by kernel name and the device's idle share.
+   Then long-context training: llama_1b at full width and depth with
+   attn_impl="ring_rdma", B 2 x S 4096 on LocalRing(4) (the sp ring's 4
+   ranks on this card), 8 fixed-batch steps of make_sharded_train_fns
+   with bf16 masters.  Checks the first loss is within 0.3 of ln(V) + 1/2
+   and within 2e-2 of the same batch's loss with attn_impl="auto", the
+   loss falls by at least 0.5, and the launch counts per step are exactly
+   320 ring steps (the 10 causal blocks of 4 ranks, 16 layers, run again
+   under full remat), 160 dK/dV and 160 dQ (one each per block), no flash
+   forward and 65 RMSNorms.  With ``--profile``, one more step likewise.
 5. Prints the kernels' JSON line, and as the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -84,6 +108,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -104,8 +129,11 @@ from kuberay_tpu_torch.ops import _build
 from kuberay_tpu_torch.ops import attention as fa
 from kuberay_tpu_torch.ops import decode_attention as da
 from kuberay_tpu_torch.ops import paged_attention as pa
+from kuberay_tpu_torch.ops import ring_attention as ra
 from kuberay_tpu_torch.ops import rmsnorm as rn
 from kuberay_tpu_torch.ops import xent
+from kuberay_tpu_torch.parallel.mesh import LocalRing
+from kuberay_tpu_torch.parallel.ring import ring_attention
 from kuberay_tpu_torch.train import launcher
 from kuberay_tpu_torch.train import train_step as ts
 from kuberay_tpu_torch.serve.engine import ServeEngine
@@ -155,6 +183,11 @@ SHARED_SUFFIXES = (7, 33, 200, 511)
 OTHER_LENS = (64, 900, 1024, 1500)
 REPEAT = 1                     # the request repeated after the batch
 RECOMPUTE_MARGIN = {"bf16": 0.05, "int8": 0.1}
+# Sequence parallelism on one card: LocalRing(4) over a 4096 sequence,
+# llama_1b's heads, shards of 1024.
+RING_B, RING_S, RING_SP = 2, 4096, 4
+RING_HQ, RING_HKV, RING_D = 16, 8, 128
+RING_STEPS = 8
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -633,6 +666,241 @@ def check_xent(gen: torch.Generator) -> dict:
     return rec
 
 
+# (name, shard, Hq, Hkv, D, q_off, k_offs, last): each side runs the whole
+# chain of blocks with its own implementation; the last flag normalises
+# at the final block.
+RING_STEP_CASES = (
+    ("diagonal", 1024, RING_HQ, RING_HKV, RING_D, 1024, (1024,), False),
+    ("past", 1024, RING_HQ, RING_HKV, RING_D, 1024, (1024, 0), False),
+    ("future", 1024, RING_HQ, RING_HKV, RING_D, 1024, (1024, 2048), False),
+    ("chain", 1024, RING_HQ, RING_HKV, RING_D, 3072,
+     (3072, 2048, 1024, 0), True),
+    ("ragged", 1000, RING_HQ, RING_HKV, RING_D, 3000, (3000, 1000), True),
+    ("d64_group1", 1024, 12, 12, 64, 1024, (1024, 0), True),
+)
+
+
+def ring_state(B, S, Hq, D):
+    """The empty ring state: acc, m (-1e30), l; f32 on the card."""
+    return (torch.zeros(B, S, Hq, D, device="cuda"),
+            torch.full((B, Hq, S), -1e30, device="cuda"),
+            torch.zeros(B, Hq, S, device="cuda"))
+
+
+def ring_chain(step, q, blocks, q_off, k_offs, last):
+    """The state (and, with ``last``, out and lse) after merging
+    ``blocks`` in order with ``step`` (the kernel or its plain version)."""
+    B, S, Hq, D = q.shape
+    st = ring_state(B, S, Hq, D)
+    out = torch.empty_like(q)
+    lse = torch.empty(B, Hq, S, device="cuda")
+    for i, ((k, v), k_off) in enumerate(zip(blocks, k_offs)):
+        step(q, k, v, *st, q_off, k_off, True, None,
+             last and i == len(blocks) - 1, out, lse)
+    return st, out, lse
+
+
+def check_ring_steps(gen: torch.Generator) -> dict:
+    """The step kernel against its plain version on RING_STEP_CASES."""
+    cases = []
+    for name, S, Hq, Hkv, D, q_off, k_offs, last in RING_STEP_CASES:
+        q = torch.randn(RING_B, S, Hq, D, generator=gen, device="cuda"
+                        ).bfloat16()
+        blocks = [tuple(torch.randn(RING_B, S, Hkv, D, generator=gen,
+                                    device="cuda").bfloat16()
+                        for _ in range(2)) for _ in k_offs]
+        (acc, m, l), out, lse = ring_chain(ra.ring_attention_step, q, blocks,
+                                           q_off, k_offs, last)
+        (racc, rm, rl), rout, rlse = ring_chain(
+            ra.ring_attention_step_ref, q, blocks, q_off, k_offs, last)
+        torch.cuda.synchronize()
+        if last:
+            rec = {"out": local_err(out, rout), "lse_err": max_err(lse, rlse)}
+            err = rec["out"]
+        else:
+            rec = {"acc": local_err(acc, racc),
+                   "lse_err": max_err(m + l.log(), rm + rl.log())}
+            err = rec["acc"]
+        rec.update(case=name, shard=S, Hq=Hq, Hkv=Hkv, D=D, q_off=q_off,
+                   k_offs=list(k_offs), last=last,
+                   max_abs_err=err["max_abs_err"])
+        if name == "future":
+            # The future block must leave the kernel's state as it was.
+            before = ring_chain(ra.ring_attention_step, q, blocks[:-1],
+                                q_off, k_offs[:-1], False)[0]
+            rec["future_untouched"] = all(
+                torch.equal(a, b) for a, b in zip(before, (acc, m, l)))
+        print(f"ring step {name}: {json.dumps(rec)}", flush=True)
+        if not (within_local(err) and rec["lse_err"] <= FLASH_LSE_ATOL
+                and rec.get("future_untouched", True)):
+            raise AssertionError(f"ring step kernel disagrees with its plain "
+                                 f"version at {name}: {rec}")
+        cases.append(rec)
+    return {"cases": cases}
+
+
+def check_ring(gen: torch.Generator) -> dict:
+    """The step kernel's cases, then the whole ring over LocalRing(4) at
+    B 2 x S 4096 against flash_attention and the plain ring (forward and
+    backward), then times."""
+    res = check_ring_steps(gen)
+    ring = LocalRing(RING_SP, "cuda")
+    B, S, Hq, Hkv, D = RING_B, RING_S, RING_HQ, RING_HKV, RING_D
+    q, do = (torch.randn(B, S, Hq, D, generator=gen, device="cuda"
+                         ).bfloat16() for _ in range(2))
+    k, v = (torch.randn(B, S, Hkv, D, generator=gen, device="cuda"
+                        ).bfloat16() for _ in range(2))
+
+    def fwd_bwd(fn):
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+        out = fn(qg, kg, vg)
+        out.backward(do)
+        return {"out": out.detach(), "dq": qg.grad, "dk": kg.grad,
+                "dv": vg.grad}
+
+    reset_counts()
+    got = fwd_bwd(lambda a, b, c: ring_attention(a, b, c, ring, impl="rdma"))
+    torch.cuda.synchronize()
+    whole = {"launches": train_counts()}
+    # Element by element against flash_attention (the same bf16 rounding
+    # of P and dS); the forward likewise against the plain ring.  The
+    # gradients against the plain ring run in float32 from the same bf16
+    # values, in norm only: the kernels round dS to bf16, and dQ = dS K
+    # cancels (each row of dS sums to 0), so a row whose dQ is small
+    # against its dS differs from the exact gradient by more than the
+    # element limits, as flash_attention's does.  The worst element
+    # ratios are recorded.
+    ref = fwd_bwd(fa.flash_attention)
+    torch.cuda.synchronize()
+    whole["flash_attention"] = {t: local_err(got[t], ref[t]) for t in got}
+    del ref
+    with torch.no_grad():
+        plain = ring_attention(q, k, v, ring, impl="ppermute")
+    whole["plain_ring"] = {"out": local_err(got["out"], plain)}
+    del plain
+    ref = fwd_bwd(lambda a, b, c: ring_attention(
+        a.float(), b.float(), c.float(), ring, impl="ppermute").to(a.dtype))
+    torch.cuda.synchronize()
+    whole["plain_ring_f32"] = {t: local_err(got[t], ref[t])
+                               for t in ("dq", "dk", "dv")}
+    del ref
+    torch.cuda.empty_cache()
+    print(f"ring whole B={B} S={S}: {json.dumps(whole)}", flush=True)
+    blocks = RING_SP * (RING_SP + 1) // 2
+    want = {"ring_attention_step": blocks, "flash_bwd_dkv": blocks,
+            "flash_bwd_dq": blocks, "flash_fwd": 0, "rmsnorm": 0}
+    if whole["launches"] != want or not (
+            all(within_local(e) for e in whole["flash_attention"].values())
+            and within_local(whole["plain_ring"]["out"])
+            and all(e["norm_rel"] <= FLASH_NORM_TOL
+                    for e in whole["plain_ring_f32"].values())):
+        raise AssertionError(f"the kernel ring disagrees or launched "
+                             f"otherwise than {want}: {whole}")
+    res["whole"] = whole
+    res["shapes"] = [{"max_abs_err": c["max_abs_err"]} for c in res["cases"]]
+    del got
+
+    # Times: one past step (shard 1024, carrying a state) ...
+    Sl = S // RING_SP
+    qs, ks, vs = q[:, :Sl].contiguous(), k[:, :Sl].contiguous(), \
+        v[:, :Sl].contiguous()
+    st_k = ring_state(B, Sl, Hq, D)
+    st_p = ring_state(B, Sl, Hq, D)
+    step_bytes = (2 * (qs.numel() + 2 * ks.numel())
+                  + 2 * 4 * (qs.numel() + 2 * st_k[1].numel()))
+    res["step"] = {
+        **timings(lambda: ra.ring_attention_step(qs, ks, vs, *st_k, Sl, 0),
+                  lambda: ra.ring_attention_step_ref(qs, ks, vs, *st_p, Sl,
+                                                     0), None, 50, 5),
+        **bound(step_bytes, 4 * B * Hq * Sl * Sl * D),
+        "shape": {"B": B, "shard": Sl, "Hq": Hq, "Hkv": Hkv, "D": D,
+                  "q_off": Sl, "k_off": 0}}
+    # ... and the whole ring's forward, with SDPA and flash_fwd over the
+    # whole sequence beside it.
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    with torch.no_grad():
+        res["main"] = {
+            **timings(
+                lambda: ring_attention(q, k, v, ring, impl="rdma"),
+                lambda: ring_attention(q, k, v, ring, impl="ppermute"),
+                lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True), 10, 3),
+            **bound(2 * (2 * q.numel() + 2 * k.numel()),
+                    4 * visible_pairs(B, S, S, Hq) * D),
+            "library_of": "SDPA over the whole sequence (causal, GQA)",
+            "flash_fwd_ms": cuda_ms(lambda: fa.flash_fwd(q, k, v), 10),
+            "flash_fwd_graph_ms": graph_ms(lambda: fa.flash_fwd(q, k, v), 10),
+            "shape": {"B": B, "S": S, "sp": RING_SP, "Hq": Hq, "Hkv": Hkv,
+                      "D": D}}
+    print(f"ring timings: step {json.dumps(res['step'])}; whole "
+          f"{json.dumps(res['main'])}", flush=True)
+    del q, k, v, do, qt, kt, vt, st_k, st_p
+    torch.cuda.empty_cache()
+    return res
+
+
+def train_ring(seed: int = 0, profile: bool = False) -> dict:
+    """llama_1b at full width and depth with the kernel ring over
+    LocalRing(4): 8 steps of make_sharded_train_fns on one fixed batch of
+    B 2 x S 4096 (bf16 masters), and with ``profile`` one more under
+    torch.profiler."""
+    cfg = dataclasses.replace(llama.CONFIGS["llama_1b"],
+                              attn_impl="ring_rdma")
+    L = cfg.n_layers
+    blocks = RING_SP * (RING_SP + 1) // 2        # causal blocks a layer
+    per_step = {"ring_attention_step": 2 * L * blocks,   # remat: fwd twice
+                "flash_fwd": 0, "flash_bwd_dkv": L * blocks,
+                "flash_bwd_dq": L * blocks, "rmsnorm": 2 * 2 * L + 1}
+    tc = ts.TrainConfig(learning_rate=3e-4, warmup_steps=1,
+                        decay_steps=RING_STEPS)
+    init, step, shardings = ts.make_sharded_train_fns(
+        cfg, tc, LocalRing(RING_SP, "cuda"))
+    torch.cuda.reset_peak_memory_stats()
+    state = init(torch.Generator(device="cuda").manual_seed(seed))
+    raw = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (RING_B, RING_S + 1))
+    batch = {"tokens": torch.tensor(raw[:, :-1], dtype=torch.int32,
+                                    device="cuda"),
+             "targets": torch.tensor(raw[:, 1:], dtype=torch.int32,
+                                     device="cuda")}
+    with torch.no_grad():
+        flash_loss = float(llama.loss_fn(
+            dataclasses.replace(cfg, attn_impl="auto"), state["params"],
+            batch["tokens"], batch["targets"])[1]["loss"])
+    run = {"loss": [], "grad_norm": [], "step_ms": []}
+    reset_counts()
+    for _ in range(RING_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        run["loss"].append(float(m["loss"]))
+        run["grad_norm"].append(float(m["grad_norm"]))
+        run["step_ms"].append((time.perf_counter() - t0) * 1e3)
+    launches = train_counts()
+    if profile:
+        run["profile"] = profile_step(step, state, batch)
+    want = {k: n * RING_STEPS for k, n in per_step.items()}
+    expect = math.log(cfg.vocab_size) + 0.5
+    run.update(model="llama_1b", attn_impl=cfg.attn_impl, batch=RING_B,
+               seq=RING_S, sp=RING_SP, shardings=shardings,
+               first_loss_auto=flash_loss, launches=launches,
+               launches_per_step=per_step,
+               max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+    steady = sorted(run["step_ms"][1:])
+    run["step_ms_median_steady"] = steady[len(steady) // 2]
+    print(f"train ring: {json.dumps(run)}", flush=True)
+    losses = run["loss"]
+    if not all(math.isfinite(x) for x in losses + run["grad_norm"]) or \
+            abs(losses[0] - expect) > 0.3 or \
+            abs(losses[0] - flash_loss) > 2e-2 or \
+            losses[-1] > losses[0] - 0.5 or launches != want:
+        raise AssertionError(f"ring training failed (first loss expected "
+                             f"within 0.3 of {expect:.3f} and 2e-2 of "
+                             f"{flash_loss:.4f}; launches {want}): {run}")
+    del state, batch
+    torch.cuda.empty_cache()
+    return run
+
+
 def post(url: str, body: dict, timeout: float = 600.0):
     req = urllib.request.Request(
         f"{url}/v1/completions", data=json.dumps(body).encode(),
@@ -869,12 +1137,14 @@ def check_against_recompute(cfg, params, prompt, served,
 def reset_counts() -> None:
     rn.launches = da.launches = da.launches_quant = pa.launches = 0
     fa.fwd_launches = fa.bwd_dkv_launches = fa.bwd_dq_launches = 0
+    ra.launches = 0
 
 
 def train_counts() -> dict:
     return {"flash_fwd": fa.fwd_launches,
             "flash_bwd_dkv": fa.bwd_dkv_launches,
-            "flash_bwd_dq": fa.bwd_dq_launches, "rmsnorm": rn.launches}
+            "flash_bwd_dq": fa.bwd_dq_launches, "rmsnorm": rn.launches,
+            "ring_attention_step": ra.launches}
 
 
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 8, 4, 2048
@@ -922,7 +1192,8 @@ def train(seed: int = 0, profile: bool = False) -> dict:
     cfg = llama.CONFIGS["llama_1b"]
     L = cfg.n_layers
     per_step = {"flash_fwd": 2 * L, "flash_bwd_dkv": L, "flash_bwd_dq": L,
-                "rmsnorm": 2 * 2 * L + 1}          # full remat: fwd twice
+                "rmsnorm": 2 * 2 * L + 1,          # full remat: fwd twice
+                "ring_attention_step": 0}
     argv = ["--model", "llama_1b", "--batch", str(TRAIN_BATCH), "--seq-len",
             str(TRAIN_SEQ), "--steps", str(TRAIN_STEPS), "--warmup", "1",
             "--log-every", "1", "--seed", str(seed)]
@@ -1002,7 +1273,8 @@ def train(seed: int = 0, profile: bool = False) -> dict:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="profile one more fixed-batch training step")
+                    help="profile one more fixed-batch training step of "
+                         "each training phase")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only "
@@ -1029,6 +1301,7 @@ def main(argv=None) -> None:
     paged = check_paged(gen)
     flash = check_flash(gen)
     xe = check_xent(gen)
+    ring = check_ring(gen)
     torch.cuda.empty_cache()
     # One llama3_8b tree (16 GB of bf16 weights) serves every serve phase.
     cfg = llama.CONFIGS["llama3_8b"]
@@ -1049,9 +1322,11 @@ def main(argv=None) -> None:
             flush=True)
     trn = train(profile=args.profile)
     print(f"train: {json.dumps(trn)}", flush=True)
+    trn_ring = train_ring(profile=args.profile)
     by_path = {"serve": srv["launches"],
                **{name: run["launches"] for name, run in cached.items()},
-               "train": trn["launcher"]["launches"]}
+               "train": trn["launcher"]["launches"],
+               "train_ring": trn_ring["launches"]}
 
     def entry(name, route, source, replaces, res):
         m = res["main"]
@@ -1082,6 +1357,9 @@ def main(argv=None) -> None:
                 f"kuberay_tpu/ops/attention.py:{line}", flash[name])
           for name, line in (("flash_fwd", 70), ("flash_bwd_dkv", 172),
                              ("flash_bwd_dq", 222))),
+        entry("ring_attention_step", "cuda",
+              "kuberay_tpu_torch/csrc/ring_attention.cu",
+              "kuberay_tpu/parallel/ring_pallas.py:72", ring),
     ]}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -1092,8 +1370,8 @@ def main(argv=None) -> None:
                       for p in libs},
         "rmsnorm": rms, "decode_attention": dec,
         "decode_attention_quant": decq, "paged_decode_attention": paged,
-        "flash": flash, "chunked_xent": xe, "serve": srv, **cached,
-        "train": trn,
+        "flash": flash, "chunked_xent": xe, "ring": ring, "serve": srv,
+        **cached, "train": trn, "train_ring": trn_ring,
         **kernels}, indent=1))
     print(smi, flush=True)
     print(json.dumps(kernels), flush=True)

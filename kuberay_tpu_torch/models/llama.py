@@ -16,6 +16,14 @@ gradient per layer) and loops over the layers, each under
 ``torch.utils.checkpoint`` when ``cfg.remat``: ``"full"`` recomputes the
 whole layer in the backward, ``"dots"`` saves the matmul outputs and
 recomputes the rest (JAX's ``dots_with_no_batch_dims_saveable``).
+
+Sequence parallelism (``attn_impl="ring"`` / ``"ring_rdma"``, the
+long-context training path): ``forward_hidden`` / ``forward`` /
+``loss_fn`` take ``mesh=``, a ``LocalRing`` (one device holds every sp
+rank; tensors carry the whole sequence) or a ``DeviceMesh`` (each process
+passes its own sequence shard and gets its shard's outputs back, with RoPE
+at the shard's global positions).  The loss divides each rank's sum by
+the global token count; the sum of the ranks' losses is the JAX loss.
 """
 
 from __future__ import annotations
@@ -36,7 +44,9 @@ from torch.utils.checkpoint import (
 from kuberay_tpu_torch.ops.attention import attention_ref, flash_attention
 from kuberay_tpu_torch.ops.rmsnorm import rmsnorm
 from kuberay_tpu_torch.ops.rope import apply_rope, rope_frequencies
-from kuberay_tpu_torch.ops.xent import chunked_softmax_xent_loss, logits_f32
+from kuberay_tpu_torch.ops.xent import chunked_xent, logits_f32
+from kuberay_tpu_torch.parallel.mesh import LocalRing, ring_of
+from kuberay_tpu_torch.parallel.ring import ring_attention
 from kuberay_tpu_torch.utils.device import resolve_device
 
 
@@ -56,7 +66,9 @@ class LlamaConfig:
     # Training-side fields (the serving path does not read them).
     # attn_impl: "auto"/"pallas" = the flash kernels (their plain versions
     # on CPU tensors); "xla" = attention_ref, the plain attention the JAX
-    # package's "xla" names; "ring"/"ring_rdma" are not ported yet.
+    # package's "xla" names; "ring" = the plain sequence-parallel ring over
+    # the mesh's sp axis, "ring_rdma" = the ring with the CUDA step kernel
+    # (parallel/ring.py; forward() must receive the mesh).
     attn_impl: str = "auto"
     remat: bool = True
     remat_policy: str = "full"
@@ -145,11 +157,17 @@ def init_params(cfg: LlamaConfig, generator: Optional[torch.Generator] = None,
 # Training forward and loss
 # --------------------------------------------------------------------------
 
-def _attention(cfg: LlamaConfig, q, k, v):
-    if cfg.attn_impl in ("ring", "ring_rdma"):
-        raise NotImplementedError(
-            f"attn_impl={cfg.attn_impl!r}: sequence-parallel ring attention "
-            f"is not ported yet (ROADMAP C6)")
+_RING = ("ring", "ring_rdma")
+
+
+def _attention(cfg: LlamaConfig, q, k, v, mesh):
+    if cfg.attn_impl in _RING:
+        if mesh is None:
+            raise ValueError(
+                f"attn_impl={cfg.attn_impl!r} requires forward(..., mesh=)")
+        return ring_attention(
+            q, k, v, mesh, causal=True,
+            impl="rdma" if cfg.attn_impl == "ring_rdma" else "ppermute")
     if cfg.attn_impl == "xla":
         return attention_ref(q, k, v, causal=True)
     if cfg.attn_impl in ("auto", "pallas", "pallas_interpret"):
@@ -158,7 +176,7 @@ def _attention(cfg: LlamaConfig, q, k, v):
 
 
 def _layer(cfg: LlamaConfig, x: torch.Tensor, lp: Dict[str, torch.Tensor],
-           cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+           cos: torch.Tensor, sin: torch.Tensor, mesh=None) -> torch.Tensor:
     """One transformer block.  x: [B, S, d]."""
     B, S, d = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -168,7 +186,7 @@ def _layer(cfg: LlamaConfig, x: torch.Tensor, lp: Dict[str, torch.Tensor],
     vv = (h @ lp["wv"]).reshape(B, S, hkv, hd)
     q = apply_rope(q, cos, sin)
     kk = apply_rope(kk, cos, sin)
-    attn = _attention(cfg, q, kk, vv)
+    attn = _attention(cfg, q, kk, vv, mesh)
     x = x + (attn.reshape(B, S, hq * hd) @ lp["wo"]).to(x.dtype)
     h = rmsnorm(x, lp["mlp_norm"], cfg.norm_eps)
     gated = F.silu(h @ lp["w_gate"]) * (h @ lp["w_up"])
@@ -183,13 +201,23 @@ def _save_matmuls(ctx, op, *args, **kwargs):
 
 
 def forward_hidden(cfg: LlamaConfig, params: Dict[str, Any],
-                   tokens: torch.Tensor
+                   tokens: torch.Tensor, mesh=None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens: [B, S] -> (final hidden [B, S, d], head [d, V])."""
+    """tokens: [B, S] -> (final hidden [B, S, d], head [d, V]).  On a
+    ``DeviceMesh`` ``tokens`` is this rank's sequence shard."""
     B, S = tokens.shape
+    off = 0
+    if mesh is not None and not isinstance(mesh, LocalRing):
+        if cfg.attn_impl not in _RING:
+            raise ValueError(f"a DeviceMesh shards the sequence: attn_impl "
+                             f"must be one of {_RING}, not "
+                             f"{cfg.attn_impl!r}")
+        off = ring_of(mesh).seq_offset(S)
     x = params["embed"][tokens]                            # [B, S, d]
-    cos, sin = rope_frequencies(cfg.head_dim, S, float(cfg.rope_theta),
+    # RoPE at global positions: the table's rows [off, off + S).
+    cos, sin = rope_frequencies(cfg.head_dim, off + S, float(cfg.rope_theta),
                                 device=tokens.device)
+    cos, sin = cos[off:], sin[off:]
     names = sorted(params["layers"])
     per_layer = zip(*(torch.unbind(params["layers"][n], 0) for n in names))
     if cfg.remat and cfg.remat_policy not in ("full", "dots"):
@@ -198,11 +226,13 @@ def forward_hidden(cfg: LlamaConfig, params: Dict[str, Any],
     for leaves in per_layer:
         lp = dict(zip(names, leaves))
         if not cfg.remat:
-            x = _layer(cfg, x, lp, cos, sin)
+            x = _layer(cfg, x, lp, cos, sin, mesh)
         elif cfg.remat_policy == "full":
-            x = checkpoint(_layer, cfg, x, lp, cos, sin, use_reentrant=False)
+            x = checkpoint(_layer, cfg, x, lp, cos, sin, mesh,
+                           use_reentrant=False)
         else:
-            x = checkpoint(_layer, cfg, x, lp, cos, sin, use_reentrant=False,
+            x = checkpoint(_layer, cfg, x, lp, cos, sin, mesh,
+                           use_reentrant=False,
                            context_fn=functools.partial(
                                create_selective_checkpoint_contexts,
                                _save_matmuls))
@@ -212,40 +242,44 @@ def forward_hidden(cfg: LlamaConfig, params: Dict[str, Any],
 
 
 def forward(cfg: LlamaConfig, params: Dict[str, Any],
-            tokens: torch.Tensor) -> torch.Tensor:
-    """tokens: [B, S] -> logits [B, S, vocab] float32."""
-    x, head = forward_hidden(cfg, params, tokens)
+            tokens: torch.Tensor, mesh=None) -> torch.Tensor:
+    """tokens: [B, S] -> logits [B, S, vocab] float32.  ``mesh`` is
+    required for attn_impl "ring" / "ring_rdma"."""
+    x, head = forward_hidden(cfg, params, tokens, mesh)
     B, S, d = x.shape
     return logits_f32(x.reshape(B * S, d), head).reshape(B, S, -1)
 
 
 def loss_fn(cfg: LlamaConfig, params: Dict[str, Any], tokens: torch.Tensor,
             targets: torch.Tensor, mask: Optional[torch.Tensor] = None,
-            z_loss: float = 1e-4
+            z_loss: float = 1e-4, mesh=None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross entropy with z-loss.  tokens/targets: [B, S];
     mask: [B, S] (1 = counts).  With ``cfg.xent_chunk`` the [B, S, V]
-    logits are never formed (``ops/xent.py``, the same math)."""
-    if mask is not None:
-        mask = mask.float()
+    logits are never formed (``ops/xent.py``, the same math).  With a
+    ``mesh`` every sum is divided by the token count summed over sp (no
+    gradient), so on a ``DeviceMesh`` each rank returns its share and the
+    sum over sp is the global loss and metrics."""
     if cfg.xent_chunk:
-        x, head = forward_hidden(cfg, params, tokens)
-        return chunked_softmax_xent_loss(
+        x, head = forward_hidden(cfg, params, tokens, mesh)
+        nll, logz, pred = (t.reshape(tokens.shape) for t in chunked_xent(
             x.reshape(-1, x.shape[-1]), head, targets.reshape(-1),
-            mask=None if mask is None else mask.reshape(-1),
-            z_loss=z_loss, chunk=cfg.xent_chunk)
-    logits = forward(cfg, params, tokens)                  # [B, S, V] f32
-    logz = torch.logsumexp(logits, dim=-1)
-    true_logit = logits.gather(-1, targets.long()[..., None])[..., 0]
-    nll = logz - true_logit
+            cfg.xent_chunk))
+    else:
+        logits = forward(cfg, params, tokens, mesh)        # [B, S, V] f32
+        logz = torch.logsumexp(logits, dim=-1)
+        nll = logz - logits.gather(-1, targets.long()[..., None])[..., 0]
+        pred = logits.argmax(-1)
     zl = z_loss * torch.square(logz)
-    if mask is None:
-        mask = torch.ones_like(nll)
-    denom = torch.clamp(mask.sum(), min=1.0)
+    mask = torch.ones_like(nll) if mask is None else mask.float()
+    count = mask.sum()
+    if mesh is not None:
+        count = ring_of(mesh).sum(count.detach())
+    denom = torch.clamp(count, min=1.0)
     loss = ((nll + zl) * mask).sum() / denom
     metrics = {
         "loss": (nll * mask).sum() / denom,
         "z_loss": (zl * mask).sum() / denom,
-        "accuracy": ((logits.argmax(-1) == targets) * mask).sum() / denom,
+        "accuracy": ((pred == targets) * mask).sum() / denom,
     }
     return loss, metrics

@@ -12,13 +12,16 @@ of 2,000,000 seeded tokens written to a temporary directory), runs
 ``--log-every`` steps, as the JAX launcher does.  The card is the default;
 ``--device cpu`` runs the plain paths.
 
-Not ported yet, and refused rather than ignored: tensor and sequence
-parallelism (``--tp``/``--sp`` > 1, ROADMAP C5/C6), checkpointing
-(``--checkpoint-dir``) and coordinator step heartbeats
-(``--heartbeat-every``), both ROADMAP C7.  The JAX launcher's Prometheus
-``/metrics`` server, its coordinator events and the native C++ data loader
-also wait for C7; the multi-process ``WorkerIdentity`` env contract for
-C5.
+Not ported yet, and refused rather than ignored: ``--tp``/``--sp`` > 1
+(ROADMAP C5: the multi-process layouts, with the ``WorkerIdentity`` /
+``init_process_group`` env contract), checkpointing (``--checkpoint-dir``)
+and coordinator step heartbeats (``--heartbeat-every``), both ROADMAP C7.
+The JAX launcher reaches ring attention only when a caller sets
+``attn_impl``, which its command line cannot do; the port's sp ring runs
+through ``train_step.make_sharded_train_fns`` (over a ``LocalRing`` on one
+card, or a ``DeviceMesh`` of processes the caller starts).  The JAX
+launcher's Prometheus ``/metrics`` server, its coordinator events and the
+native C++ data loader also wait for C7.
 """
 
 from __future__ import annotations
@@ -46,8 +49,10 @@ from kuberay_tpu_torch.utils.device import resolve_device
 def train(args) -> int:
     if (args.tp or 1) > 1 or args.sp > 1:
         raise NotImplementedError(
-            "--tp/--sp > 1: tensor and sequence parallelism are not ported "
-            "yet (ROADMAP C5, C6)")
+            "--tp/--sp > 1: the launcher's multi-process layouts and their "
+            "WorkerIdentity env contract are not ported yet (ROADMAP C5); "
+            "the sp ring (ROADMAP C6) runs through "
+            "train_step.make_sharded_train_fns")
     if args.checkpoint_dir:
         raise NotImplementedError(
             "--checkpoint-dir: checkpointing is not ported yet (ROADMAP C7)")

@@ -16,18 +16,26 @@ JAX package builds it (``make_optimizer``):
   has learning rate 0): linear warmup over ``min(warmup, decay - 1)``
   steps, then cosine decay to 0.1 x peak at ``max(decay, warmup + 1)``.
 
-The sharded step (``make_sharded_train_fns``, FSDP) waits for ROADMAP C5.
+``make_sharded_train_fns`` is the sequence-parallel step (the
+long-context path, ``attn_impl="ring"`` / ``"ring_rdma"``) over a mesh
+whose only axis larger than 1 is ``sp``: a ``LocalRing`` (every sp rank on
+one device) or a ``DeviceMesh`` (one process per rank).  Parameters and
+optimizer state are replicated over sp; each rank takes its S shard of the
+global batch, divides its loss sum by the global token count, and the
+gradients are summed over sp before clipping and AdamW.  FSDP and tensor
+parallel placements wait for ROADMAP C5.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from kuberay_tpu_torch.models import llama
+from kuberay_tpu_torch.parallel.mesh import ring_of
 
 
 @dataclasses.dataclass(frozen=True)
@@ -189,13 +197,14 @@ def _value_and_grad(loss_fn: Callable, params, batch):
         tree_map(lambda _: next(it), leaves)
 
 
-def _value_and_grad_accum(loss_fn: Callable, params, batch, accum: int):
+def _value_and_grad_accum(loss_fn: Callable, params, batch, accum: int,
+                          total: Optional[Callable] = None):
     """Loss, aux and gradients, optionally accumulated over ``accum``
     microbatches.  The split is interleaved (microbatch k takes rows k,
     k + A, k + 2A, ...), each microbatch is weighted by its real token
-    count (the mask's sum), and sums are kept in f32, so a masked batch
-    gives the full batch's masked mean.  Aux metrics get the same
-    weights.  ``loss_fn(params, batch) -> (loss, aux)``."""
+    count (the mask's sum; ``total`` sums it over sp), and sums are kept in
+    f32, so a masked batch gives the full batch's masked mean.  Aux metrics
+    get the same weights.  ``loss_fn(params, batch) -> (loss, aux)``."""
     if accum <= 1:
         return _value_and_grad(loss_fn, params, batch)
     B = batch["tokens"].shape[0]
@@ -208,6 +217,8 @@ def _value_and_grad_accum(loss_fn: Callable, params, batch, accum: int):
         m = mb.get("mask")
         w = (m.float().sum() if m is not None else torch.tensor(
             float(mb["tokens"].numel()), device=l.device))
+        if total is not None:
+            w = total(w)
         gw = tree_map(lambda x: x.float() * w, g)
         gsum = gw if gsum is None else tree_map(torch.add, gsum, gw)
         aw = {n: a * w for n, a in aux.items()}
@@ -220,21 +231,25 @@ def _value_and_grad_accum(loss_fn: Callable, params, batch, accum: int):
     return (lsum / wsum, aux), grads
 
 
-def make_train_step(cfg: llama.LlamaConfig, tc: TrainConfig,
-                    optimizer: AdamW) -> Callable:
-    """step(state, batch) -> (new state, metrics).  ``batch``: tokens,
-    targets and an optional mask, [B, S] tensors on the params' device.
-    Metrics: loss, z_loss, accuracy, grad_norm (before clipping) and
-    total_loss, as 0-d tensors."""
+def _make_step(cfg: llama.LlamaConfig, tc: TrainConfig, optimizer: AdamW,
+               mesh=None) -> Callable:
+    ring = None if mesh is None else ring_of(mesh)
 
     def step(state, batch):
         def loss(params, b):
             return llama.loss_fn(cfg, _compute_cast(cfg, tc, params),
                                  b["tokens"], b["targets"], b.get("mask"),
-                                 tc.z_loss)
+                                 tc.z_loss, mesh=mesh)
 
+        if ring is not None:
+            batch = {k: ring.local_seq(t) for k, t in batch.items()}
         (l, metrics), grads = _value_and_grad_accum(
-            loss, state["params"], batch, tc.grad_accum)
+            loss, state["params"], batch, tc.grad_accum,
+            None if ring is None else ring.sum)
+        if ring is not None:
+            grads = tree_map(ring.sum, grads)
+            l = ring.sum(l)
+            metrics = {k: ring.sum(v) for k, v in metrics.items()}
         updates, new_opt = optimizer.update(grads, state["opt_state"],
                                             state["params"])
         new_params = apply_updates(state["params"], updates)
@@ -244,3 +259,36 @@ def make_train_step(cfg: llama.LlamaConfig, tc: TrainConfig,
                 "opt_state": new_opt}, metrics
 
     return step
+
+
+def make_train_step(cfg: llama.LlamaConfig, tc: TrainConfig,
+                    optimizer: AdamW) -> Callable:
+    """step(state, batch) -> (new state, metrics).  ``batch``: tokens,
+    targets and an optional mask, [B, S] tensors on the params' device.
+    Metrics: loss, z_loss, accuracy, grad_norm (before clipping) and
+    total_loss, as 0-d tensors."""
+    return _make_step(cfg, tc, optimizer)
+
+
+def make_sharded_train_fns(cfg: llama.LlamaConfig, tc: TrainConfig, mesh
+                           ) -> Tuple[Callable, Callable, Dict[str, str]]:
+    """(init, step, shardings) for sequence parallelism over ``mesh`` (a
+    ``LocalRing`` or a ``DeviceMesh`` whose only axis larger than 1 is sp).
+
+    ``init(generator=None)`` builds the seeded state on the mesh's device
+    (default generator: seed 0 there), replicated over sp.  ``step(state,
+    batch)`` takes the global [B, S] batch (S divisible by sp), uses this
+    process's S shard and returns (new state, metrics) as
+    ``make_train_step``'s, with the loss, metrics and gradients summed over
+    sp (every rank gets the same).  ``shardings`` describes the layout."""
+    ring = ring_of(mesh)
+    optimizer = make_optimizer(tc)
+
+    def init(generator=None):
+        return init_train_state(cfg, optimizer, generator, tc.param_dtype,
+                                ring.device)
+
+    shardings = {"params": "replicated over sp",
+                 "opt_state": "replicated over sp",
+                 "batch": "[B, S]: S split into sp equal shards"}
+    return init, _make_step(cfg, tc, optimizer, mesh), shardings

@@ -14,7 +14,9 @@ from kuberay_tpu_torch.ops import attention as fa
 from kuberay_tpu_torch.ops import decode_attention as da
 from kuberay_tpu_torch.ops import paged_attention as pa
 from kuberay_tpu_torch.ops import rmsnorm as rn
+from kuberay_tpu_torch.parallel.mesh import LocalRing
 from kuberay_tpu_torch.serve import engine, paged_engine, server
+from kuberay_tpu_torch.train import launcher, train_step
 
 torch.set_num_threads(2)
 
@@ -66,7 +68,16 @@ def test_entry_points_raise_without_a_card(monkeypatch):
                   ["--kv-quant", "int8"]):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             server.main(["--model", "llama_tiny", "--port", "0", *extra])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launcher.main(["--model", "llama_tiny", "--steps", "1"])
+    init, _, _ = train_step.make_sharded_train_fns(
+        cfg, train_step.TrainConfig(), LocalRing(4))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init()
     # Asked for the CPU, they run.
+    init, _, _ = train_step.make_sharded_train_fns(
+        cfg, train_step.TrainConfig(), LocalRing(4, "cpu"))
+    assert init()["params"]["embed"].device.type == "cpu"
     eng = engine.ServeEngine(cfg, params, max_slots=1, max_len=16,
                              device="cpu")
     assert eng.device.type == "cpu"
@@ -84,12 +95,13 @@ def test_engine_rejects_params_on_another_device():
 
 
 def test_kernel_modules_have_no_fallback():
-    """No try/except in the kernel wrappers or the build: a CUDA tensor
-    launches the kernel or raises."""
-    for name in ("rmsnorm.py", "decode_attention.py", "paged_attention.py",
-                 "attention.py", "_build.py"):
-        tree = ast.parse(
-            (ROOT / "kuberay_tpu_torch" / "ops" / name).read_text())
+    """No try/except in the kernel wrappers, the build or the rings: a CUDA
+    tensor launches the kernel or raises."""
+    for name in ("ops/rmsnorm.py", "ops/decode_attention.py",
+                 "ops/paged_attention.py", "ops/attention.py",
+                 "ops/ring_attention.py", "ops/_build.py",
+                 "parallel/ring.py", "parallel/ring_kernel.py"):
+        tree = ast.parse((ROOT / "kuberay_tpu_torch" / name).read_text())
         assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)], name
 
 
