@@ -28,9 +28,11 @@
    decode kernels are held to the flash kernels' element-wise limits.
    The three flash-attention kernels of the training path likewise, at
    llama_1b's shape (B 4, S 2048, 16 q / 8 kv heads of 128, causal), the
-   Llama-3-8B head layout (32 / 8) at S 1024, a ragged S (1000), Skv > Sq
-   and D 64 with group 1 (llama_125m): out and lse (atol 1e-4) of the
-   forward, and dQ/dK/dV for a seeded dO, against the plain versions, each
+   Llama-3-8B head layout (32 / 8) at S 1024, a ragged S (1000), Skv > Sq,
+   D 64 with group 1 (llama_125m) and S 960 (which the forward's 128-row
+   tile does not divide, the backward's 64-row tile does): out and lse
+   (atol 1e-4) of the forward, and dQ/dK/dV for a seeded dO, against the
+   plain versions, each
    bf16 element within one ulp of its own value plus 2^-5 of its row's
    RMS, and each tensor within 2^-7 in norm; SDPA forward, ATen's flash
    backward (the yardstick of the dK/dV + dQ pair) and SDPA
@@ -41,9 +43,10 @@
    block attention and online merge) at llama_1b's heads, B 2, shards of
    1024 of a 4096 sequence: a diagonal, a past and a future block (the
    state left bit for bit as it was), a 4-step chain ending in the
-   normalisation, a ragged shard of 1000 at q_off 3000, and D 64 with
-   group 1, each against its plain version (acc or out element by element
-   as the flash kernels, lse atol 1e-4).  Then the whole ring over
+   normalisation, a ragged shard of 1000 at q_off 3000, D 64 with group 1
+   and a shard of 960 over a diagonal and two past blocks, each against
+   its plain version (acc or out element by element as the flash kernels,
+   lse atol 1e-4).  Then the whole ring over
    LocalRing(4), ring_attention(impl="rdma") at B 2 x S 4096, forward and
    backward with a seeded dO, against the port's flash_attention over the
    whole sequence element by element, and against the plain ring (the
@@ -52,6 +55,11 @@
    the step and its plain version, the whole ring's forward, the plain
    ring's, SDPA (causal, GQA; the library yardstick) and flash_fwd over the
    whole sequence, eagerly and from a CUDA graph, with their bounds.
+   For the two kernels on the Hopper forward main loop (flash_fwd and the
+   ring step): achieved TFLOP/s; registers a thread, static shared
+   memory and spills at D 64 and 128 from the build's ``-Xptxas -v``
+   report (a spill fails the run); and shared memory a block, static and
+   dynamic, as the runtime holds it once each has launched at that D.
 3. Serve: builds llama3_8b at full width (seeded random bf16 weights)
    once for every serve phase.  Starts ServeEngine(max_slots=8,
    max_len=2048) behind ServeFrontend on 127.0.0.1, POSTs 8 concurrent
@@ -230,12 +238,27 @@ def graph_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def host_ms(fn, iters: int) -> float:
+    """Host time of one call's enqueue (the host's clock around ``iters``
+    calls, no synchronisation inside): where it exceeds the device time,
+    the eager time is the host's."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t = (time.perf_counter() - t0) * 1e3 / iters
+    torch.cuda.synchronize()
+    return t
+
+
 def timings(kernel, plain, library, iters: int, plain_iters: int) -> dict:
     """Eager times (CUDA events around back-to-back calls, what the eager
-    paths pay, host launch cost included) and CUDA-graph times (device
-    work alone) of a kernel, its plain version and the library call
-    (None where no one PyTorch call computes the same function)."""
-    return {"ms": cuda_ms(kernel, iters), "graph_ms": graph_ms(kernel, iters),
+    paths pay, host launch cost included), the kernel's host enqueue time,
+    and CUDA-graph times (device work alone) of a kernel, its plain version
+    and the library call (None where no one PyTorch call computes the same
+    function)."""
+    return {"ms": cuda_ms(kernel, iters), "host_ms": host_ms(kernel, iters),
+            "graph_ms": graph_ms(kernel, iters),
             "plain_ms": cuda_ms(plain, plain_iters),
             "plain_graph_ms": graph_ms(plain, plain_iters),
             "library_ms": library and cuda_ms(library, iters),
@@ -304,6 +327,78 @@ def bound(nbytes: float, flops: float) -> dict:
     t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / BF16_FLOPS
     return {"bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def achieved(flops: float, t: dict) -> dict:
+    """TFLOP/s of ``flops`` at a ``timings`` record's eager and graph
+    times."""
+    return {"tflops": flops / t["ms"] / 1e9,
+            "graph_tflops": flops / t["graph_ms"] / 1e9}
+
+
+# The kernels on the Hopper forward main loop (csrc/attn_fwd_sm90.cuh), by
+# wrapper name: their kernel's name in the build log, and their module and
+# C entry point that read a block's shared memory from the runtime.
+HOPPER_FWD = {"flash_fwd": ("flash_fwd_kernel", fa, "flash_fwd_smem_bytes"),
+              "ring_attention_step": ("ring_step_kernel", ra,
+                                      "ring_attention_step_smem_bytes")}
+
+
+def ptxas_report(libs) -> dict:
+    """Registers, static shared memory and spills of every kernel, by
+    mangled name, from the ``-Xptxas -v`` report kept beside each
+    library."""
+    rep, cur = {}, None
+    for lib in libs:
+        for ln in lib.with_suffix(".log").read_text().splitlines():
+            m = re.search(r"(?:Compiling entry function|Function properties "
+                          r"for) '?(\w+)", ln)
+            if m:
+                cur = m.group(1)
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", ln)
+            if m and cur:
+                rep.setdefault(cur, {}).update(
+                    spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+            m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", ln)
+            if m and cur:
+                rep.setdefault(cur, {}).update(
+                    registers=int(m.group(1)), static_smem=int(m.group(2)))
+    return rep
+
+
+def hopper_resources(libs) -> dict:
+    """For each kernel of HOPPER_FWD and head dim: registers a thread,
+    static shared memory and spills, from ptxas.  Fails if a kernel is
+    missing from the report or spills."""
+    rep = ptxas_report(libs)
+    out = {}
+    for wrapper, (kernel, _, _) in HOPPER_FWD.items():
+        for name, r in rep.items():
+            m = re.search(kernel + r"ILi(\d+)E", name)
+            if m:
+                out.setdefault(wrapper, {})[f"D{m.group(1)}"] = dict(r)
+        got = out.get(wrapper, {})
+        if set(got) != {"D64", "D128"} or any(
+                r.get("spill_stores", 1) or "registers" not in r
+                for r in got.values()):
+            raise AssertionError(f"{kernel}: ptxas report {got} (expected "
+                                 f"D 64 and 128, registers, no spills)")
+    return out
+
+
+def hopper_smem(hopper: dict) -> None:
+    """Adds to ``hopper`` each kernel's shared memory a block (static and
+    dynamic) at D 64 and 128, as the runtime holds it once the kernel has
+    launched at that D.  Fails if the runtime refuses or holds none."""
+    for wrapper, (kernel, mod, entry) in HOPPER_FWD.items():
+        for key, r in hopper[wrapper].items():
+            got = mod._fn(entry)(int(key[1:]))
+            if got <= r["static_smem"]:
+                raise AssertionError(f"{kernel} at {key}: the runtime holds "
+                                     f"{got} bytes of shared memory a block")
+            r["smem_bytes"] = got
 
 
 def check_decode(gen: torch.Generator) -> dict:
@@ -522,7 +617,10 @@ FLASH_SHAPES = (("llama_1b", 4, 2048, 2048, 16, 8, 128),
                 ("llama3_8b_heads", 1, 1024, 1024, 32, 8, 128),
                 ("ragged", 2, 1000, 1000, 16, 8, 128),
                 ("offset", 1, 512, 1536, 16, 8, 128),
-                ("d64_group1", 2, 1024, 1024, 12, 12, 64))
+                ("d64_group1", 2, 1024, 1024, 12, 12, 64),
+                # 960: the forward's 128-row tile does not divide it, the
+                # backward's 64-row tile does.
+                ("tile64", 1, 960, 960, 16, 8, 128))
 
 
 def visible_pairs(B, Sq, Skv, Hq, causal=True) -> int:
@@ -585,6 +683,8 @@ def check_flash(gen: torch.Generator) -> dict:
                           qt, kt, vt, is_causal=True, enable_gqa=True),
                       20, 3),
             **bound(io_qkv + 2 * out.numel() + rows, 4 * pairs * D)}
+        timed["flash_fwd"].update(achieved(4 * pairs * D,
+                                           timed["flash_fwd"]))
         timed["flash_bwd_dkv"] = {
             **timings(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta),
                       lambda: fa.flash_bwd_dkv_ref(q, k, v, do, lse, delta),
@@ -677,6 +777,7 @@ RING_STEP_CASES = (
      (3072, 2048, 1024, 0), True),
     ("ragged", 1000, RING_HQ, RING_HKV, RING_D, 3000, (3000, 1000), True),
     ("d64_group1", 1024, 12, 12, 64, 1024, (1024, 0), True),
+    ("tile64", 960, RING_HQ, RING_HKV, RING_D, 1920, (1920, 960, 0), True),
 )
 
 
@@ -815,6 +916,7 @@ def check_ring(gen: torch.Generator) -> dict:
         **bound(step_bytes, 4 * B * Hq * Sl * Sl * D),
         "shape": {"B": B, "shard": Sl, "Hq": Hq, "Hkv": Hkv, "D": D,
                   "q_off": Sl, "k_off": 0}}
+    res["step"].update(achieved(4 * B * Hq * Sl * Sl * D, res["step"]))
     # ... and the whole ring's forward, with SDPA and flash_fwd over the
     # whole sequence beside it.
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
@@ -832,6 +934,8 @@ def check_ring(gen: torch.Generator) -> dict:
             "flash_fwd_graph_ms": graph_ms(lambda: fa.flash_fwd(q, k, v), 10),
             "shape": {"B": B, "S": S, "sp": RING_SP, "Hq": Hq, "Hkv": Hkv,
                       "D": D}}
+        res["main"].update(achieved(4 * visible_pairs(B, S, S, Hq) * D,
+                                    res["main"]))
     print(f"ring timings: step {json.dumps(res['step'])}; whole "
           f"{json.dumps(res['main'])}", flush=True)
     del q, k, v, do, qt, kt, vt, st_k, st_p
@@ -1293,6 +1397,8 @@ def main(argv=None) -> None:
     libs = _build.build_all()
     build_s = time.perf_counter() - t0
     print(f"built {[p.name for p in libs]} in {build_s:.2f} s", flush=True)
+    hopper = hopper_resources(libs)
+    print(f"hopper forward kernels (ptxas): {json.dumps(hopper)}", flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rms = check_rmsnorm(gen)
@@ -1302,6 +1408,15 @@ def main(argv=None) -> None:
     flash = check_flash(gen)
     xe = check_xent(gen)
     ring = check_ring(gen)
+    hopper_smem(hopper)
+    for name, t, kernel in (
+            ("flash_fwd", flash["flash_fwd"]["main"], "flash_fwd"),
+            ("ring step", ring["step"], "ring_attention_step"),
+            ("ring forward", ring["main"], "ring_attention_step")):
+        print(f"{name}: {t['ms']:.4f} ms eager ({t['host_ms']:.4f} ms of "
+              f"host enqueue), {t['graph_ms']:.4f} ms graph; "
+              f"{t['tflops']:.1f} / {t['graph_tflops']:.1f} TFLOP/s; "
+              f"resources {json.dumps(hopper[kernel])}", flush=True)
     torch.cuda.empty_cache()
     # One llama3_8b tree (16 GB of bf16 weights) serves every serve phase.
     cfg = llama.CONFIGS["llama3_8b"]
@@ -1339,7 +1454,9 @@ def main(argv=None) -> None:
                 "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
                 "library_ms": m["library_ms"],
                 **({"library_of": m["library_of"]} if "library_of" in m
-                   else {})}
+                   else {}),
+                **({"tflops": m["tflops"], "resources": hopper[name]}
+                   if name in hopper else {})}
 
     kernels = {"kernels": [
         entry("rmsnorm", "triton", "kuberay_tpu_torch/ops/rmsnorm.py",
@@ -1365,7 +1482,7 @@ def main(argv=None) -> None:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps({
         "device": kind, "nvidia_smi": smi, "torch": torch.__version__,
-        "build_s": build_s,
+        "build_s": build_s, "hopper_fwd_resources": hopper,
         "build_log": {p.name: p.with_suffix(".log").read_text()
                       for p in libs},
         "rmsnorm": rms, "decode_attention": dec,

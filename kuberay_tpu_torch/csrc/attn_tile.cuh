@@ -1,11 +1,12 @@
-// Tiles and tensor-core fragments shared by the attention kernels of the
-// training path (flash_attention.cu: forward, dK/dV, dQ; ring_attention.cu:
-// one step of the sequence-parallel ring).
+// Tiles and tensor-core fragments of the flash backward kernels
+// (flash_attention.cu: dK/dV, dQ), and the shape checks and head-dim
+// dispatch that every training attention kernel shares (the forward's
+// Hopper main loop is attn_fwd_sm90.cuh).
 //
-// Every kernel runs one block of 4 warps (NT threads) over a 64-row tile;
-// each warp owns 16 rows.  Tiles are staged in shared memory with 16-byte
-// loads; the products run on the tensor cores through nvcuda::wmma bf16
-// 16x16x16 fragments with f32 accumulators.
+// Every backward kernel runs one block of 4 warps (NT threads) over a
+// 64-row tile; each warp owns 16 rows.  Tiles are staged in shared memory
+// with 16-byte loads; the products run on the tensor cores through
+// nvcuda::wmma bf16 16x16x16 fragments with f32 accumulators.
 
 #pragma once
 
@@ -123,18 +124,6 @@ __device__ void acc_cols(float* acc, const bf16* p, const bf16* t) {
     }
     wmma::store_matrix_sync(cp, c, Ld<D>::A, wmma::mem_row_major);
   }
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
 }
 
 // Head dims 64 and 128; GQA groups 1, 2, 4 and 8.

@@ -25,23 +25,29 @@
 // 69 us at 989 TFLOP/s, dK/dV (4 products) 139 us and dQ (3 products)
 // 104 us; their bytes (q, k, v, o, dO: about 50 MB) take 15 us at 3.35 TB/s.
 //
-// Design.  Every kernel is one block of 4 warps over a 64-row tile; each
-// warp owns 16 rows.  The TPU kernels' sequential kv (or q) grid axis, with
-// its VMEM accumulators, becomes a loop inside the block.  Tiles are staged
-// in shared memory with 16-byte loads; the products run on the tensor cores
-// through nvcuda::wmma bf16 16x16x16 fragments with f32 accumulators; the
-// softmax and the dS arithmetic run on f32 rows in shared memory.  Causal
-// tiles that see nothing are skipped by the loop bounds.
-// - forward: one block per (q tile, q head, batch); online softmax with a
-//   running max and sum per row; O accumulates in f32 shared memory.
-// - dK/dV: one block per (kv tile, kv head, batch); it loops over the
-//   group's q heads and the q tiles that see the tile, so dK and dV
-//   accumulate in f32 once per kv head and are written once (the TPU path
-//   wrote per-q-head f32 [B, Hq, Skv, D] buffers and summed the group).
-// - dQ: one block per (q tile, q head, batch); it loops over the visible
-//   kv tiles.
-// Not used yet: wgmma, TMA, cp.async pipelining, warp specialisation.
+// Design.
+// - forward: the Hopper main loop of attn_fwd_sm90.cuh (TMA into a 2-stage
+//   K/V ring guarded by mbarriers, a producer warpgroup and two consumer
+//   warpgroups running wgmma with S, P and O in registers), one block per
+//   (128-row q tile, q head, batch), the longest causal tiles first; its
+//   epilogue here normalises O in registers and writes out and lse.  The
+//   tensor maps over q, k, v are built on the host at every call.
+// - backward: one block of 4 warps over a 64-row tile; each warp owns 16
+//   rows.  The TPU kernels' sequential kv (or q) grid axis, with its VMEM
+//   accumulators, becomes a loop inside the block.  Tiles are staged in
+//   shared memory with 16-byte loads; the products run on the tensor cores
+//   through nvcuda::wmma bf16 16x16x16 fragments with f32 accumulators
+//   (attn_tile.cuh); the dS arithmetic runs on f32 rows in shared memory.
+//   Causal tiles that see nothing are skipped by the loop bounds.
+//   - dK/dV: one block per (kv tile, kv head, batch); it loops over the
+//     group's q heads and the q tiles that see the tile, so dK and dV
+//     accumulate in f32 once per kv head and are written once (the TPU path
+//     wrote per-q-head f32 [B, Hq, Skv, D] buffers and summed the group).
+//   - dQ: one block per (q tile, q head, batch); it loops over the visible
+//     kv tiles.
+//   Not used yet in the backward: wgmma, TMA, warp specialisation.
 
+#include "attn_fwd_sm90.cuh"
 #include "attn_tile.cuh"
 
 using namespace attn;
@@ -65,95 +71,51 @@ __device__ __forceinline__ int kv_end(const Shape& s, int q0) {
   return e < s.Skv ? e : s.Skv;
 }
 
+// The forward's prologue and epilogue on the register fragment: the state
+// starts empty; out = O / l (l == 0 -> 1) in bf16 and lse = m + log l.
 template <int D>
-constexpr size_t fwd_smem() {
-  return (size_t)3 * 64 * Ld<D>::T * 2 + 64 * Ld<D>::S * 4 + 64 * Ld<D>::P * 2 +
-         64 * Ld<D>::A * 4 + 2 * 64 * 4;
-}
+struct FwdOut {
+  bf16* o;
+  float* lse;
+  int Sq, Hq, h, b;
 
-template <int D>
-__global__ void __launch_bounds__(NT)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o,
-                 float* __restrict__ lse, Shape s) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem);
-  bf16* k_s = q_s + 64 * Ld<D>::T;
-  bf16* v_s = k_s + 64 * Ld<D>::T;
-  float* s_s = reinterpret_cast<float*>(v_s + 64 * Ld<D>::T);
-  bf16* p_s = reinterpret_cast<bf16*>(s_s + 64 * Ld<D>::S);
-  float* o_s = reinterpret_cast<float*>(p_s + 64 * Ld<D>::P);
-  float* m_s = o_s + 64 * Ld<D>::A;
-  float* l_s = m_s + 64;
-
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (s.Hq / s.Hkv);
-  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const size_t qstride = (size_t)s.Hq * D, kstride = (size_t)s.Hkv * D;
-  const bf16* qb = q + ((size_t)b * s.Sq * s.Hq + h) * D;
-  const bf16* kb = k + ((size_t)b * s.Skv * s.Hkv + hk) * D;
-  const bf16* vb = v + ((size_t)b * s.Skv * s.Hkv + hk) * D;
-
-  load_tile<D>(q_s, qb, qstride, q0, s.Sq);
-  zero_acc<D>(o_s);
-  if (threadIdx.x < 64) {
-    m_s[threadIdx.x] = NEG;
-    l_s[threadIdx.x] = 0.f;
+  __device__ __forceinline__ void init(float (&acc)[D / 2], float (&m)[2],
+                                       float (&l)[2], const fwd90::Frag&) {
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    m[0] = m[1] = fwd90::NEG;
+    l[0] = l[1] = 0.f;
   }
-  const int end = kv_end(s, q0);
-  for (int kv0 = 0; kv0 < end; kv0 += BK) {
-    __syncthreads();                       // k_s / v_s free; q_s, o_s ready
-    load_tile<D>(k_s, kb, kstride, kv0, s.Skv);
-    load_tile<D>(v_s, vb, kstride, kv0, s.Skv);
-    __syncthreads();
-    rows_times_tile_t<D>(s_s, q_s, k_s);
-    __syncwarp();
-    for (int rr = 0; rr < 16; ++rr) {
-      const int r = 16 * w + rr, row = q0 + r;
-      float x[2];
-      bool ok[2];
-      float mx = NEG;
+
+  __device__ __forceinline__ void finish(const float (&acc)[D / 2],
+                                         const float (&m)[2],
+                                         const float (&l)[2],
+                                         const fwd90::Frag& f) {
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int c = lane + 32 * e;
-        ok[e] = visible(s, row, kv0 + c);
-        x[e] = s_s[r * Ld<D>::S + c] * s.scale;
-        if (ok[e]) mx = fmaxf(mx, x[e]);
-      }
-      mx = warp_max(mx);
-      const float m_old = m_s[r];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
+    for (int r = 0; r < 2; ++r) {
+      const int row = f.rows[r];
+      if (row >= Sq) continue;
+      const float lr = l[r] == 0.f ? 1.f : l[r];
+      const float inv = 1.f / lr;
+      bf16* op = o + ((size_t)(b * Sq + row) * Hq + h) * D + 2 * f.c;
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float p = ok[e] ? expf(x[e] - m_new) : 0.f;
-        sum += p;
-        p_s[r * Ld<D>::P + lane + 32 * e] = __float2bfloat16(p);
-      }
-      sum = warp_sum(sum);
-      const float corr = expf(m_old - m_new);
-      for (int d = lane; d < D; d += 32) o_s[r * Ld<D>::A + d] *= corr;
-      __syncwarp();
-      if (lane == 0) {
-        l_s[r] = l_s[r] * corr + sum;
-        m_s[r] = m_new;
-      }
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(op + 8 * j) = fwd90::pack_bf16(
+            acc[4 * j + 2 * r] * inv, acc[4 * j + 2 * r + 1] * inv);
+      if (f.c == 0) lse[((size_t)b * Hq + h) * Sq + row] = m[r] + logf(lr);
     }
-    __syncwarp();
-    acc_rows<D>(o_s, p_s, v_s);
   }
-  __syncthreads();                       // also when no tile was visible
-  for (int rr = 0; rr < 16; ++rr) {
-    const int r = 16 * w + rr, row = q0 + r;
-    if (row >= s.Sq) break;
-    float l = l_s[r];
-    l = l == 0.f ? 1.f : l;
-    const float inv = 1.f / l;
-    bf16* op = o + ((size_t)b * s.Sq + row) * qstride + (size_t)h * D;
-    for (int d = lane; d < D; d += 32)
-      op[d] = __float2bfloat16(o_s[r * Ld<D>::A + d] * inv);
-    if (lane == 0) lse[((size_t)b * s.Hq + h) * s.Sq + row] = m_s[r] + logf(l);
-  }
+};
+
+template <int D>
+__global__ void __launch_bounds__(fwd90::NT, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap qm,
+                 const __grid_constant__ CUtensorMap km,
+                 const __grid_constant__ CUtensorMap vm, bf16* __restrict__ o,
+                 float* __restrict__ lse, fwd90::Tile t) {
+  const int q0 = fwd90::block_q0(), h = blockIdx.x, b = blockIdx.y;
+  FwdOut<D> epi{o, lse, t.Sq, t.Hq, h, b};
+  fwd90::fwd_block<D>(qm, km, vm, t, q0, h, b, fwd90::kv_tiles(t, q0), epi);
 }
 
 // P and dS of this warp's 16 q rows against one kv tile, from the scores
@@ -324,19 +286,31 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 // Each entry point returns cudaGetLastError() after its launch (0 =
 // launched), or cudaErrorInvalidValue for a shape without an instantiation
-// (head_dim 64 or 128; group 1, 2, 4 or 8).
+// (head_dim 64 or 128; group 1, 2, 4 or 8) or, for the forward, tensor
+// maps cuTensorMapEncodeTiled refuses.
 extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
                               void* o, void* lse, int B, int Sq, int Skv,
                               int Hq, int Hkv, int D, int causal, float scale,
                               void* stream) {
-  if (!shape_ok(B, Sq, Skv, Hq, Hkv, D)) return (int)cudaErrorInvalidValue;
-  const Shape s{Sq, Skv, Hq, Hkv, causal, scale};
-  const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
+  fwd90::Maps maps;
+  if (!shape_ok(B, Sq, Skv, Hq, Hkv, D) ||
+      !fwd90::make_maps(&maps, q, k, v, B, Sq, Skv, Hq, Hkv, D))
+    return (int)cudaErrorInvalidValue;
+  const fwd90::Tile t{Sq, Skv, Hq, Hkv, causal, Skv - Sq, scale};
   return with_head_dim(D, [&](auto d) {
     constexpr int DD = decltype(d)::value;
-    return launch(flash_fwd_kernel<DD>, fwd_smem<DD>(), grid, stream,
-                  (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o,
-                  (float*)lse, s);
+    return fwd90::launch<DD>(flash_fwd_kernel<DD>, fwd90::grid(B, Sq, Hq),
+                             stream, maps.q, maps.k, maps.v, (bf16*)o,
+                             (float*)lse, t);
+  });
+}
+
+// The forward kernel's shared memory a block at head dim D (64 or 128), as
+// the runtime holds it after a launch at D; -1 for another D.
+extern "C" int flash_fwd_smem_bytes(int D) {
+  if (D != 64 && D != 128) return -1;
+  return with_head_dim(D, [](auto d) {
+    return fwd90::smem_bytes(flash_fwd_kernel<decltype(d)::value>);
   });
 }
 

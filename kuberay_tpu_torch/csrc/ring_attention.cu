@@ -24,7 +24,7 @@
 // the state is not written back.  A row or block that sees no key leaves
 // the state as it was; a block that sees nothing does not touch it.  The
 // TPU kernel rounds P against the block's max, this kernel against the
-// running max of its 64-key tiles: the two differ by bf16 rounding only.
+// running max of its 128-key tiles: the two differ by bf16 rounding only.
 //
 // Bound on an H100: operations, nearly balanced with bytes.  At the ring
 // smoke's shape (llama_1b heads: 16 q / 8 kv of 128; B 2; shards of 1024)
@@ -34,161 +34,114 @@
 // products.  The state's round trip through device memory is what carrying
 // it in registers across steps (one kernel per ring) would remove.
 //
-// Design, simple first, as flash_attention.cu's forward: one block of 4
-// warps per (64-row q tile, q head, batch).  The block reads its rows of
-// the state (acc with 16-byte loads), loops over the 64-key tiles its rows
-// can see (the causal bound ends the loop early; a block that sees nothing
-// returns at once unless it must normalise), staging K and V in shared
-// memory and running both products on wmma bf16 fragments with f32
-// accumulators, updates the running max and sum per row, and writes the
-// state (or out and lse) back once.
+// Design: the flash forward's Hopper main loop (attn_fwd_sm90.cuh: TMA
+// into a 2-stage K/V ring, a producer warpgroup, two consumer warpgroups
+// running wgmma with S, P and O in registers), one block per (128-row q
+// tile, q head, batch), with the global-offset mask (off = q_off - k_off):
+// past blocks are wholly visible and never pay the per-element test.  Its
+// prologue here reads the tile's state (acc into the O accumulator
+// fragment with 8-byte loads, m and l per row); its epilogue writes the
+// state back or, with `last`, normalises into out and lse.  A block that
+// sees nothing returns before touching the state.
 
-#include "attn_tile.cuh"
-
-using namespace attn;
+#include "attn_fwd_sm90.cuh"
 
 namespace {
 
-struct Step {
-  int Sq, Skv, Hq, Hkv, causal, last, q_off, k_off;
-  float scale;
+using bf16 = __nv_bfloat16;
+
+// The step's prologue and epilogue on the register fragment.
+template <int D>
+struct StepState {
+  float* acc;
+  float* m;
+  float* l;
+  bf16* out;
+  float* lse;
+  int Sq, Hq, h, b, last;
+
+  __device__ __forceinline__ size_t at(int row) const {   // acc, out
+    return ((size_t)(b * Sq + row) * Hq + h) * D;
+  }
+  __device__ __forceinline__ size_t at_row(int row) const {  // m, l, lse
+    return ((size_t)b * Hq + h) * Sq + row;
+  }
+
+  // The state of the fragment's rows (rows past Sq: empty); l as the quad
+  // leader's share, so the quad's sum gives it back.
+  __device__ __forceinline__ void init(float (&o)[D / 2], float (&mr)[2],
+                                       float (&lr)[2],
+                                       const fwd90::Frag& f) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = f.rows[r];
+      const bool in = row < Sq;
+      const float* ap = acc + (in ? at(row) : 0) + 2 * f.c;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const float2 v = in ? *reinterpret_cast<const float2*>(ap + 8 * j)
+                            : make_float2(0.f, 0.f);
+        o[4 * j + 2 * r] = v.x;
+        o[4 * j + 2 * r + 1] = v.y;
+      }
+      mr[r] = in ? m[at_row(row)] : fwd90::NEG;
+      lr[r] = in && f.c == 0 ? l[at_row(row)] : 0.f;
+    }
+  }
+
+  __device__ __forceinline__ void finish(const float (&o)[D / 2],
+                                         const float (&mr)[2],
+                                         const float (&lr)[2],
+                                         const fwd90::Frag& f) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = f.rows[r];
+      if (row >= Sq) continue;
+      if (last) {
+        const float ls = lr[r] == 0.f ? 1.f : lr[r];
+        const float inv = 1.f / ls;
+        bf16* op = out + at(row) + 2 * f.c;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j)
+          *reinterpret_cast<uint32_t*>(op + 8 * j) = fwd90::pack_bf16(
+              o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+        if (f.c == 0) lse[at_row(row)] = mr[r] + logf(ls);
+      } else {
+        float* ap = acc + at(row) + 2 * f.c;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j)
+          *reinterpret_cast<float2*>(ap + 8 * j) =
+              make_float2(o[4 * j + 2 * r], o[4 * j + 2 * r + 1]);
+        if (f.c == 0) {
+          m[at_row(row)] = mr[r];
+          l[at_row(row)] = lr[r];
+        }
+      }
+    }
+  }
 };
 
-// Does local query row `row` see local key `col`?
-__device__ __forceinline__ bool sees(const Step& s, int row, int col) {
-  return row < s.Sq && col < s.Skv &&
-         (!s.causal || s.k_off + col <= s.q_off + row);
-}
-
 template <int D>
-constexpr size_t step_smem() {
-  return (size_t)3 * 64 * Ld<D>::T * 2 + 64 * Ld<D>::S * 4 + 64 * Ld<D>::P * 2 +
-         64 * Ld<D>::A * 4 + 2 * 64 * 4;
-}
-
-template <int D>
-__global__ void __launch_bounds__(NT)
-ring_step_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, float* __restrict__ acc,
-                 float* __restrict__ m, float* __restrict__ l,
-                 bf16* __restrict__ out, float* __restrict__ lse, Step s) {
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  // End (exclusive) of the keys this tile's rows can see.
-  int end = s.Skv;
-  if (s.causal) {
-    const int last_row = (q0 + BQ < s.Sq ? q0 + BQ : s.Sq) - 1;
-    const int e = s.q_off + last_row + 1 - s.k_off;
-    end = e < end ? e : end;
-  }
-  if (end <= 0 && !s.last) return;       // nothing to merge
-
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem);
-  bf16* k_s = q_s + 64 * Ld<D>::T;
-  bf16* v_s = k_s + 64 * Ld<D>::T;
-  float* s_s = reinterpret_cast<float*>(v_s + 64 * Ld<D>::T);
-  bf16* p_s = reinterpret_cast<bf16*>(s_s + 64 * Ld<D>::S);
-  float* o_s = reinterpret_cast<float*>(p_s + 64 * Ld<D>::P);
-  float* m_s = o_s + 64 * Ld<D>::A;
-  float* l_s = m_s + 64;
-
-  const int hk = h / (s.Hq / s.Hkv);
-  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const size_t qstride = (size_t)s.Hq * D, kstride = (size_t)s.Hkv * D;
-  const size_t qoff = ((size_t)b * s.Sq * s.Hq + h) * D;     // q, acc, out
-  const size_t koff = ((size_t)b * s.Skv * s.Hkv + hk) * D;
-  const size_t roff = ((size_t)b * s.Hq + h) * s.Sq;         // m, l, lse
-
-  // The state of this tile's rows (rows past Sq: empty).
-  constexpr int CH = D / 4;
-  for (int c = threadIdx.x; c < 64 * CH; c += NT) {
-    const int r = c / CH, col = (c % CH) * 4;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (q0 + r < s.Sq)
-      val = *reinterpret_cast<const float4*>(acc + qoff + (size_t)(q0 + r) * qstride + col);
-    *reinterpret_cast<float4*>(o_s + r * Ld<D>::A + col) = val;
-  }
-  if (threadIdx.x < 64) {
-    const int row = q0 + threadIdx.x;
-    m_s[threadIdx.x] = row < s.Sq ? m[roff + row] : NEG;
-    l_s[threadIdx.x] = row < s.Sq ? l[roff + row] : 0.f;
-  }
-  if (end > 0) load_tile<D>(q_s, q + qoff, qstride, q0, s.Sq);
-
-  for (int kv0 = 0; kv0 < end; kv0 += BK) {
-    __syncthreads();                       // k_s / v_s free; q_s, o_s ready
-    load_tile<D>(k_s, k + koff, kstride, kv0, s.Skv);
-    load_tile<D>(v_s, v + koff, kstride, kv0, s.Skv);
-    __syncthreads();
-    rows_times_tile_t<D>(s_s, q_s, k_s);
-    __syncwarp();
-    for (int rr = 0; rr < 16; ++rr) {
-      const int r = 16 * w + rr, row = q0 + r;
-      float x[2];
-      bool ok[2];
-      float mx = NEG;
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int c = lane + 32 * e;
-        ok[e] = sees(s, row, kv0 + c);
-        x[e] = s_s[r * Ld<D>::S + c] * s.scale;
-        if (ok[e]) mx = fmaxf(mx, x[e]);
-      }
-      mx = warp_max(mx);
-      const float m_old = m_s[r];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float p = ok[e] ? expf(x[e] - m_new) : 0.f;
-        sum += p;
-        p_s[r * Ld<D>::P + lane + 32 * e] = __float2bfloat16(p);
-      }
-      sum = warp_sum(sum);
-      const float corr = expf(m_old - m_new);
-      for (int d = lane; d < D; d += 32) o_s[r * Ld<D>::A + d] *= corr;
-      __syncwarp();
-      if (lane == 0) {
-        l_s[r] = l_s[r] * corr + sum;
-        m_s[r] = m_new;
-      }
-    }
-    __syncwarp();
-    acc_rows<D>(o_s, p_s, v_s);
-  }
-  __syncthreads();                       // also when no tile was visible
-
-  if (s.last) {
-    for (int rr = 0; rr < 16; ++rr) {
-      const int r = 16 * w + rr, row = q0 + r;
-      if (row >= s.Sq) break;
-      float lr = l_s[r];
-      lr = lr == 0.f ? 1.f : lr;
-      const float inv = 1.f / lr;
-      bf16* op = out + qoff + (size_t)row * qstride;
-      for (int d = lane; d < D; d += 32)
-        op[d] = __float2bfloat16(o_s[r * Ld<D>::A + d] * inv);
-      if (lane == 0) lse[roff + row] = m_s[r] + logf(lr);
-    }
-    return;
-  }
-  for (int c = threadIdx.x; c < 64 * CH; c += NT) {
-    const int r = c / CH, col = (c % CH) * 4;
-    if (q0 + r < s.Sq)
-      *reinterpret_cast<float4*>(acc + qoff + (size_t)(q0 + r) * qstride + col) =
-          *reinterpret_cast<const float4*>(o_s + r * Ld<D>::A + col);
-  }
-  if (threadIdx.x < 64 && q0 + threadIdx.x < s.Sq) {
-    m[roff + q0 + threadIdx.x] = m_s[threadIdx.x];
-    l[roff + q0 + threadIdx.x] = l_s[threadIdx.x];
-  }
+__global__ void __launch_bounds__(fwd90::NT, 1)
+ring_step_kernel(const __grid_constant__ CUtensorMap qm,
+                 const __grid_constant__ CUtensorMap km,
+                 const __grid_constant__ CUtensorMap vm,
+                 float* __restrict__ acc, float* __restrict__ m,
+                 float* __restrict__ l, bf16* __restrict__ out,
+                 float* __restrict__ lse, fwd90::Tile t, int last) {
+  const int q0 = fwd90::block_q0(), h = blockIdx.x, b = blockIdx.y;
+  const int n_tiles = fwd90::kv_tiles(t, q0);
+  if (n_tiles == 0 && !last) return;     // nothing to merge
+  StepState<D> epi{acc, m, l, out, lse, t.Sq, t.Hq, h, b, last};
+  fwd90::fwd_block<D>(qm, km, vm, t, q0, h, b, n_tiles, epi);
 }
 
 }  // namespace
 
 // Returns cudaGetLastError() after the launch (0 = launched), or
 // cudaErrorInvalidValue for a shape without an instantiation (head_dim 64
-// or 128; group 1, 2, 4 or 8) or `last` without out and lse.
+// or 128; group 1, 2, 4 or 8), `last` without out and lse, or tensor maps
+// cuTensorMapEncodeTiled refuses.
 extern "C" int ring_attention_step_bf16(const void* q, const void* k,
                                         const void* v, void* acc, void* m,
                                         void* l, void* out, void* lse, int B,
@@ -196,14 +149,25 @@ extern "C" int ring_attention_step_bf16(const void* q, const void* k,
                                         int D, int q_off, int k_off,
                                         int causal, int last, float scale,
                                         void* stream) {
-  if (!shape_ok(B, Sq, Skv, Hq, Hkv, D) || (last && (!out || !lse)))
+  fwd90::Maps maps;
+  if (!attn::shape_ok(B, Sq, Skv, Hq, Hkv, D) || (last && (!out || !lse)) ||
+      !fwd90::make_maps(&maps, q, k, v, B, Sq, Skv, Hq, Hkv, D))
     return (int)cudaErrorInvalidValue;
-  const Step s{Sq, Skv, Hq, Hkv, causal, last, q_off, k_off, scale};
-  const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
-  return with_head_dim(D, [&](auto d) {
+  const fwd90::Tile t{Sq, Skv, Hq, Hkv, causal, q_off - k_off, scale};
+  return attn::with_head_dim(D, [&](auto d) {
     constexpr int DD = decltype(d)::value;
-    return launch(ring_step_kernel<DD>, step_smem<DD>(), grid, stream,
-                  (const bf16*)q, (const bf16*)k, (const bf16*)v, (float*)acc,
-                  (float*)m, (float*)l, (bf16*)out, (float*)lse, s);
+    return fwd90::launch<DD>(ring_step_kernel<DD>, fwd90::grid(B, Sq, Hq),
+                             stream, maps.q, maps.k, maps.v, (float*)acc,
+                             (float*)m, (float*)l, (bf16*)out, (float*)lse, t,
+                             last);
+  });
+}
+
+// The step kernel's shared memory a block at head dim D (64 or 128), as the
+// runtime holds it after a launch at D; -1 for another D.
+extern "C" int ring_attention_step_smem_bytes(int D) {
+  if (D != 64 && D != 128) return -1;
+  return attn::with_head_dim(D, [](auto d) {
+    return fwd90::smem_bytes(ring_step_kernel<decltype(d)::value>);
   });
 }

@@ -20,7 +20,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, List
+from typing import Any, Callable, Dict, Iterable, List, Tuple
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -30,6 +30,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_fns: Dict[Tuple[str, str], Any] = {}
+
+# The ctypes kinds of the entry points' parameters, for the wrappers'
+# ARGTYPES tables.
+PTR, INT, FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
 def _nvcc() -> str:
@@ -94,3 +99,19 @@ def load_library(name: str) -> ctypes.CDLL:
             path, = build_all([name])
             lib = _libs[name] = ctypes.CDLL(str(path))
         return lib
+
+
+def bind(library: str, argtypes: Dict[str, list]) -> Callable[[str], Any]:
+    """A loader of the C entry points of ``csrc/<library>.cu``: called with
+    a name, it returns that function, built on first use, with
+    ``argtypes[name]`` and an int (cudaError_t) result.  Nothing is built
+    until then."""
+    def fn(name: str):
+        f = _fns.get((library, name))
+        if f is None:
+            f = getattr(load_library(library), name)
+            f.argtypes = argtypes[name]
+            f.restype = ctypes.c_int
+            _fns[library, name] = f
+        return f
+    return fn

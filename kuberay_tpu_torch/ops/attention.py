@@ -25,12 +25,12 @@ give 0 with lse -1e30), which causal attention with Skv >= Sq never has.
 
 from __future__ import annotations
 
-import ctypes
 import math
-import threading
 from typing import Optional, Tuple
 
 import torch
+
+from kuberay_tpu_torch.ops._build import FLOAT, INT, PTR, bind
 
 # Kernel launches on CUDA tensors, for run-time checks.
 fwd_launches = 0
@@ -38,8 +38,20 @@ bwd_dkv_launches = 0
 bwd_dq_launches = 0
 
 _NEG_INF = -1e30
-_lock = threading.Lock()
-_fns = {}
+
+# The C entry points of csrc/<LIBRARY>.cu and their ctypes argtypes:
+# pointers, then B, Sq, Skv, Hq, Hkv, D, causal, then the scale and the
+# stream (tests/test_torch_abi.py holds them to the C signatures); and
+# the forward's shared memory a block at head dim D, as the runtime holds
+# it after a launch.
+LIBRARY = "flash_attention"
+ARGTYPES = {
+    "flash_fwd_bf16": [PTR] * 5 + [INT] * 7 + [FLOAT, PTR],
+    "flash_bwd_dkv_bf16": [PTR] * 8 + [INT] * 7 + [FLOAT, PTR],
+    "flash_bwd_dq_bf16": [PTR] * 7 + [INT] * 7 + [FLOAT, PTR],
+    "flash_fwd_smem_bytes": [INT],
+}
+_fn = bind(LIBRARY, ARGTYPES)
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -150,19 +162,6 @@ def flash_bwd_dq_ref(q, k, v, do, lse, delta, causal: bool = True,
     return dq.reshape(B, Sq, Hq, D).to(q.dtype)
 
 
-def _get_fn(name: str, n_ptrs: int):
-    with _lock:
-        fn = _fns.get(name)
-        if fn is None:
-            from kuberay_tpu_torch.ops._build import load_library
-            fn = getattr(load_library("flash_attention"), name)
-            fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 7 + [
-                ctypes.c_float, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            _fns[name] = fn
-        return fn
-
-
 def _check(name: str, q, k, v, *more):
     """Device, shape, dtype, layout and alignment checks for a launch."""
     tensors = (q, k, v) + more
@@ -205,7 +204,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     out = torch.empty_like(q)
     lse = torch.empty(B, Hq, Sq, dtype=torch.float32, device=q.device)
-    err = _get_fn("flash_fwd_bf16", 5)(
+    err = _fn("flash_fwd_bf16")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), B, Sq, Skv, Hq, Hkv, D, int(causal), scale,
         torch.cuda.current_stream(q.device).cuda_stream)
@@ -238,7 +237,7 @@ def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                         delta)
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    err = _get_fn("flash_bwd_dkv_bf16", 8)(
+    err = _fn("flash_bwd_dkv_bf16")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         B, Sq, Skv, Hq, Hkv, D, int(causal), scale,
@@ -261,7 +260,7 @@ def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                         delta)
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     dq = torch.empty_like(q)
-    err = _get_fn("flash_bwd_dq_bf16", 7)(
+    err = _fn("flash_bwd_dq_bf16")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         B, Sq, Skv, Hq, Hkv, D, int(causal), scale,

@@ -18,19 +18,29 @@ averages V over the whole cache).
 
 from __future__ import annotations
 
-import ctypes
 import math
-import threading
 from typing import Optional
 
 import torch
+
+from kuberay_tpu_torch.ops._build import FLOAT, INT, PTR, bind
 
 launches = 0           # bf16 kernel launches on CUDA tensors
 launches_quant = 0     # int8 kernel launches on CUDA tensors
 
 _NEG_INF = -1e30
-_lock = threading.Lock()
-_fns = {}
+
+# The C entry points of csrc/<LIBRARY>.cu and their ctypes argtypes:
+# pointers, then the ints, then the scale and the stream
+# (tests/test_torch_abi.py holds them to the C signatures).
+LIBRARY = "decode_attention"
+ARGTYPES = {
+    # q, ck, cv, lens, out; S, M, Hq, Hkv, D
+    "decode_attention_bf16": [PTR] * 5 + [INT] * 5 + [FLOAT, PTR],
+    # q, kq, ks, vq, vs, lens, out; S, M, Hq, Hkv, D
+    "decode_attention_int8": [PTR] * 7 + [INT] * 5 + [FLOAT, PTR],
+}
+_fn = bind(LIBRARY, ARGTYPES)
 
 
 def decode_attention_ref(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
@@ -68,21 +78,6 @@ def decode_attention_quant_ref(q: torch.Tensor, kq: torch.Tensor,
     ``decode_attention_quant_xla``, with 0 for ``lens == 0``)."""
     return decode_attention_ref(q, dequant_lanes(kq, ks, q.dtype),
                                 dequant_lanes(vq, vs, q.dtype), lens, scale)
-
-
-def _get_fn(lib: str, name: str, n_ptr: int, n_int: int):
-    """The C entry point ``name`` of ``csrc/<lib>.cu``: n_ptr pointers,
-    n_int ints, the scale, the stream."""
-    with _lock:
-        fn = _fns.get(name)
-        if fn is None:
-            from kuberay_tpu_torch.ops._build import load_library
-            fn = getattr(load_library(lib), name)
-            fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int \
-                + [ctypes.c_float, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            _fns[name] = fn
-        return fn
 
 
 def check_cuda_inputs(name: str, q: torch.Tensor, hkv: int,
@@ -138,7 +133,7 @@ def decode_attention(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
         raise TypeError("decode_attention: ck/cv must be bfloat16")
     M, Hkv = ck.shape[1], ck.shape[2]
     out = torch.empty_like(q)
-    fn = _get_fn("decode_attention", "decode_attention_bf16", 5, 5)
+    fn = _fn("decode_attention_bf16")
     _raise_on(fn(q.data_ptr(), ck.data_ptr(), cv.data_ptr(), lens.data_ptr(),
                  out.data_ptr(), S, M, Hq, Hkv, D, _scale(D, scale),
                  torch.cuda.current_stream(q.device).cuda_stream),
@@ -175,7 +170,7 @@ def decode_attention_quant(q: torch.Tensor, kq: torch.Tensor,
         raise TypeError("decode_attention_quant: kq/vq must be int8 and "
                         "ks/vs float32")
     out = torch.empty_like(q)
-    fn = _get_fn("decode_attention", "decode_attention_int8", 7, 5)
+    fn = _fn("decode_attention_int8")
     _raise_on(fn(q.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(),
                  vs.data_ptr(), lens.data_ptr(), out.data_ptr(), S, M, Hq,
                  Hkv, D, _scale(D, scale),

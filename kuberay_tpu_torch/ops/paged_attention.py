@@ -21,8 +21,8 @@ from typing import Optional
 
 import torch
 
+from kuberay_tpu_torch.ops._build import FLOAT, INT, PTR, bind
 from kuberay_tpu_torch.ops.decode_attention import (
-    _get_fn,
     _raise_on,
     _scale,
     check_cuda_inputs,
@@ -30,6 +30,15 @@ from kuberay_tpu_torch.ops.decode_attention import (
 )
 
 launches = 0           # kernel launches on CUDA tensors, for run-time checks
+
+# The C entry point of csrc/<LIBRARY>.cu and its ctypes argtypes: q, pk,
+# pv, tables, lens, out; S, P, max_blocks, block_size, Hq, Hkv, D; the
+# scale and the stream (tests/test_torch_abi.py holds them to the C
+# signature).
+LIBRARY = "paged_attention"
+ARGTYPES = {"paged_decode_attention_bf16": [PTR] * 6 + [INT] * 7
+            + [FLOAT, PTR]}
+_fn = bind(LIBRARY, ARGTYPES)
 
 
 def flat_indices(tables: torch.Tensor, block_size: int) -> torch.Tensor:
@@ -91,7 +100,7 @@ def paged_decode_attention(q: torch.Tensor, pk: torch.Tensor,
                         "tables int32")
     Hkv, P = pk.shape[0], pk.shape[1]
     out = torch.empty_like(q)
-    fn = _get_fn("paged_attention", "paged_decode_attention_bf16", 6, 7)
+    fn = _fn("paged_decode_attention_bf16")
     _raise_on(fn(q.data_ptr(), pk.data_ptr(), pv.data_ptr(),
                  tables.data_ptr(), lens.data_ptr(), out.data_ptr(), S, P,
                  tables.shape[1], block_size, Hq, Hkv, D, _scale(D, scale),

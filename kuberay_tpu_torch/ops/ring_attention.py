@@ -20,19 +20,28 @@ tensors only; on CUDA tensors it launches the kernel or raises.
 
 from __future__ import annotations
 
-import ctypes
 import math
-import threading
 from typing import Optional
 
 import torch
+
+from kuberay_tpu_torch.ops._build import FLOAT, INT, PTR, bind
 
 # Kernel launches on CUDA tensors, for run-time checks.
 launches = 0
 
 _NEG_INF = -1e30
-_lock = threading.Lock()
-_fn = None
+
+# The C entry points of csrc/<LIBRARY>.cu and their ctypes argtypes: the
+# step (q, k, v, acc, m, l, out, lse; B, Sq, Skv, Hq, Hkv, D, q_off, k_off,
+# causal, last; the scale and the stream), and the kernel's shared memory
+# a block at head dim D as the runtime holds it after a launch
+# (tests/test_torch_abi.py holds them to the C signatures).
+LIBRARY = "ring_attention"
+ARGTYPES = {"ring_attention_step_bf16": [PTR] * 8 + [INT] * 10
+            + [FLOAT, PTR],
+            "ring_attention_step_smem_bytes": [INT]}
+_fn = bind(LIBRARY, ARGTYPES)
 
 
 def ring_attention_step_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -78,19 +87,6 @@ def ring_attention_step_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse.copy_(m_new + torch.log(l_new))
 
 
-def _get_fn():
-    global _fn
-    with _lock:
-        if _fn is None:
-            from kuberay_tpu_torch.ops._build import load_library
-            fn = load_library("ring_attention").ring_attention_step_bf16
-            fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [
-                ctypes.c_float, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            _fn = fn
-        return _fn
-
-
 def _check(q, k, v, acc, m, l, last, out, lse):
     """Device, shape, dtype, layout and alignment checks for a launch."""
     name = "ring_attention_step"
@@ -128,6 +124,19 @@ def _check(q, k, v, acc, m, l, last, out, lse):
     return B, Sq, Skv, Hq, Hkv, D
 
 
+def _launch(ptrs, dims, q_off, k_off, causal, last, scale, stream) -> None:
+    """One launch of the step kernel: ``ptrs`` q, k, v, acc, m, l, out, lse
+    (out and lse None unless ``last``), ``dims`` B, Sq, Skv, Hq, Hkv, D."""
+    global launches
+    err = _fn("ring_attention_step_bf16")(
+        *ptrs, *dims, int(q_off), int(k_off), int(causal), int(last), scale,
+        stream)
+    if err != 0:
+        raise RuntimeError(f"ring_attention_step kernel launch failed: "
+                           f"cudaError {err}")
+    launches += 1
+
+
 def ring_attention_step(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
                         q_off: int, k_off: int, causal: bool = True,
@@ -137,19 +146,75 @@ def ring_attention_step(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Merge one K/V block into (acc, m, l), or with ``last`` into out and
     lse.  CPU tensors take ``ring_attention_step_ref``; CUDA tensors launch
     the kernel or raise."""
-    global launches
     if q.device.type == "cpu":
         return ring_attention_step_ref(q, k, v, acc, m, l, q_off, k_off,
                                        causal, scale, last, out, lse)
-    B, Sq, Skv, Hq, Hkv, D = _check(q, k, v, acc, m, l, last, out, lse)
-    scale = scale if scale is not None else 1.0 / math.sqrt(D)
-    err = _get_fn()(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), acc.data_ptr(),
-        m.data_ptr(), l.data_ptr(), out.data_ptr() if last else None,
-        lse.data_ptr() if last else None, B, Sq, Skv, Hq, Hkv, D,
-        int(q_off), int(k_off), int(causal), int(last), scale,
-        torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"ring_attention_step kernel launch failed: "
-                           f"cudaError {err}")
-    launches += 1
+    dims = _check(q, k, v, acc, m, l, last, out, lse)
+    scale = scale if scale is not None else 1.0 / math.sqrt(dims[-1])
+    ptrs = [t.data_ptr() for t in (q, k, v, acc, m, l)] + (
+        [out.data_ptr(), lse.data_ptr()] if last else [None, None])
+    _launch(ptrs, dims, q_off, k_off, causal, last, scale,
+            torch.cuda.current_stream(q.device).cuda_stream)
+
+
+class RingSteps:
+    """``ring_attention_step`` over one ring's stacked buffers, checked
+    once: q, out [R, B, Sl, Hq, D]; kv [2, R, 2, B, Sl, Hkv, D], the
+    exchange's double buffer (slot, rank, K or V); acc like q in float32;
+    m, l, lse [R, B, Hq, Sl] float32.  ``step(slot, j, q_off, k_off,
+    last)`` merges ``kv[slot, j]`` into rank j's state.
+
+    A ring forward makes up to n^2 launches, each a few tens of
+    microseconds on the card, so the per-call checks, views and stream
+    lookup would set its pace: they are done here once, and a step
+    launches from the pointers worked out here, on the stream that was
+    current at construction.  On CPU tensors a step is
+    ``ring_attention_step`` on rank j's views (its plain version)."""
+
+    def __init__(self, q, kv, acc, m, l, out, lse, causal: bool,
+                 scale: Optional[float]):
+        self.bufs = (q, kv, acc, m, l, out, lse)
+        self.causal = causal
+        self.scale = scale if scale is not None else 1.0 / math.sqrt(
+            q.shape[-1])
+        self.cpu = q.device.type == "cpu"
+        R = q.shape[0]
+        if kv.dim() != 7 or kv.shape[:3] != (2, R, 2) or any(
+                t.shape[0] != R for t in (acc, m, l, out, lse)):
+            raise ValueError(f"ring_attention_step: stacked buffers q "
+                             f"{tuple(q.shape)}, kv {tuple(kv.shape)}")
+        if not all(t.is_contiguous() for t in self.bufs):
+            raise ValueError("ring_attention_step: buffers must be "
+                             "contiguous")
+        # Rank j's view of a stacked buffer starts j strides past its base
+        # (q, acc, m, l, out, lse), K and V of kv[slot, j] likewise.
+        rank = [(t.data_ptr(), t.stride(0) * t.element_size())
+                for t in (q, acc, m, l, out, lse)]
+        self.rank_ptrs = [[p + j * s for p, s in rank] for j in range(R)]
+        p, (s0, s1, s2) = kv.data_ptr(), [
+            s * kv.element_size() for s in kv.stride()[:3]]
+        self.kv_ptrs = [[(p + s * s0 + j * s1, p + s * s0 + j * s1 + s2)
+                         for j in range(R)] for s in range(2)]
+        if self.cpu:
+            return
+        # Every rank's views share rank 0's shapes.
+        self.dims = _check(q[0], kv[0, 0, 0], kv[0, 0, 1], acc[0], m[0],
+                           l[0], True, out[0], lse[0])
+        if any(a % 16 for row in self.rank_ptrs + sum(self.kv_ptrs, [])
+               for a in row):
+            raise ValueError("ring_attention_step: inputs must be 16-byte "
+                             "aligned")
+        self.stream = torch.cuda.current_stream(q.device).cuda_stream
+
+    def step(self, slot: int, j: int, q_off: int, k_off: int,
+             last: bool) -> None:
+        if self.cpu:
+            q, kv, acc, m, l, out, lse = self.bufs
+            return ring_attention_step(
+                q[j], kv[slot, j, 0], kv[slot, j, 1], acc[j], m[j], l[j],
+                q_off, k_off, self.causal, self.scale, last, out[j], lse[j])
+        qp, accp, mp, lp, outp, lsep = self.rank_ptrs[j]
+        ptrs = (qp, *self.kv_ptrs[slot][j], accp, mp, lp,
+                *((outp, lsep) if last else (None, None)))
+        _launch(ptrs, self.dims, q_off, k_off, self.causal, last,
+                self.scale, self.stream)

@@ -9,8 +9,9 @@ rank, K or V).  At step i a side stream sends slot ``i % 2`` one rank right
 and receives into slot ``(i + 1) % 2`` (``ring.rotate``:
 ``dist.batch_isend_irecv`` on a
 ``DeviceMesh``, a copy of the rolled shards on a ``LocalRing``), while the
-step kernel (``ops/ring_attention.py``) merges slot ``i % 2`` into the f32
-state on the current stream.  CUDA events take the place of the TPU
+step kernel (``ops/ring_attention.py``'s ``RingSteps``: the buffers checked
+once a ring, not once a launch) merges slot ``i % 2`` into the f32 state
+on the current stream.  CUDA events take the place of the TPU
 kernel's DMA semaphores and capacity token: before the side stream
 overwrites a slot it waits on the compute event of the step that last read
 it, and the current stream waits on the arrival event before step i + 1.
@@ -43,7 +44,7 @@ from kuberay_tpu_torch.ops.attention import (
     flash_bwd_dkv,
     flash_bwd_dq,
 )
-from kuberay_tpu_torch.ops.ring_attention import ring_attention_step
+from kuberay_tpu_torch.ops.ring_attention import RingSteps
 
 _NEG_INF = -1e30
 
@@ -108,6 +109,7 @@ def _forward(q, k, v, ring, causal, scale):
     l = torch.zeros((R, B, Hq, Sl), **f32)
     out = torch.empty_like(q)
     lse = torch.empty((R, B, Hq, Sl), **f32)
+    steps = RingSteps(q, kv, acc, m, l, out, lse, causal, scale)
     ov = _Overlap(q.device)
     for i in range(n):
         slot, nxt = i % 2, (i + 1) % 2
@@ -121,9 +123,7 @@ def _forward(q, k, v, ring, causal, scale):
             # The last step whose block this rank sees: every later one
             # lies in its causal future.
             last = i == (r if causal else n - 1)
-            ring_attention_step(q[j], kv[slot, j, 0], kv[slot, j, 1], acc[j],
-                                m[j], l[j], r * Sl, src * Sl, causal, scale,
-                                last, out[j], lse[j])
+            steps.step(slot, j, r * Sl, src * Sl, last)
         ov.record_compute()
         if i < n - 1:
             ov.wait_arrival()

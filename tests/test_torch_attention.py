@@ -164,26 +164,36 @@ def _within_local(got, want, rtol=2 ** -7, row_tol=2 ** -5,
 @pytest.mark.gpu
 def test_flash_kernels_match_plain_on_card():
     """On the card: the three CUDA kernels vs their plain versions (bf16),
-    at a ragged length, an offset (Skv > Sq) and D 64, with their launch
-    counts."""
+    at a ragged length, an offset (Skv > Sq), D 64, a length the forward's
+    128-row q tile does not divide (960), D 64 with group 1 there, rows
+    that see no key (Sq > Skv; forward only, as such rows have no
+    gradient) and no mask, with their launch counts."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     g = torch.Generator(device="cuda").manual_seed(0)
-    for B, Sq, Skv, Hq, Hkv, D in ((2, 1000, 1000, 8, 2, 128),
-                                   (1, 200, 333, 4, 1, 128),
-                                   (1, 256, 256, 4, 4, 64)):
+    for B, Sq, Skv, Hq, Hkv, D, causal in ((2, 1000, 1000, 8, 2, 128, True),
+                                           (1, 200, 333, 4, 1, 128, True),
+                                           (1, 256, 256, 4, 4, 64, True),
+                                           (1, 960, 960, 16, 8, 128, True),
+                                           (2, 960, 960, 12, 12, 64, True),
+                                           (1, 333, 200, 8, 1, 64, True),
+                                           (1, 700, 900, 8, 2, 128, False)):
         q, k, v, do = (torch.randn(*s, generator=g, device="cuda").bfloat16()
                        for s in ((B, Sq, Hq, D), (B, Skv, Hkv, D),
                                  (B, Skv, Hkv, D), (B, Sq, Hq, D)))
         n = (ta.fwd_launches, ta.bwd_dkv_launches, ta.bwd_dq_launches)
-        out, lse = ta.flash_fwd(q, k, v)
-        grads = ta.flash_bwd(q, k, v, out, lse, do)
-        assert (ta.fwd_launches, ta.bwd_dkv_launches,
-                ta.bwd_dq_launches) == tuple(c + 1 for c in n)
-        rout, rlse = ta.flash_fwd_ref(q, k, v)
+        out, lse = ta.flash_fwd(q, k, v, causal)
+        rout, rlse = ta.flash_fwd_ref(q, k, v, causal)
         assert _within_local(out, rout)
         assert (lse - rlse).abs().max().item() <= 1e-4
+        if causal and Sq > Skv:
+            assert ta.fwd_launches == n[0] + 1
+            continue
+        grads = ta.flash_bwd(q, k, v, out, lse, do, causal)
+        assert (ta.fwd_launches, ta.bwd_dkv_launches,
+                ta.bwd_dq_launches) == tuple(c + 1 for c in n)
         # The plain backward: flash_bwd on CPU copies of the same inputs.
-        want = ta.flash_bwd(*(t.cpu() for t in (q, k, v, out, lse, do)))
+        want = ta.flash_bwd(*(t.cpu() for t in (q, k, v, out, lse, do)),
+                            causal)
         for got, ref in zip(grads, want):
             assert _within_local(got.cpu(), ref)

@@ -136,6 +136,40 @@ def test_step_wrapper_checks_before_launching():
         ra.ring_attention_step(q, k, k, st, rows, rows, 0, 0, last=True)
 
 
+def test_ring_steps_check_the_stacked_buffers_before_launching():
+    """The ring's launcher checks its stacked buffers once, up front: a
+    double buffer of the wrong shape, and then rank 0's views off the
+    card, raise before anything launches."""
+    R, n = 2, 64
+    q = torch.empty(R, 1, n, 2, 64, device="meta")
+    acc = torch.empty(R, 1, n, 2, 64, device="meta")
+    rows = torch.empty(R, 1, 2, n, device="meta")
+    kv = torch.empty(2, R, 2, 1, n, 1, 64, device="meta")
+    launched = ra.launches
+    with pytest.raises(ValueError, match="stacked buffers"):
+        ra.RingSteps(q, kv[:, :1], acc, rows, rows, q, rows, True, None)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        ra.RingSteps(q, kv, acc, rows, rows, q, rows, True, None)
+    assert ra.launches == launched
+
+
+def test_ring_steps_address_every_ranks_views():
+    """The addresses a step launches from are those of rank j's views and
+    of K and V in kv[slot, j]."""
+    R, B, n, Hq, Hkv, D = 3, 2, 24, 4, 2, 16
+    q, out = torch.randn(R, B, n, Hq, D), torch.empty(R, B, n, Hq, D)
+    acc = torch.zeros(R, B, n, Hq, D)
+    m, l, lse = (torch.zeros(R, B, Hq, n) for _ in range(3))
+    kv = torch.randn(2, R, 2, B, n, Hkv, D)
+    steps = ra.RingSteps(q, kv, acc, m, l, out, lse, True, None)
+    for j in range(R):
+        assert steps.rank_ptrs[j] == [t[j].data_ptr()
+                                      for t in (q, acc, m, l, out, lse)]
+        for slot in range(2):
+            assert steps.kv_ptrs[slot][j] == (kv[slot, j, 0].data_ptr(),
+                                              kv[slot, j, 1].data_ptr())
+
+
 # --------------------------------------------------------------------------
 # The whole ring
 # --------------------------------------------------------------------------
@@ -265,29 +299,38 @@ def test_meshspec_resolve_matches_jax(axes, n):
 
 @pytest.mark.gpu
 def test_step_kernel_matches_plain_on_card():
-    """llama_1b's heads at a diagonal, a past and a ragged block, carrying
-    and normalising: bf16 P rounds against a running max in the kernel, so
-    the state is held at bf16-scale error and lse at 1e-4."""
+    """llama_1b's heads at a diagonal, a past and a ragged block, and
+    chains of steps over shards the 128-row q tile does not divide (960,
+    1000) and at D 64 with group 1, carrying and normalising: bf16 P
+    rounds against a running max in the kernel, so the state is held at
+    bf16-scale error and lse at 1e-4.  Then a block wholly in the causal
+    future leaves a random state bit for bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     g = torch.Generator(device="cuda").manual_seed(0)
-    for n, q_off, k_off in ((512, 512, 512), (512, 1024, 0),
-                            (200, 700, 550)):
-        q = torch.randn(2, n, 16, 128, generator=g, device="cuda").bfloat16()
-        k, v = (torch.randn(2, n, 8, 128, generator=g, device="cuda"
-                            ).bfloat16() for _ in range(2))
+    for n, Hq, Hkv, D, q_off, k_offs in (
+            (512, 16, 8, 128, 512, (512,)), (512, 16, 8, 128, 1024, (0,)),
+            (200, 16, 8, 128, 700, (550,)),
+            (960, 16, 8, 128, 1920, (1920, 960, 0)),
+            (1000, 16, 8, 128, 3000, (3000, 1000)),
+            (960, 12, 12, 64, 960, (960, 0))):
+        q = torch.randn(2, n, Hq, D, generator=g, device="cuda").bfloat16()
+        blocks = [tuple(torch.randn(2, n, Hkv, D, generator=g, device="cuda"
+                                    ).bfloat16() for _ in range(2))
+                  for _ in k_offs]
         for last in (False, True):
-            states = [(torch.zeros(2, n, 16, 128, device="cuda"),
-                       torch.full((2, 16, n), -1e30, device="cuda"),
-                       torch.zeros(2, 16, n, device="cuda"))
+            states = [(torch.zeros(2, n, Hq, D, device="cuda"),
+                       torch.full((2, Hq, n), -1e30, device="cuda"),
+                       torch.zeros(2, Hq, n, device="cuda"))
                       for _ in range(2)]
             res = [(torch.empty_like(q),
-                    torch.empty(2, 16, n, device="cuda")) for _ in range(2)]
-            ra.ring_attention_step(q, k, v, *states[0], q_off, k_off,
-                                   last=last, out=res[0][0], lse=res[0][1])
-            ra.ring_attention_step_ref(q, k, v, *states[1], q_off, k_off,
-                                       last=last, out=res[1][0],
-                                       lse=res[1][1])
+                    torch.empty(2, Hq, n, device="cuda")) for _ in range(2)]
+            for step, st, (o, ls) in zip(
+                    (ra.ring_attention_step, ra.ring_attention_step_ref),
+                    states, res):
+                for i, ((k, v), k_off) in enumerate(zip(blocks, k_offs)):
+                    step(q, k, v, *st, q_off, k_off,
+                         last=last and i == len(k_offs) - 1, out=o, lse=ls)
             torch.cuda.synchronize()
             if last:
                 got, want = res[0][0].float(), res[1][0].float()
@@ -301,3 +344,13 @@ def test_step_kernel_matches_plain_on_card():
                 -1, keepdim=True).sqrt() + 1e-6
             assert bool(((got - want).abs() <= tol).all()), (n, q_off, last)
             assert lse_err <= 1e-4, (n, q_off, last, lse_err)
+    q = torch.randn(2, 960, 16, 128, generator=g, device="cuda").bfloat16()
+    k, v = (torch.randn(2, 960, 8, 128, generator=g, device="cuda"
+                        ).bfloat16() for _ in range(2))
+    st = (torch.randn(2, 960, 16, 128, generator=g, device="cuda"),
+          torch.randn(2, 16, 960, generator=g, device="cuda"),
+          torch.rand(2, 16, 960, generator=g, device="cuda"))
+    before = [t.clone() for t in st]
+    ra.ring_attention_step(q, k, v, *st, 960, 1920)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(before, st))
