@@ -25,7 +25,14 @@
    8 with D 64; SDPA over the gathered view (the gather not timed) and the
    dense decode kernel at the same live lengths beside it; also the paged
    int8 path's per-layer gather of contiguous int8 views.  All three
-   decode kernels are held to the flash kernels' element-wise limits.
+   decode kernels are held to the flash kernels' element-wise limits, at
+   their first shapes also on lens at split boundaries, every slot full
+   and lens 1 beside full slots; each also against its plain
+   split-and-merge model, two calls bit for bit the same, and the merge
+   kernel alone against its plain version.  Records the split plan, the
+   workspace's bytes and the merge's own time; ptxas' registers, static
+   shared memory and spills of every decode instantiation (a spill fails
+   the run) and each kernel's shared memory a block from the runtime.
    The three flash-attention kernels of the training path likewise, at
    llama_1b's shape (B 4, S 2048, 16 q / 8 kv heads of 128, causal), the
    Llama-3-8B head layout (32 / 8) at S 1024, a ragged S (1000), Skv > Sq,
@@ -361,10 +368,14 @@ def ptxas_report(libs) -> dict:
             if m and cur:
                 rep.setdefault(cur, {}).update(
                     spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
-            m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", ln)
+            m = re.search(r"Used (\d+) registers", ln)
             if m and cur:
+                # ptxas leaves "bytes smem" out where a kernel has none
+                # static.
+                sm = re.search(r"(\d+) bytes smem", ln)
                 rep.setdefault(cur, {}).update(
-                    registers=int(m.group(1)), static_smem=int(m.group(2)))
+                    registers=int(m.group(1)),
+                    static_smem=int(sm.group(1)) if sm else 0)
     return rep
 
 
@@ -388,6 +399,55 @@ def hopper_resources(libs) -> dict:
     return out
 
 
+# The decode kernels' instantiations by wrapper name: the mangled-name
+# pattern of each (head dim, group) in the build log, and its count
+# (head dims 64 and 128, groups 1, 2, 4 and 8); the merge kernel is the
+# same template in both libraries.
+DECODE_KERNELS = {
+    "decode_attention": r"dense_decode_kernelILi(\d+)ELi(\d+)E13__nv_bfloat16",
+    "decode_attention_quant": r"dense_decode_kernelILi(\d+)ELi(\d+)EaLb1",
+    "paged_decode_attention": r"paged_decode_kernelILi(\d+)ELi(\d+)EE",
+    "decode_merge": r"merge_kernelILi(\d+)()EE"}
+
+
+def decode_resources(libs) -> dict:
+    """Registers, static shared memory and spills of every instantiation
+    of the decode kernels, by wrapper and "D<d>G<g>", from ptxas.  Fails
+    if an instantiation is missing from the report or any of them
+    spills."""
+    rep = ptxas_report(libs)
+    out = {}
+    for wrapper, pat in DECODE_KERNELS.items():
+        got = out.setdefault(wrapper, {})
+        for name, r in rep.items():
+            m = re.search(pat, name)
+            if m:
+                got[f"D{m.group(1)}" + (f"G{m.group(2)}" if m.group(2)
+                                        else "")] = dict(r)
+        want = 2 if wrapper == "decode_merge" else 8
+        if len(got) != want or any(r.get("spill_stores", 1)
+                                   or r.get("spill_loads", 1)
+                                   or "registers" not in r
+                                   for r in got.values()):
+            raise AssertionError(f"{wrapper}: ptxas report {got} (expected "
+                                 f"{want} instantiations, no spills)")
+    return out
+
+
+def decode_smem(res: dict) -> None:
+    """Adds to ``res`` the shared memory a block of each decode kernel
+    holds at the serving shape (D 128, group 4), static and dynamic, as
+    the runtime holds it once the kernel has launched there."""
+    for wrapper, got in (
+            ("decode_attention", da.smem_bytes(HD, HQ // HKV, False)),
+            ("decode_attention_quant", da.smem_bytes(HD, HQ // HKV, True)),
+            ("paged_decode_attention", pa.smem_bytes(HD, HQ // HKV))):
+        if got <= 0:
+            raise AssertionError(f"{wrapper}: the runtime holds {got} bytes "
+                                 f"of shared memory a block")
+        res[wrapper][f"D{HD}G{HQ // HKV}"]["smem_bytes"] = got
+
+
 def hopper_smem(hopper: dict) -> None:
     """Adds to ``hopper`` each kernel's shared memory a block (static and
     dynamic) at D 64 and 128, as the runtime holds it once the kernel has
@@ -402,11 +462,14 @@ def hopper_smem(hopper: dict) -> None:
 
 
 def check_decode(gen: torch.Generator) -> dict:
-    """Decode attention at the 8B decode shape, and at a cache length (1000)
-    that no 64-row tile divides."""
+    """Decode attention at the 8B decode shape, at a cache length (1000)
+    that no split divides, and on SPLIT_LENS (checks only); against the
+    plain version and the split-and-merge model."""
     shapes = []
     for M, lens in ((MAX_LEN, [0, 1, 17, 100, 1023, 1025, 2047, 2048]),
-                    (1000, [0, 1, 63, 64, 65, 500, 999, 1000])):
+                    (1000, [0, 1, 63, 64, 65, 500, 999, 1000]),
+                    *((MAX_LEN, list(x)) for x in SPLIT_LENS)):
+        timed = len(shapes) < 2
         lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
         q = torch.randn(SLOTS, HQ, HD, generator=gen, device="cuda").bfloat16()
         # Four cache copies, cycled, so timed launches find the cache cold
@@ -414,33 +477,42 @@ def check_decode(gen: torch.Generator) -> dict:
         caches = [(torch.randn(SLOTS, M, HKV, HD, generator=gen,
                                device="cuda").bfloat16(),
                    torch.randn(SLOTS, M, HKV, HD, generator=gen,
-                               device="cuda").bfloat16()) for _ in range(4)]
+                               device="cuda").bfloat16())
+                  for _ in range(4 if timed else 1)]
         ck, cv = caches[0]
         out = da.decode_attention(q, ck, cv, lens_t)
         loc = local_err(out, da.decode_attention_ref(q, ck, cv, lens_t))
         if not within_local(loc):
             raise AssertionError(f"decode M={M} lens={lens}: {loc}")
-        if out[0].abs().max().item() != 0.0:
+        if lens[0] == 0 and out[0].abs().max().item() != 0.0:
             raise AssertionError("decode: a lens=0 slot must give 0")
-        mask = lens_mask(lens_t, M)
-        it = iter(range(1 << 30))
+        rec = {"max_len": M, "lens": lens, "max_abs_err": loc["max_abs_err"],
+               "local": loc, **split_record(
+                   f"decode M={M} lens={lens}", out,
+                   da.decode_attention(q, ck, cv, lens_t),
+                   da.decode_attention_split_ref(q, ck, cv, lens_t),
+                   da.split_partials_ref(q, ck, cv, lens_t), SLOTS, HQ, HD,
+                   M, timed)}
+        if timed:
+            mask = lens_mask(lens_t, M)
+            it = iter(range(1 << 30))
 
-        def run(fn):
-            return lambda: fn(*caches[next(it) % 4])
+            def run(fn):
+                return lambda: fn(*caches[next(it) % 4])
 
-        live = int(sum(lens))
-        nbytes = (2 * live * HKV * HD * 2 + 2 * q.numel() * 2
-                  + lens_t.numel() * 4)
-        flops = 4 * live * HQ * HD
-        shapes.append({
-            "max_len": M, "lens": lens, "max_abs_err": loc["max_abs_err"],
-            "local": loc,
-            **timings(
+            live = int(sum(lens))
+            nbytes = (2 * live * HKV * HD * 2 + 2 * q.numel() * 2
+                      + lens_t.numel() * 4)
+            flops = 4 * live * HQ * HD
+            rec.update(**timings(
                 run(lambda k, v: da.decode_attention(q, k, v, lens_t)),
                 run(lambda k, v: da.decode_attention_ref(q, k, v, lens_t)),
                 run(lambda k, v: sdpa_decode(q, k, v, mask)), 100, 20),
-            **bound(nbytes, flops)})
-        print(f"decode M={M}: {json.dumps(shapes[-1])}", flush=True)
+                **bound(nbytes, flops))
+        shapes.append(rec)
+        print(f"decode M={M}: {json.dumps(rec)}", flush=True)
+        del caches
+    torch.cuda.empty_cache()
     return {"shapes": shapes, "main": shapes[0]}
 
 
@@ -458,6 +530,39 @@ def sdpa_decode(q, ck, cv, mask):
         attn_mask=mask, enable_gqa=True)
 
 
+def split_record(tag: str, out, again, split_ref, partials, S: int,
+                 Hq: int, D: int, cap: int, timed: bool) -> dict:
+    """The split-and-merge checks every decode shape gets: the kernel's
+    output within the element-wise limits of the plain split model, two
+    calls on the same inputs bit for bit the same, and the merge kernel
+    alone (on the plain model's partials) within the limits of its plain
+    version.  Records the split plan, the workspace's bytes and, with
+    ``timed``, the merge's own time from a CUDA graph."""
+    nsplit = da.split_plan(cap)
+    acc, m, l = partials
+    ws = da.pack_partials(acc, m, l)
+    merged = da.merge_partials(ws, S, Hq, D, nsplit)
+    rec = {"chunk": da.CHUNK, "nsplit": nsplit,
+           "workspace_bytes": 4 * da.workspace_numel(S, Hq, D, nsplit),
+           "split_model": local_err(out, split_ref),
+           "merge": local_err(merged, da.merge_ref(acc, m, l, out.dtype)),
+           "bit_identical": torch.equal(out, again)}
+    if not (within_local(rec["split_model"]) and within_local(rec["merge"])
+            and rec["bit_identical"]):
+        raise AssertionError(f"{tag}: split checks {rec}")
+    if timed:
+        rec["merge_graph_ms"] = graph_ms(
+            lambda: da.merge_partials(ws, S, Hq, D, nsplit), 100)
+    return rec
+
+
+# Lens beside the smoke's first shapes: on split boundaries, every slot
+# full, and lens 1 beside full slots (cache length MAX_LEN, 8 slots).
+C = da.CHUNK
+SPLIT_LENS = ([0, 1, C - 1, C, C + 1, 2 * C, 2 * C + 1, MAX_LEN],
+              [MAX_LEN] * 8, [1, MAX_LEN] * 4)
+
+
 def int8_cache(gen, S, M, Hkv, D):
     """A random int8 cache in the serving layout: kq/vq [S, M, Hkv, D]
     int8, ks/vs [S, Hkv, M] float32 (quantize_kv of normal K/V)."""
@@ -471,15 +576,20 @@ def int8_cache(gen, S, M, Hkv, D):
 
 def check_decode_quant(gen: torch.Generator) -> dict:
     """The int8 decode kernel at the 8B decode shape, at a cache length
-    (1000) that no 64-row tile divides, and at D 64 with group 1."""
+    (1000) that no split divides, at D 64 with group 1, and on SPLIT_LENS;
+    against the plain version, the float32 dequantisation and the
+    split-and-merge model."""
     shapes = []
     for S, M, Hq, Hkv, D, lens in (
             (SLOTS, MAX_LEN, HQ, HKV, HD, [0, 1, 17, 1000, 2048, 2047, 64, 65]),
             (SLOTS, 1000, HQ, HKV, HD, [0, 1, 63, 64, 65, 500, 999, 1000]),
-            (4, 512, 8, 8, 64, [0, 5, 300, 512])):
+            (4, 512, 8, 8, 64, [0, 5, 300, 512]),
+            *((SLOTS, MAX_LEN, HQ, HKV, HD, list(x)) for x in SPLIT_LENS)):
+        timed = not shapes
         lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
         q = torch.randn(S, Hq, D, generator=gen, device="cuda").bfloat16()
-        caches = [int8_cache(gen, S, M, Hkv, D) for _ in range(4)]
+        caches = [int8_cache(gen, S, M, Hkv, D)
+                  for _ in range(4 if timed else 1)]
         kq, ks, vq, vs = caches[0]
         out = da.decode_attention_quant(q, kq, ks, vq, vs, lens_t)
         loc = local_err(out, da.decode_attention_quant_ref(q, kq, ks, vq, vs,
@@ -492,12 +602,18 @@ def check_decode_quant(gen: torch.Generator) -> dict:
         if not (within_local(loc) and within_local(loc32)):
             raise AssertionError(f"int8 decode M={M} D={D} lens={lens}: "
                                  f"vs plain {loc}, vs f32 dequant {loc32}")
-        if out[0].abs().max().item() != 0.0:
+        if lens[0] == 0 and out[0].abs().max().item() != 0.0:
             raise AssertionError("int8 decode: a lens=0 slot must give 0")
         rec = {"S": S, "max_len": M, "Hq": Hq, "Hkv": Hkv, "D": D,
                "lens": lens, "max_abs_err": loc["max_abs_err"],
-               "local": loc, "local_f32_dequant": loc32}
-        if M == MAX_LEN:
+               "local": loc, "local_f32_dequant": loc32, **split_record(
+                   f"int8 decode M={M} D={D} lens={lens}", out,
+                   da.decode_attention_quant(q, kq, ks, vq, vs, lens_t),
+                   da.decode_attention_quant_split_ref(q, kq, ks, vq, vs,
+                                                       lens_t),
+                   da.split_partials_ref(q, kq, vq, lens_t, ks=ks, vs=vs),
+                   S, Hq, D, M, timed)}
+        if timed:
             # The library's operands: each copy dequantised to bf16 once,
             # outside the timed calls.
             deq = [(da.dequant_lanes(kq, ks, torch.bfloat16),
@@ -541,19 +657,23 @@ def scrambled_tables(gen, S, max_blocks, num_blocks, shared):
 
 def check_paged(gen: torch.Generator) -> dict:
     """The paged kernel at the 8B decode shape (block size 16, pool of
-    1024 blocks, scrambled tables with shared pages) and at block size 8
-    with D 64, group 1."""
+    1024 blocks, scrambled tables with shared pages), at block size 8 with
+    D 64, group 1, and on SPLIT_LENS at the first shape (checks only);
+    against the plain version and the split-and-merge model."""
     shapes = []
+    main = (SLOTS, HQ, HKV, HD, BLOCK_SIZE, SLOTS * MAX_LEN // BLOCK_SIZE,
+            MAX_LEN // BLOCK_SIZE)
     for S, Hq, Hkv, D, bs, nblk, maxb, lens in (
-            (SLOTS, HQ, HKV, HD, BLOCK_SIZE, SLOTS * MAX_LEN // BLOCK_SIZE,
-             MAX_LEN // BLOCK_SIZE, [0, 1, 17, 1000, 2048, 2047, 64, 65]),
-            (4, 8, 8, 64, 8, 256, 64, [0, 5, 300, 512])):
+            (*main, [0, 1, 17, 1000, 2048, 2047, 64, 65]),
+            (4, 8, 8, 64, 8, 256, 64, [0, 5, 300, 512]),
+            *((*main, list(x)) for x in SPLIT_LENS)):
+        timed = not shapes
         lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
         q = torch.randn(S, Hq, D, generator=gen, device="cuda").bfloat16()
         tables = scrambled_tables(gen, S, maxb, nblk, shared=10)
         pools = [tuple(torch.randn(Hkv, nblk * bs, D, generator=gen,
                                    device="cuda").bfloat16()
-                       for _ in range(2)) for _ in range(4)]
+                       for _ in range(2)) for _ in range(4 if timed else 1)]
         pk, pv = pools[0]
         out = pa.paged_decode_attention(q, pk, pv, lens_t, tables, bs)
         loc = local_err(out, pa.paged_decode_attention_ref(q, pk, pv, lens_t,
@@ -561,12 +681,21 @@ def check_paged(gen: torch.Generator) -> dict:
         if not within_local(loc):
             raise AssertionError(f"paged decode bs={bs} D={D} lens={lens}: "
                                  f"{loc}")
-        if out[0].abs().max().item() != 0.0:
+        if lens[0] == 0 and out[0].abs().max().item() != 0.0:
             raise AssertionError("paged decode: a lens=0 slot must give 0")
+        kview, vview = (pa.gather_view(p, tables, bs) for p in (pk, pv))
         rec = {"S": S, "Hq": Hq, "Hkv": Hkv, "D": D, "block_size": bs,
                "num_blocks": nblk, "lens": lens,
-               "max_abs_err": loc["max_abs_err"], "local": loc}
-        if bs == BLOCK_SIZE:
+               "max_abs_err": loc["max_abs_err"], "local": loc,
+               **split_record(
+                   f"paged decode bs={bs} D={D} lens={lens}", out,
+                   pa.paged_decode_attention(q, pk, pv, lens_t, tables, bs),
+                   pa.paged_decode_attention_split_ref(q, pk, pv, lens_t,
+                                                       tables, bs),
+                   da.split_partials_ref(q, kview, vview, lens_t), S, Hq, D,
+                   maxb * bs, timed)}
+        del kview, vview
+        if timed:
             # Gathered per-request views of each pool copy, made outside
             # the timed calls: the library's operands and the dense
             # decode kernel's.
@@ -1399,12 +1528,25 @@ def main(argv=None) -> None:
     print(f"built {[p.name for p in libs]} in {build_s:.2f} s", flush=True)
     hopper = hopper_resources(libs)
     print(f"hopper forward kernels (ptxas): {json.dumps(hopper)}", flush=True)
+    decode_res = decode_resources(libs)
+    print(f"decode kernels (ptxas): {json.dumps(decode_res)}", flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rms = check_rmsnorm(gen)
     dec = check_decode(gen)
     decq = check_decode_quant(gen)
     paged = check_paged(gen)
+    decode_smem(decode_res)
+    for name, res in (("decode_attention", dec),
+                      ("decode_attention_quant", decq),
+                      ("paged_decode_attention", paged)):
+        t = res["main"]
+        print(f"{name}: {t['graph_ms']:.5f} ms graph (SDPA "
+              f"{t['library_graph_ms']:.5f}), {t['ms']:.5f} eager, bound "
+              f"{t['bound_ms']:.5f}; chunk {t['chunk']}, {t['nsplit']} "
+              f"splits, workspace {t['workspace_bytes']} bytes, merge "
+              f"{t['merge_graph_ms']:.5f} ms; resources "
+              f"{json.dumps(decode_res[name]['D128G4'])}", flush=True)
     flash = check_flash(gen)
     xe = check_xent(gen)
     ring = check_ring(gen)
@@ -1456,7 +1598,13 @@ def main(argv=None) -> None:
                 **({"library_of": m["library_of"]} if "library_of" in m
                    else {}),
                 **({"tflops": m["tflops"], "resources": hopper[name]}
-                   if name in hopper else {})}
+                   if name in hopper else {}),
+                **({"graph_ms": m["graph_ms"],
+                    "library_graph_ms": m["library_graph_ms"],
+                    "chunk": m["chunk"], "nsplit": m["nsplit"],
+                    "merge_graph_ms": m["merge_graph_ms"],
+                    "resources": decode_res[name][f"D{HD}G{HQ // HKV}"]}
+                   if name in decode_res else {})}
 
     kernels = {"kernels": [
         entry("rmsnorm", "triton", "kuberay_tpu_torch/ops/rmsnorm.py",
@@ -1483,6 +1631,7 @@ def main(argv=None) -> None:
     (out_dir / "chip_smoke.json").write_text(json.dumps({
         "device": kind, "nvidia_smi": smi, "torch": torch.__version__,
         "build_s": build_s, "hopper_fwd_resources": hopper,
+        "decode_resources": decode_res,
         "build_log": {p.name: p.with_suffix(".log").read_text()
                       for p in libs},
         "rmsnorm": rms, "decode_attention": dec,

@@ -5,8 +5,13 @@ Replaces ``kuberay_tpu/ops/paged_attention.py::_paged_kernel`` (reached
 through ``paged_decode_attention_pallas``) with the hand-written CUDA
 kernel in ``csrc/paged_attention.cu``, built by ``ops/_build.py`` and
 called through ctypes.  Bound on an H100: bytes, the same live K/V rows as
-the dense decode kernel; the indirection adds a table entry per page.  The
-source's header note gives the design.
+the dense decode kernel; the indirection adds a table entry per page and
+the split partials their float32 write and read.  It runs the dense
+kernels' split-and-merge (``ops/decode_attention.py``: ``split_plan`` of
+the table's capacity ``max_blocks * block_size``, a float32 workspace,
+the merge kernel) with each row's address read from the table; the
+source's header note gives the design.  ``paged_decode_attention_split_ref``
+is the plain model of that split-and-merge.
 
 Layout as in the JAX package: q [S, Hq, D]; the pool pk/pv is head-major
 [Hkv, P, D] (P = num_blocks * block_size), so one page of one kv head is a
@@ -23,21 +28,28 @@ import torch
 
 from kuberay_tpu_torch.ops._build import FLOAT, INT, PTR, bind
 from kuberay_tpu_torch.ops.decode_attention import (
+    CHUNK,
     _raise_on,
     _scale,
+    _workspace,
     check_cuda_inputs,
     decode_attention_ref,
+    decode_attention_split_ref,
+    split_plan,
 )
 
-launches = 0           # kernel launches on CUDA tensors, for run-time checks
+launches = 0           # wrapper calls that launched the kernels
 
-# The C entry point of csrc/<LIBRARY>.cu and its ctypes argtypes: q, pk,
-# pv, tables, lens, out; S, P, max_blocks, block_size, Hq, Hkv, D; the
-# scale and the stream (tests/test_torch_abi.py holds them to the C
-# signature).
+# The C entry points of csrc/<LIBRARY>.cu and their ctypes argtypes
+# (tests/test_torch_abi.py holds them to the C signatures).
 LIBRARY = "paged_attention"
-ARGTYPES = {"paged_decode_attention_bf16": [PTR] * 6 + [INT] * 7
-            + [FLOAT, PTR]}
+ARGTYPES = {
+    # q, pk, pv, tables, lens, out, ws; S, P, max_blocks, block_size, Hq,
+    # Hkv, D, chunk, nsplit; the scale and the stream
+    "paged_decode_attention_bf16": [PTR] * 7 + [INT] * 9 + [FLOAT, PTR],
+    # D, G
+    "paged_decode_attention_smem_bytes": [INT] * 2,
+}
 _fn = bind(LIBRARY, ARGTYPES)
 
 
@@ -72,14 +84,28 @@ def paged_decode_attention_ref(q: torch.Tensor, pk: torch.Tensor,
                                 scale)
 
 
+def paged_decode_attention_split_ref(q: torch.Tensor, pk: torch.Tensor,
+                                     pv: torch.Tensor, lens: torch.Tensor,
+                                     tables: torch.Tensor, block_size: int,
+                                     scale: Optional[float] = None
+                                     ) -> torch.Tensor:
+    """Plain model of the paged kernels' split-and-merge: the gathered
+    view's split partials over ``split_plan(max_blocks * block_size)``
+    splits, merged."""
+    return decode_attention_split_ref(
+        q, gather_view(pk, tables, block_size),
+        gather_view(pv, tables, block_size), lens, scale)
+
+
 def paged_decode_attention(q: torch.Tensor, pk: torch.Tensor,
                            pv: torch.Tensor, lens: torch.Tensor,
                            tables: torch.Tensor, block_size: int,
                            scale: Optional[float] = None) -> torch.Tensor:
     """Paged decode attention.  CPU tensors take
-    ``paged_decode_attention_ref``; CUDA tensors launch the CUDA kernel or
-    raise.  Table entries of live blocks must name blocks of the pool;
-    entries past ``ceil(lens / block_size)`` are never read."""
+    ``paged_decode_attention_ref``; CUDA tensors launch the split kernel
+    over ``split_plan(max_blocks * block_size)`` splits and the
+    merge, or raise.  Table entries of live blocks must name blocks of the
+    pool; entries past ``ceil(lens / block_size)`` are never read."""
     global launches
     if q.device.type == "cpu":
         return paged_decode_attention_ref(q, pk, pv, lens, tables,
@@ -99,12 +125,21 @@ def paged_decode_attention(q: torch.Tensor, pk: torch.Tensor,
         raise TypeError("paged_decode_attention: pk/pv must be bfloat16 and "
                         "tables int32")
     Hkv, P = pk.shape[0], pk.shape[1]
+    nsplit = split_plan(tables.shape[1] * block_size)
     out = torch.empty_like(q)
+    ws = _workspace(q, nsplit)
     fn = _fn("paged_decode_attention_bf16")
     _raise_on(fn(q.data_ptr(), pk.data_ptr(), pv.data_ptr(),
-                 tables.data_ptr(), lens.data_ptr(), out.data_ptr(), S, P,
-                 tables.shape[1], block_size, Hq, Hkv, D, _scale(D, scale),
+                 tables.data_ptr(), lens.data_ptr(), out.data_ptr(),
+                 ws.data_ptr(), S, P, tables.shape[1], block_size, Hq, Hkv,
+                 D, CHUNK, nsplit, _scale(D, scale),
                  torch.cuda.current_stream(q.device).cuda_stream),
               "paged_decode_attention")
     launches += 1
     return out
+
+
+def smem_bytes(D: int, G: int) -> int:
+    """Shared memory a block of the split kernel holds at (D, G), as the
+    runtime reports it once that instantiation has launched."""
+    return _fn("paged_decode_attention_smem_bytes")(D, G)

@@ -246,14 +246,23 @@ def test_int8_kernel_matches_plain_on_card():
     """On the card: the CUDA int8 decode kernel vs its plain version at the
     Llama-3-8B decode shape, a cache length no tile divides, and D 64, and
     vs the same attention with the cache dequantised in float32 (only the
-    output rounded), under chip_smoke.py's element-wise limits."""
+    output rounded), and vs the split-and-merge model, under
+    chip_smoke.py's element-wise limits; also on lens at split boundaries,
+    every slot full and lens 1 beside full slots; two calls give the same
+    bits."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     g = torch.Generator(device="cuda").manual_seed(0)
+    C = tda.CHUNK
     for S, M, Hq, Hkv, D, lens in (
             (8, 2048, 32, 8, 128, [0, 1, 17, 1000, 2048, 2047, 64, 65]),
             (8, 1000, 32, 8, 128, [0, 1, 63, 64, 65, 500, 999, 1000]),
-            (4, 512, 8, 8, 64, [0, 5, 300, 512])):
+            (4, 512, 8, 8, 64, [0, 5, 300, 512]),
+            # split boundaries, every slot full, 1 beside full
+            (8, 2048, 32, 8, 128, [0, 1, C - 1, C, C + 1, 2 * C, 2 * C + 1,
+                                   2048]),
+            (8, 2048, 32, 8, 128, [2048] * 8),
+            (8, 2048, 32, 8, 128, [1, 2048] * 4)):
         q = torch.randn(S, Hq, D, generator=g, device="cuda").bfloat16()
         cache = []
         for _ in range(2):
@@ -271,4 +280,8 @@ def test_int8_kernel_matches_plain_on_card():
             q, tda.dequant_lanes(kq, ks, torch.float32),
             tda.dequant_lanes(vq, vs, torch.float32), lt)
         assert _within_local(got, want32)
-        assert not got[0].any()
+        assert _within_local(got, tda.decode_attention_quant_split_ref(
+            q, *cache, lt))
+        assert torch.equal(got, tda.decode_attention_quant(q, *cache, lt))
+        if lens[0] == 0:
+            assert not got[0].any()

@@ -140,8 +140,11 @@ def test_decode_matches_xla_on_live_slots(dtype, Hq, Hkv, M):
 
 @pytest.mark.gpu
 def test_kernels_match_plain_on_card():
-    """On the card: the Triton RMSNorm and the CUDA decode kernel vs their
-    plain versions at the Llama-3-8B decode shapes."""
+    """On the card: the Triton RMSNorm and the CUDA decode kernels vs
+    their plain versions at the Llama-3-8B decode shapes, also on lens at
+    split boundaries, every slot full and lens 1 beside full slots, against
+    the split-and-merge model too; two calls give the same bits; the merge
+    kernel alone against its plain model."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -149,8 +152,13 @@ def test_kernels_match_plain_on_card():
     w = (torch.rand(4096, generator=g, device="cuda") + 0.5).bfloat16()
     err = (trn.rmsnorm(x, w).float() - trn.rmsnorm_ref(x, w).float()).abs()
     assert err.max().item() <= 1.6e-2
+    C = tda.CHUNK
     for M, lens in ((2048, [0, 1, 17, 100, 1023, 1025, 2047, 2048]),
-                    (1000, [0, 1, 63, 64, 65, 500, 999, 1000])):
+                    (1000, [0, 1, 63, 64, 65, 500, 999, 1000]),
+                    # split boundaries, every slot full, 1 beside full
+                    (2048, [0, 1, C - 1, C, C + 1, 2 * C, 2 * C + 1, 2048]),
+                    (2048, [2048] * 8),
+                    (2048, [1, 2048] * 4)):
         q = torch.randn(8, 32, 128, generator=g, device="cuda").bfloat16()
         ck = torch.randn(8, M, 8, 128, generator=g, device="cuda").bfloat16()
         cv = torch.randn(8, M, 8, 128, generator=g, device="cuda").bfloat16()
@@ -160,4 +168,14 @@ def test_kernels_match_plain_on_card():
         assert tda.launches == before + 1
         want = tda.decode_attention_ref(q, ck, cv, lt)
         assert (got.float() - want.float()).abs().max().item() <= 2e-2
-        assert not got[0].any()
+        split = tda.decode_attention_split_ref(q, ck, cv, lt)
+        assert (got.float() - split.float()).abs().max().item() <= 2e-2
+        assert torch.equal(got, tda.decode_attention(q, ck, cv, lt))
+        if lens[0] == 0:
+            assert not got[0].any()
+    # The merge kernel alone on the plain model's partials.
+    acc, m, l = tda.split_partials_ref(q, ck, cv, lt)
+    n = tda.split_plan(ck.shape[1])
+    merged = tda.merge_partials(tda.pack_partials(acc, m, l), 8, 32, 128, n)
+    want = tda.merge_ref(acc, m, l, torch.bfloat16)
+    assert (merged.float() - want.float()).abs().max().item() <= 2e-2

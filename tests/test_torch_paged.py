@@ -459,16 +459,24 @@ def test_server_main_paged_int8_answers_over_http():
 def test_paged_kernel_matches_plain_on_card():
     """On the card: the CUDA paged kernel vs its plain version at the
     Llama-3-8B decode shape (block size 16, scrambled tables with shared
-    pages, ragged lengths) and at block sizes 8 and 32, under
-    chip_smoke.py's element-wise limits."""
+    pages, ragged lengths) and at block sizes 8 and 32, and vs the
+    split-and-merge model, under chip_smoke.py's element-wise limits; also
+    on lens at split boundaries, every slot full and lens 1 beside full
+    slots; two calls give the same bits."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     g = torch.Generator(device="cuda").manual_seed(0)
+    C = tpa.CHUNK
     for S, Hq, Hkv, D, bs, nblk, maxb, lens in (
             (8, 32, 8, 128, 16, 1024, 128, [0, 1, 17, 1000, 2048, 2047, 64,
                                             65]),
             (4, 8, 8, 64, 8, 256, 64, [0, 5, 300, 512]),
-            (3, 16, 4, 128, 32, 40, 8, [33, 256, 7])):
+            (3, 16, 4, 128, 32, 40, 8, [33, 256, 7]),
+            # split boundaries, every slot full, 1 beside full
+            (8, 32, 8, 128, 16, 1024, 128, [0, 1, C - 1, C, C + 1, 2 * C,
+                                            2 * C + 1, 2048]),
+            (8, 32, 8, 128, 16, 1024, 128, [2048] * 8),
+            (8, 32, 8, 128, 16, 1024, 128, [1, 2048] * 4)):
         q = torch.randn(S, Hq, D, generator=g, device="cuda").bfloat16()
         pk, pv = (torch.randn(Hkv, nblk * bs, D, generator=g,
                               device="cuda").bfloat16() for _ in range(2))
@@ -482,6 +490,10 @@ def test_paged_kernel_matches_plain_on_card():
         assert tpa.launches == before + 1
         want = tpa.paged_decode_attention_ref(q, pk, pv, lt, tables, bs)
         assert _within_local(got, want)
+        assert _within_local(got, tpa.paged_decode_attention_split_ref(
+            q, pk, pv, lt, tables, bs))
+        assert torch.equal(
+            got, tpa.paged_decode_attention(q, pk, pv, lt, tables, bs))
         if lens[0] == 0:
             assert not got[0].any()
 
