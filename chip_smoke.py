@@ -36,16 +36,22 @@
    The three flash-attention kernels of the training path likewise, at
    llama_1b's shape (B 4, S 2048, 16 q / 8 kv heads of 128, causal), the
    Llama-3-8B head layout (32 / 8) at S 1024, a ragged S (1000), Skv > Sq,
-   D 64 with group 1 (llama_125m) and S 960 (which the forward's 128-row
-   tile does not divide, the backward's 64-row tile does): out and lse
+   D 64 with group 1 (llama_125m), S 960 (which the forward's 128-row
+   tile does not divide, the backward's 64-row q steps do), group 8 at D
+   64, and the ring's two block shapes (B 2, shards of 1024, llama_1b's
+   heads; causal on the diagonal, not causal on past blocks): out and lse
    (atol 1e-4) of the forward, and dQ/dK/dV for a seeded dO, against the
    plain versions, each
    bf16 element within one ulp of its own value plus 2^-5 of its row's
-   RMS, and each tensor within 2^-7 in norm; SDPA forward, ATen's flash
-   backward (the yardstick of the dK/dV + dQ pair) and SDPA
-   forward+backward times as yardsticks.  Chunked cross entropy at
-   llama3_8b's head (T 2048, d 4096, V 128256, chunk 16384, bf16): loss,
-   dx and dhead against the dense loss.
+   RMS, and each tensor within 2^-7 in norm; a second launch of each
+   backward kernel on the same inputs bit for bit the same.  SDPA
+   forward, ATen's flash backward (the yardstick of the dK/dV + dQ pair,
+   at llama_1b's shape and the ring's past block) and SDPA
+   forward+backward times as yardsticks; ptxas' registers and spills (a
+   spill fails the run) and the runtime's shared memory a block of the
+   four Hopper attention kernels (flash forward, dK/dV, dQ, ring step).
+   Chunked cross entropy at llama3_8b's head (T 2048, d 4096, V 128256,
+   chunk 16384, bf16): loss, dx and dhead against the dense loss.
    The ring-attention step kernel (sequence parallelism, one ring step's
    block attention and online merge) at llama_1b's heads, B 2, shards of
    1024 of a 4096 sequence: a diagonal, a past and a future block (the
@@ -343,12 +349,17 @@ def achieved(flops: float, t: dict) -> dict:
             "graph_tflops": flops / t["graph_ms"] / 1e9}
 
 
-# The kernels on the Hopper forward main loop (csrc/attn_fwd_sm90.cuh), by
-# wrapper name: their kernel's name in the build log, and their module and
-# C entry point that read a block's shared memory from the runtime.
-HOPPER_FWD = {"flash_fwd": ("flash_fwd_kernel", fa, "flash_fwd_smem_bytes"),
-              "ring_attention_step": ("ring_step_kernel", ra,
-                                      "ring_attention_step_smem_bytes")}
+# The kernels on the Hopper attention machinery (csrc/attn_fwd_sm90.cuh,
+# csrc/attn_bwd_sm90.cuh), by wrapper name: their kernel's name in the
+# build log, and their module and C entry point that read a block's shared
+# memory from the runtime.
+HOPPER = {"flash_fwd": ("flash_fwd_kernel", fa, "flash_fwd_smem_bytes"),
+          "flash_bwd_dkv": ("flash_bwd_dkv_kernel", fa,
+                            "flash_bwd_dkv_smem_bytes"),
+          "flash_bwd_dq": ("flash_bwd_dq_kernel", fa,
+                           "flash_bwd_dq_smem_bytes"),
+          "ring_attention_step": ("ring_step_kernel", ra,
+                                  "ring_attention_step_smem_bytes")}
 
 
 def ptxas_report(libs) -> dict:
@@ -380,12 +391,12 @@ def ptxas_report(libs) -> dict:
 
 
 def hopper_resources(libs) -> dict:
-    """For each kernel of HOPPER_FWD and head dim: registers a thread,
+    """For each kernel of HOPPER and head dim: registers a thread,
     static shared memory and spills, from ptxas.  Fails if a kernel is
     missing from the report or spills."""
     rep = ptxas_report(libs)
     out = {}
-    for wrapper, (kernel, _, _) in HOPPER_FWD.items():
+    for wrapper, (kernel, _, _) in HOPPER.items():
         for name, r in rep.items():
             m = re.search(kernel + r"ILi(\d+)E", name)
             if m:
@@ -452,7 +463,7 @@ def hopper_smem(hopper: dict) -> None:
     """Adds to ``hopper`` each kernel's shared memory a block (static and
     dynamic) at D 64 and 128, as the runtime holds it once the kernel has
     launched at that D.  Fails if the runtime refuses or holds none."""
-    for wrapper, (kernel, mod, entry) in HOPPER_FWD.items():
+    for wrapper, (kernel, mod, entry) in HOPPER.items():
         for key, r in hopper[wrapper].items():
             got = mod._fn(entry)(int(key[1:]))
             if got <= r["static_smem"]:
@@ -741,15 +752,21 @@ def check_paged(gen: torch.Generator) -> dict:
     return {"shapes": shapes, "main": shapes[0]}
 
 
-# (name, B, Sq, Skv, Hq, Hkv, D); the first is the training path's shape.
-FLASH_SHAPES = (("llama_1b", 4, 2048, 2048, 16, 8, 128),
-                ("llama3_8b_heads", 1, 1024, 1024, 32, 8, 128),
-                ("ragged", 2, 1000, 1000, 16, 8, 128),
-                ("offset", 1, 512, 1536, 16, 8, 128),
-                ("d64_group1", 2, 1024, 1024, 12, 12, 64),
+# (name, B, Sq, Skv, Hq, Hkv, D, causal); the first is the training path's
+# shape, the last two the ring's blocks (long-context training calls the
+# backward pair on each: causal on the diagonal, not causal on past
+# blocks).
+FLASH_SHAPES = (("llama_1b", 4, 2048, 2048, 16, 8, 128, True),
+                ("llama3_8b_heads", 1, 1024, 1024, 32, 8, 128, True),
+                ("ragged", 2, 1000, 1000, 16, 8, 128, True),
+                ("offset", 1, 512, 1536, 16, 8, 128, True),
+                ("d64_group1", 2, 1024, 1024, 12, 12, 64, True),
                 # 960: the forward's 128-row tile does not divide it, the
-                # backward's 64-row tile does.
-                ("tile64", 1, 960, 960, 16, 8, 128))
+                # backward's 64-row q steps do.
+                ("tile64", 1, 960, 960, 16, 8, 128, True),
+                ("d64_group8", 1, 512, 512, 16, 2, 64, True),
+                ("ring_diag", 2, 1024, 1024, 16, 8, 128, True),
+                ("ring_past", 2, 1024, 1024, 16, 8, 128, False))
 
 
 def visible_pairs(B, Sq, Skv, Hq, causal=True) -> int:
@@ -761,44 +778,106 @@ def visible_pairs(B, Sq, Skv, Hq, causal=True) -> int:
     return B * Hq * row
 
 
+def bwd_timings(q, k, v, do, lse, delta, causal: bool) -> dict:
+    """Times, TFLOP/s and bounds of the dK/dV and dQ kernels on these
+    inputs, and one call of ATen's flash backward (through autograd) on the
+    same inputs and dO as the pair's yardstick, with k/v expanded to the q
+    heads (its dK/dV are per q head; the group sum is not in its time)."""
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    pairs = visible_pairs(B, Sq, Skv, Hq, causal)
+    io_qkv = 2 * (q.numel() + 2 * k.numel())
+    rows = 4 * lse.numel()
+    t = {"flash_bwd_dkv": {
+            **timings(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta,
+                                               causal),
+                      lambda: fa.flash_bwd_dkv_ref(q, k, v, do, lse, delta,
+                                                   causal),
+                      None, 20, 3),
+            **bound(io_qkv + 2 * do.numel() + 2 * rows + 4 * k.numel(),
+                    8 * pairs * D)},
+         "flash_bwd_dq": {
+            **timings(lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta,
+                                              causal),
+                      lambda: fa.flash_bwd_dq_ref(q, k, v, do, lse, delta,
+                                                  causal),
+                      None, 20, 3),
+            **bound(io_qkv + 4 * do.numel() + 2 * rows, 6 * pairs * D)}}
+    for name, flops in (("flash_bwd_dkv", 8 * pairs * D),
+                        ("flash_bwd_dq", 6 * pairs * D)):
+        t[name].update(achieved(flops, t[name]))
+    qs = q.transpose(1, 2).contiguous().requires_grad_()
+    kx, vx = (x.transpose(1, 2).repeat_interleave(Hq // Hkv, dim=1)
+              .contiguous().requires_grad_() for x in (k, v))
+    dot = do.transpose(1, 2).contiguous()
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        lib_out = F.scaled_dot_product_attention(qs, kx, vx,
+                                                 is_causal=causal)
+    lib_ms = cuda_ms(lambda: torch.autograd.grad(
+        lib_out, (qs, kx, vx), dot, retain_graph=True), 20)
+    for name in ("flash_bwd_dkv", "flash_bwd_dq"):
+        t[name].update(library_ms=lib_ms, library_graph_ms=None,
+                       library_of="flash_bwd_dkv + flash_bwd_dq")
+    dkv, dq = t["flash_bwd_dkv"], t["flash_bwd_dq"]
+    t["pair"] = {"ms": dkv["ms"] + dq["ms"],
+                 "graph_ms": dkv["graph_ms"] + dq["graph_ms"],
+                 "graph_tflops": 14 * pairs * D / (dkv["graph_ms"]
+                                                   + dq["graph_ms"]) / 1e9,
+                 "bound_ms": dkv["bound_ms"] + dq["bound_ms"],
+                 "aten_ms": lib_ms}
+    return t
+
+
 def check_flash(gen: torch.Generator) -> dict:
     """The forward, dK/dV and dQ kernels against their plain versions on
     every shape of FLASH_SHAPES (the backward's plain versions get the
-    kernel's own out/lse, so each kernel is checked alone); times at the
-    llama_1b shape."""
+    kernel's own out/lse, so each kernel is checked alone), and a second
+    launch of each backward kernel bit for bit against the first; times at
+    the llama_1b shape, and the backward pair's at the ring's past
+    block."""
     errs = {"flash_fwd": [], "flash_bwd_dkv": [], "flash_bwd_dq": []}
-    shapes, timed = [], {}
-    for name, B, Sq, Skv, Hq, Hkv, D in FLASH_SHAPES:
+    shapes, timed, ring_bwd = [], {}, None
+    for name, B, Sq, Skv, Hq, Hkv, D, causal in FLASH_SHAPES:
         q, do = (torch.randn(B, Sq, Hq, D, generator=gen, device="cuda"
                              ).bfloat16() for _ in range(2))
         k, v = (torch.randn(B, Skv, Hkv, D, generator=gen, device="cuda"
                             ).bfloat16() for _ in range(2))
-        out, lse = fa.flash_fwd(q, k, v)
+        out, lse = fa.flash_fwd(q, k, v, causal)
         delta = fa.attention_delta(out, do)
-        dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta)
-        dq = fa.flash_bwd_dq(q, k, v, do, lse, delta)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
+        dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, causal)
+        dk2, dv2 = fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
+        dq2 = fa.flash_bwd_dq(q, k, v, do, lse, delta, causal)
         torch.cuda.synchronize()
-        rout, rlse = fa.flash_fwd_ref(q, k, v)
-        rdk, rdv = fa.flash_bwd_dkv_ref(q, k, v, do, lse, delta)
-        rdq = fa.flash_bwd_dq_ref(q, k, v, do, lse, delta)
+        rout, rlse = fa.flash_fwd_ref(q, k, v, causal)
+        rdk, rdv = fa.flash_bwd_dkv_ref(q, k, v, do, lse, delta, causal)
+        rdq = fa.flash_bwd_dq_ref(q, k, v, do, lse, delta, causal)
         rec = {"shape": name, "B": B, "Sq": Sq, "Skv": Skv, "Hq": Hq,
-               "Hkv": Hkv, "D": D, "lse_err": max_err(lse, rlse)}
+               "Hkv": Hkv, "D": D, "causal": causal,
+               "lse_err": max_err(lse, rlse),
+               "repeat_bitwise": all(torch.equal(a, b) for a, b in (
+                   (dk, dk2), (dv, dv2), (dq, dq2)))}
         for g, r, key in ((out, rout, "out"), (dq, rdq, "dq"),
                           (dk, rdk, "dk"), (dv, rdv, "dv")):
             rec[key] = local_err(g, r)
         print(f"flash {name}: {json.dumps(rec)}", flush=True)
-        if not (rec["lse_err"] <= FLASH_LSE_ATOL
+        if not (rec["lse_err"] <= FLASH_LSE_ATOL and rec["repeat_bitwise"]
                 and all(within_local(rec[t])
                         for t in ("out", "dq", "dk", "dv"))):
             raise AssertionError(f"flash kernels disagree with the plain "
-                                 f"versions at {name}: {rec}")
+                                 f"versions or with themselves at {name}: "
+                                 f"{rec}")
         errs["flash_fwd"].append(rec["out"]["max_abs_err"])
         errs["flash_bwd_dkv"].append(max(rec["dk"]["max_abs_err"],
                                          rec["dv"]["max_abs_err"]))
         errs["flash_bwd_dq"].append(rec["dq"]["max_abs_err"])
         shapes.append(rec)
-        del rout, rlse, rdk, rdv, rdq
+        del rout, rlse, rdk, rdv, rdq, dk2, dv2, dq2
         torch.cuda.empty_cache()
+        if name == "ring_past":
+            ring_bwd = bwd_timings(q, k, v, do, lse, delta, causal)
+            print(f"flash timings {name}: {json.dumps(ring_bwd)}",
+                  flush=True)
         if timed:
             continue
         pairs = visible_pairs(B, Sq, Skv, Hq)
@@ -814,35 +893,10 @@ def check_flash(gen: torch.Generator) -> dict:
             **bound(io_qkv + 2 * out.numel() + rows, 4 * pairs * D)}
         timed["flash_fwd"].update(achieved(4 * pairs * D,
                                            timed["flash_fwd"]))
-        timed["flash_bwd_dkv"] = {
-            **timings(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta),
-                      lambda: fa.flash_bwd_dkv_ref(q, k, v, do, lse, delta),
-                      None, 20, 3),
-            **bound(io_qkv + 2 * do.numel() + 2 * rows + 4 * k.numel(),
-                    8 * pairs * D)}
-        timed["flash_bwd_dq"] = {
-            **timings(lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta),
-                      lambda: fa.flash_bwd_dq_ref(q, k, v, do, lse, delta),
-                      None, 20, 3),
-            **bound(io_qkv + 4 * do.numel() + 2 * rows, 6 * pairs * D)}
-        # Yardstick of the dK/dV + dQ pair: one call of ATen's flash
-        # backward (through autograd) on the same inputs and dO, with k/v
-        # expanded to the q heads (its dK/dV are per q head; the group sum
-        # is not in its time).
+        timed.update(bwd_timings(q, k, v, do, lse, delta, causal))
+        # Yardsticks for the whole attention, forward and backward.
         qs, ks, vs = (t.detach().requires_grad_() for t in (qt, kt, vt))
         dot = do.transpose(1, 2).contiguous()
-        kx, vx = (t.repeat_interleave(Hq // Hkv, dim=1).requires_grad_()
-                  for t in (kt, vt))
-        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
-            lib_out = F.scaled_dot_product_attention(qs, kx, vx,
-                                                     is_causal=True)
-        lib_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
-            lib_out, (qs, kx, vx), dot, retain_graph=True), 20)
-        for kname in ("flash_bwd_dkv", "flash_bwd_dq"):
-            timed[kname].update(library_ms=lib_bwd_ms, library_graph_ms=None,
-                                library_of="flash_bwd_dkv + flash_bwd_dq")
-        del lib_out, kx, vx
-        # Yardsticks for the whole attention, forward and backward.
         qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
         timed["fwd_bwd"] = {
             "flash_attention_ms": cuda_ms(
@@ -853,7 +907,8 @@ def check_flash(gen: torch.Generator) -> dict:
         print(f"flash timings {name}: {json.dumps(timed)}", flush=True)
     return {name: {"shapes": [{"max_abs_err": e} for e in errs[name]],
                    "main": timed[name]} for name in errs} | {
-        "checks": shapes, "fwd_bwd": timed["fwd_bwd"]}
+        "checks": shapes, "fwd_bwd": timed["fwd_bwd"], "pair": timed["pair"],
+        "ring_past_bwd": ring_bwd}
 
 
 def check_xent(gen: torch.Generator) -> dict:
@@ -1527,7 +1582,8 @@ def main(argv=None) -> None:
     build_s = time.perf_counter() - t0
     print(f"built {[p.name for p in libs]} in {build_s:.2f} s", flush=True)
     hopper = hopper_resources(libs)
-    print(f"hopper forward kernels (ptxas): {json.dumps(hopper)}", flush=True)
+    print(f"hopper attention kernels (ptxas): {json.dumps(hopper)}",
+          flush=True)
     decode_res = decode_resources(libs)
     print(f"decode kernels (ptxas): {json.dumps(decode_res)}", flush=True)
 
@@ -1551,14 +1607,30 @@ def main(argv=None) -> None:
     xe = check_xent(gen)
     ring = check_ring(gen)
     hopper_smem(hopper)
+    rbwd = flash["ring_past_bwd"]
     for name, t, kernel in (
             ("flash_fwd", flash["flash_fwd"]["main"], "flash_fwd"),
+            ("flash_bwd_dkv", flash["flash_bwd_dkv"]["main"],
+             "flash_bwd_dkv"),
+            ("flash_bwd_dq", flash["flash_bwd_dq"]["main"], "flash_bwd_dq"),
+            ("flash_bwd_dkv, ring past block", rbwd["flash_bwd_dkv"],
+             "flash_bwd_dkv"),
+            ("flash_bwd_dq, ring past block", rbwd["flash_bwd_dq"],
+             "flash_bwd_dq"),
             ("ring step", ring["step"], "ring_attention_step"),
             ("ring forward", ring["main"], "ring_attention_step")):
         print(f"{name}: {t['ms']:.4f} ms eager ({t['host_ms']:.4f} ms of "
               f"host enqueue), {t['graph_ms']:.4f} ms graph; "
-              f"{t['tflops']:.1f} / {t['graph_tflops']:.1f} TFLOP/s; "
+              f"{t['tflops']:.1f} / {t['graph_tflops']:.1f} TFLOP/s "
+              f"({t['graph_tflops'] / (BF16_FLOPS / 1e12):.3f} of "
+              f"{BF16_FLOPS / 1e12:.0f}); bound {t['bound_ms']:.4f}; "
               f"resources {json.dumps(hopper[kernel])}", flush=True)
+    for name, t in (("llama_1b", flash["pair"]), ("ring past block",
+                                                  rbwd["pair"])):
+        print(f"flash backward pair, {name}: {t['ms']:.4f} ms eager, "
+              f"{t['graph_ms']:.4f} ms graph ({t['graph_tflops']:.1f} "
+              f"TFLOP/s), bound {t['bound_ms']:.4f}; ATen's flash "
+              f"backward {t['aten_ms']:.4f} ms eager", flush=True)
     torch.cuda.empty_cache()
     # One llama3_8b tree (16 GB of bf16 weights) serves every serve phase.
     cfg = llama.CONFIGS["llama3_8b"]
@@ -1597,7 +1669,9 @@ def main(argv=None) -> None:
                 "library_ms": m["library_ms"],
                 **({"library_of": m["library_of"]} if "library_of" in m
                    else {}),
-                **({"tflops": m["tflops"], "resources": hopper[name]}
+                **({"graph_ms": m["graph_ms"], "tflops": m["tflops"],
+                    "graph_tflops": m["graph_tflops"],
+                    "resources": hopper[name]}
                    if name in hopper else {}),
                 **({"graph_ms": m["graph_ms"],
                     "library_graph_ms": m["library_graph_ms"],
@@ -1630,7 +1704,7 @@ def main(argv=None) -> None:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps({
         "device": kind, "nvidia_smi": smi, "torch": torch.__version__,
-        "build_s": build_s, "hopper_fwd_resources": hopper,
+        "build_s": build_s, "hopper_resources": hopper,
         "decode_resources": decode_res,
         "build_log": {p.name: p.with_suffix(".log").read_text()
                       for p in libs},

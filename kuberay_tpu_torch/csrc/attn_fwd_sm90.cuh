@@ -1,5 +1,8 @@
 // The attention forward main loop for Hopper (sm_90a), shared by the flash
-// forward (flash_attention.cu) and the ring step (ring_attention.cu).
+// forward (flash_attention.cu) and the ring step (ring_attention.cu).  Its
+// PTX wrappers, load ring (Ring, produce, consume, release, load_rows,
+// produce_kv), tensor maps and launcher also serve the backward
+// (attn_bwd_sm90.cuh).
 //
 // One block of three warpgroups per (128-row q tile, q head, batch):
 // - a producer warpgroup (registers cut to 24 with setmaxnreg) whose first
@@ -72,7 +75,9 @@ struct Tile {
   float scale;
 };
 
-// K/V tiles the q tile at q0 reads: up to the last key its last row sees.
+// K/V tiles of KT keys the q tile at q0 reads: up to the last key its
+// last row sees.
+template <int KT = BK>
 __device__ __forceinline__ int kv_tiles(const Tile& t, int q0) {
   const int last_row = (q0 + BQ < t.Sq ? q0 + BQ : t.Sq) - 1;
   int end = t.Skv;
@@ -80,7 +85,7 @@ __device__ __forceinline__ int kv_tiles(const Tile& t, int q0) {
     const long long e = (long long)last_row + t.off + 1;
     end = e < end ? (int)(e < 0 ? 0 : e) : end;
   }
-  return (end + BK - 1) / BK;
+  return (end + KT - 1) / KT;
 }
 
 // ---------------------------------------------------------------- PTX --
@@ -144,6 +149,11 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+// Waits until at most N committed groups are still in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait_n() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
 
 // Keeps the compiler from moving register reads or writes of an
 // accumulator across the asynchronous wgmma.
@@ -177,6 +187,17 @@ __device__ __forceinline__ void mma_ss_n128(float (&d)[64], uint64_t a,
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " FWD90_D64
       "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
       : FWD90_R32(0), FWD90_R32(32)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d[64 x 64] (+)= A[64 x 16] . B[16 x 64]: as mma_ss_n128, 64 columns.
+__device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t a,
+                                           uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " FWD90_D32
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : FWD90_R32(0)
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
@@ -222,6 +243,85 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
+// ----------------------------------------------------------- the ring --
+
+// The barriers of a block's loads: `once` for the tiles loaded once, and a
+// "full" and an "empty" barrier for each stage of the ring (8 bytes apart).
+struct Ring {
+  uint32_t once, full, empty;
+};
+
+// Thread 0 initialises the 1 + 2 * STAGES barriers at `bars`: `once` and
+// each "full" complete on `full_count` arrivals and their transaction
+// bytes, each "empty" on one arrival per consumer warp.  The caller syncs
+// the block before any use.
+__device__ __forceinline__ Ring ring_init(uint64_t* bars,
+                                          uint32_t full_count) {
+  const Ring r{smem_u32(&bars[0]), smem_u32(&bars[1]),
+               smem_u32(&bars[1 + STAGES])};
+  if (threadIdx.x == 0) {
+    mbar_init(r.once, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(r.full + 8 * s, full_count);
+      mbar_init(r.empty + 8 * s, CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  return r;
+}
+
+// Producer side: for each of `n` tiles, waits until its stage is free, then
+// calls fill(tile, stage, the stage's "full" barrier).
+template <class Fill>
+__device__ __forceinline__ void produce(const Ring& r, int n, Fill&& fill) {
+  for (int it = 0; it < n; ++it) {
+    const int s = it % STAGES;
+    mbar_wait(r.empty + 8 * s, ((it / STAGES) & 1) ^ 1);
+    fill(it, s, r.full + 8 * s);
+  }
+}
+
+// Consumer side: waits until tile `it` has landed; returns its stage.
+__device__ __forceinline__ int consume(const Ring& r, int it) {
+  const int s = it % STAGES;
+  mbar_wait(r.full + 8 * s, (it / STAGES) & 1);
+  return s;
+}
+
+// Consumer side: this warp is done with tile `it`'s stage.
+__device__ __forceinline__ void release(const Ring& r, int it) {
+  __syncwarp();
+  if (threadIdx.x % 32 == 0) mbar_arrive(r.empty + 8 * (it % STAGES));
+}
+
+// Rows [r0, r0 + ROWS) of head h, batch b of a [B, S, H, D] map into `dst`
+// as D / 64 panels of ROWS x 128 bytes, completing on `bar`.
+template <int D, int ROWS>
+__device__ __forceinline__ void load_rows(uint32_t dst, const CUtensorMap& map,
+                                          uint32_t bar, int r0, int h,
+                                          int b) {
+#pragma unroll
+  for (int p = 0; p < D / 64; ++p)
+    tma_load(dst + p * ROWS * ROW, map, bar, 64 * p, h, r0, b);
+}
+
+// The K/V stream: `n` tiles of KT keys of kv head hk from key 0, K into
+// sk and V into sv, one tile a stage.
+template <int D, int KT>
+__device__ __forceinline__ void produce_kv(const Ring& r,
+                                           const CUtensorMap& kmap,
+                                           const CUtensorMap& vmap,
+                                           uint32_t sk, uint32_t sv, int hk,
+                                           int b, int n) {
+  constexpr int BYTES = KT * D * 2;
+  produce(r, n, [&](int it, int s, uint32_t full) {
+    mbar_expect_tx(full, 2 * BYTES);
+    load_rows<D, KT>(sk + s * BYTES, kmap, full, it * KT, hk, b);
+    load_rows<D, KT>(sv + s * BYTES, vmap, full, it * KT, hk, b);
+  });
+}
+
 // ---------------------------------------------------------- the block --
 
 // Where a consumer thread's accumulator elements sit: o[4j + e] (e = 0, 1)
@@ -247,19 +347,7 @@ __device__ __forceinline__ void fwd_block(const CUtensorMap& qmap,
   const uint32_t sq = (smem_u32(fwd90_smem) + 1023) & ~1023u;
   const uint32_t sk = sq + Smem<D>::Q;
   const uint32_t sv = sk + STAGES * Smem<D>::KV;
-  const uint32_t bar_q = smem_u32(&bars[0]);
-  const uint32_t bar_full = smem_u32(&bars[1]);             // + 8 * stage
-  const uint32_t bar_empty = smem_u32(&bars[1 + STAGES]);   // + 8 * stage
-
-  if (threadIdx.x == 0) {
-    mbar_init(bar_q, 1);
-    for (int s = 0; s < STAGES; ++s) {
-      mbar_init(bar_full + 8 * s, 1);
-      mbar_init(bar_empty + 8 * s, CONSUMER_WARPS);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  }
+  const Ring ring = ring_init(bars, 1);
   __syncthreads();
 
   const int wg = threadIdx.x / 128;
@@ -267,23 +355,10 @@ __device__ __forceinline__ void fwd_block(const CUtensorMap& qmap,
     // ---- producer: one thread issues every load.
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x == 256 && n_tiles > 0) {
-      const int hk = h / (t.Hq / t.Hkv);
-      mbar_expect_tx(bar_q, Smem<D>::Q);
-#pragma unroll
-      for (int p = 0; p < D / 64; ++p)
-        tma_load(sq + p * BQ * ROW, qmap, bar_q, 64 * p, h, q0, b);
-      for (int it = 0; it < n_tiles; ++it) {
-        const int s = it % STAGES;
-        mbar_wait(bar_empty + 8 * s, ((it / STAGES) & 1) ^ 1);
-        mbar_expect_tx(bar_full + 8 * s, 2 * Smem<D>::KV);
-#pragma unroll
-        for (int p = 0; p < D / 64; ++p) {
-          tma_load(sk + s * Smem<D>::KV + p * BK * ROW, kmap, bar_full + 8 * s,
-                   64 * p, hk, it * BK, b);
-          tma_load(sv + s * Smem<D>::KV + p * BK * ROW, vmap, bar_full + 8 * s,
-                   64 * p, hk, it * BK, b);
-        }
-      }
+      mbar_expect_tx(ring.once, Smem<D>::Q);
+      load_rows<D, BQ>(sq, qmap, ring.once, q0, h, b);
+      produce_kv<D, BK>(ring, kmap, vmap, sk, sv, h / (t.Hq / t.Hkv), b,
+                        n_tiles);
     }
   } else {
     // ---- consumers: 64 q rows each.
@@ -301,10 +376,9 @@ __device__ __forceinline__ void fwd_block(const CUtensorMap& qmap,
     epi.init(o, m, l, f);
 
     const uint64_t dq = desc(sq + 64 * wg * ROW, 16);
-    if (n_tiles > 0) mbar_wait(bar_q, 0);
+    if (n_tiles > 0) mbar_wait(ring.once, 0);
     for (int it = 0; it < n_tiles; ++it) {
-      const int s = it % STAGES, kv0 = it * BK;
-      mbar_wait(bar_full + 8 * s, (it / STAGES) & 1);
+      const int s = consume(ring, it), kv0 = it * BK;
       if (wg_last >= wg_first && (!t.causal || kv0 <= wg_last + t.off)) {
         // S = Q K^T
         float sc[64];
@@ -378,8 +452,7 @@ __device__ __forceinline__ void fwd_block(const CUtensorMap& qmap,
         wgmma_wait();
         fence_regs(o);
       }
-      __syncwarp();
-      if (lane == 0) mbar_arrive(bar_empty + 8 * s);
+      release(ring, it);
     }
     l[0] = quad_sum(l[0]);
     l[1] = quad_sum(l[1]);
@@ -456,15 +529,15 @@ __device__ __forceinline__ int block_q0() {
   return (gridDim.z - 1 - blockIdx.z) * BQ;
 }
 
-// Sets the kernel's dynamic shared memory, launches NT threads a block and
-// returns cudaGetLastError().
-template <int D, typename... P, typename... A>
-int launch(void (*kernel)(P...), dim3 g, void* stream, A... args) {
+// Sets the kernel's dynamic shared memory to `bytes`, launches NT threads
+// a block and returns cudaGetLastError().
+template <typename... P, typename... A>
+int launch(void (*kernel)(P...), dim3 g, int bytes, void* stream,
+           A... args) {
   const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<D>::BYTES);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<g, NT, Smem<D>::BYTES, static_cast<cudaStream_t>(stream)>>>(
-      args...);
+  kernel<<<g, NT, bytes, static_cast<cudaStream_t>(stream)>>>(args...);
   return (int)cudaGetLastError();
 }
 

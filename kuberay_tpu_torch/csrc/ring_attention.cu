@@ -156,10 +156,10 @@ extern "C" int ring_attention_step_bf16(const void* q, const void* k,
   const fwd90::Tile t{Sq, Skv, Hq, Hkv, causal, q_off - k_off, scale};
   return attn::with_head_dim(D, [&](auto d) {
     constexpr int DD = decltype(d)::value;
-    return fwd90::launch<DD>(ring_step_kernel<DD>, fwd90::grid(B, Sq, Hq),
-                             stream, maps.q, maps.k, maps.v, (float*)acc,
-                             (float*)m, (float*)l, (bf16*)out, (float*)lse, t,
-                             last);
+    return fwd90::launch(ring_step_kernel<DD>, fwd90::grid(B, Sq, Hq),
+                         fwd90::Smem<DD>::BYTES, stream, maps.q, maps.k,
+                         maps.v, (float*)acc, (float*)m, (float*)l,
+                         (bf16*)out, (float*)lse, t, last);
   });
 }
 

@@ -39,10 +39,18 @@ bwd_dq_launches = 0
 
 _NEG_INF = -1e30
 
+# The backward kernels' tiles (csrc/attn_bwd_sm90.cuh: KV_TILE, Q_STEP,
+# fwd90::BQ, DQ_KEYS), for the CPU model of their plan in
+# tests/test_torch_flash_bwd_tiles.py: dK/dV blocks of 128 keys stepping
+# over q tiles of 64 rows; dQ blocks of 128 q rows stepping over K/V tiles
+# of 64 keys.
+BWD_KV_TILE, BWD_Q_STEP = 128, 64
+BWD_DQ_Q_TILE, BWD_DQ_KV_TILE = 128, 64
+
 # The C entry points of csrc/<LIBRARY>.cu and their ctypes argtypes:
 # pointers, then B, Sq, Skv, Hq, Hkv, D, causal, then the scale and the
 # stream (tests/test_torch_abi.py holds them to the C signatures); and
-# the forward's shared memory a block at head dim D, as the runtime holds
+# each kernel's shared memory a block at head dim D, as the runtime holds
 # it after a launch.
 LIBRARY = "flash_attention"
 ARGTYPES = {
@@ -50,6 +58,8 @@ ARGTYPES = {
     "flash_bwd_dkv_bf16": [PTR] * 8 + [INT] * 7 + [FLOAT, PTR],
     "flash_bwd_dq_bf16": [PTR] * 7 + [INT] * 7 + [FLOAT, PTR],
     "flash_fwd_smem_bytes": [INT],
+    "flash_bwd_dkv_smem_bytes": [INT],
+    "flash_bwd_dq_smem_bytes": [INT],
 }
 _fn = bind(LIBRARY, ARGTYPES)
 

@@ -167,7 +167,9 @@ def test_flash_kernels_match_plain_on_card():
     at a ragged length, an offset (Skv > Sq), D 64, a length the forward's
     128-row q tile does not divide (960), D 64 with group 1 there, rows
     that see no key (Sq > Skv; forward only, as such rows have no
-    gradient) and no mask, with their launch counts."""
+    gradient), no mask, groups 4 and 8, and the ring's past block (B 2,
+    shards of 1024, not causal), with their launch counts; a second
+    backward on the same inputs is bit for bit the first."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -177,7 +179,11 @@ def test_flash_kernels_match_plain_on_card():
                                            (1, 960, 960, 16, 8, 128, True),
                                            (2, 960, 960, 12, 12, 64, True),
                                            (1, 333, 200, 8, 1, 64, True),
-                                           (1, 700, 900, 8, 2, 128, False)):
+                                           (1, 700, 900, 8, 2, 128, False),
+                                           (1, 512, 512, 16, 4, 128, True),
+                                           (1, 512, 512, 16, 2, 64, True),
+                                           (2, 1024, 1024, 16, 8, 128,
+                                            False)):
         q, k, v, do = (torch.randn(*s, generator=g, device="cuda").bfloat16()
                        for s in ((B, Sq, Hq, D), (B, Skv, Hkv, D),
                                  (B, Skv, Hkv, D), (B, Sq, Hq, D)))
@@ -192,6 +198,8 @@ def test_flash_kernels_match_plain_on_card():
         grads = ta.flash_bwd(q, k, v, out, lse, do, causal)
         assert (ta.fwd_launches, ta.bwd_dkv_launches,
                 ta.bwd_dq_launches) == tuple(c + 1 for c in n)
+        again = ta.flash_bwd(q, k, v, out, lse, do, causal)
+        assert all(torch.equal(a, b) for a, b in zip(grads, again))
         # The plain backward: flash_bwd on CPU copies of the same inputs.
         want = ta.flash_bwd(*(t.cpu() for t in (q, k, v, out, lse, do)),
                             causal)
