@@ -134,15 +134,6 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[4][4],
       a[kk][i] = pack_bf16(x[8 * kk + 2 * i], x[8 * kk + 2 * i + 1]);
 }
 
-// Keeps register-A operands alive, unmoved, until the wgmma reading them
-// has been waited for.
-__device__ __forceinline__ void fence_a(uint32_t (&a)[4][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[kk][i])::"memory");
-}
-
 // ------------------------------------------------------------- dK/dV --
 
 template <int D>
@@ -167,7 +158,7 @@ __device__ __forceinline__ void dkv_block(
   const int n = G * qs.per_head;
   // A stage is full when the TMA thread's bytes and the 32 row copies
   // have landed.
-  const Ring ring = ring_init(bars, 1 + 32);
+  const Ring<> ring = ring_init(bars, 1 + 32);
   __syncthreads();
 
   const int wg = threadIdx.x / 128, lane = threadIdx.x % 32;
@@ -326,7 +317,7 @@ __device__ __forceinline__ void dq_block(
   const uint32_t sk = sdo + Sm::Q;                 // + stage * Sm::KV
   const uint32_t sv = sk + STAGES * Sm::KV;        // + stage * Sm::KV
   const int n = kv_tiles<DQ_KEYS>(t, q0);
-  const Ring ring = ring_init(bars, 1);
+  const Ring<> ring = ring_init(bars, 1);
   __syncthreads();
 
   const int wg = threadIdx.x / 128;

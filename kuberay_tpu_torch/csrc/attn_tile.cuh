@@ -1,6 +1,6 @@
 // The shape checks and head-dim dispatch that every training attention
 // kernel shares (flash_attention.cu: forward, dK/dV, dQ; ring_attention.cu:
-// the ring step); their main loops are attn_fwd_sm90.cuh and
+// the ring forward); their main loops are attn_fwd_sm90.cuh and
 // attn_bwd_sm90.cuh.
 
 #pragma once

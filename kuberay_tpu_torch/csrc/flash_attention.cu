@@ -26,13 +26,16 @@
 // 104 us; their bytes (q, k, v, o, dO: about 50 MB) take 15 us at 3.35 TB/s.
 //
 // Design: the Hopper machinery of attn_fwd_sm90.cuh for all three (TMA
-// into a 2-stage ring guarded by mbarriers, a producer warpgroup and two
+// into a ring of stages guarded by mbarriers, a producer warpgroup and two
 // consumer warpgroups running wgmma with every score, probability and
 // accumulator in registers); the tensor maps over q, k, v (and dO) are
 // built on the host at every call.
-// - forward: one block per (128-row q tile, q head, batch), the longest
-//   causal tiles first; its epilogue here normalises O in registers and
-//   writes out and lse.
+// - forward: a persistent grid of one block per SM over the (128-row q
+//   tile, q head, batch) tiles, the longest causal tiles first, dealt out
+//   in a snake, on the shared loop (fwd_loop: a 3-stage K/V ring,
+//   each tile's softmax overlapped with the products in flight, the two
+//   consumer warpgroups taking turns on the tensor cores), which
+//   normalises O in registers and writes out and lse.
 // - dK/dV and dQ (attn_bwd_sm90.cuh, which holds the design): one block
 //   per (128-key kv tile, kv head, batch) looping over the group's q heads
 //   and the 64-row q tiles that see it, with S^T and dP^T computed keys-on-
@@ -52,51 +55,15 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-// The forward's prologue and epilogue on the register fragment: the state
-// starts empty; out = O / l (l == 0 -> 1) in bf16 and lse = m + log l.
-template <int D>
-struct FwdOut {
-  bf16* o;
-  float* lse;
-  int Sq, Hq, h, b;
-
-  __device__ __forceinline__ void init(float (&acc)[D / 2], float (&m)[2],
-                                       float (&l)[2], const fwd90::Frag&) {
-#pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
-    m[0] = m[1] = fwd90::NEG;
-    l[0] = l[1] = 0.f;
-  }
-
-  __device__ __forceinline__ void finish(const float (&acc)[D / 2],
-                                         const float (&m)[2],
-                                         const float (&l)[2],
-                                         const fwd90::Frag& f) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = f.rows[r];
-      if (row >= Sq) continue;
-      const float lr = l[r] == 0.f ? 1.f : l[r];
-      const float inv = 1.f / lr;
-      bf16* op = o + ((size_t)(b * Sq + row) * Hq + h) * D + 2 * f.c;
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j)
-        *reinterpret_cast<uint32_t*>(op + 8 * j) = fwd90::pack_bf16(
-            acc[4 * j + 2 * r] * inv, acc[4 * j + 2 * r + 1] * inv);
-      if (f.c == 0) lse[((size_t)b * Hq + h) * Sq + row] = m[r] + logf(lr);
-    }
-  }
-};
-
+// The forward: a persistent grid over the q tiles (fwd90::FlashPlan).
 template <int D>
 __global__ void __launch_bounds__(fwd90::NT, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap qm,
                  const __grid_constant__ CUtensorMap km,
-                 const __grid_constant__ CUtensorMap vm, bf16* __restrict__ o,
-                 float* __restrict__ lse, fwd90::Tile t) {
-  const int q0 = fwd90::block_q0(), h = blockIdx.x, b = blockIdx.y;
-  FwdOut<D> epi{o, lse, t.Sq, t.Hq, h, b};
-  fwd90::fwd_block<D>(qm, km, vm, t, q0, h, b, fwd90::kv_tiles(t, q0), epi);
+                 const __grid_constant__ CUtensorMap vm,
+                 const __grid_constant__ CUtensorMap om, bf16* __restrict__ o,
+                 float* __restrict__ lse, const fwd90::FlashPlan plan) {
+  fwd90::fwd_loop<D>(qm, km, vm, om, plan, o, lse);
 }
 
 template <int D>
@@ -136,15 +103,20 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
                               int Hq, int Hkv, int D, int causal, float scale,
                               void* stream) {
   fwd90::Maps maps;
-  if (!shape_ok(B, Sq, Skv, Hq, Hkv, D) ||
-      !fwd90::make_maps(&maps, q, k, v, B, Sq, Skv, Hq, Hkv, D))
+  const int sms = fwd90::sm_count();
+  if (!shape_ok(B, Sq, Skv, Hq, Hkv, D) || sms <= 0 ||
+      !fwd90::fwd_maps(&maps, q, k, v, o, 1, 1, (long long)B * Skv * Hkv * D,
+                       B, Sq, Skv, Hq, Hkv, D))
     return (int)cudaErrorInvalidValue;
-  const fwd90::Tile t{Sq, Skv, Hq, Hkv, causal, Skv - Sq, scale};
+  const int total = B * Hq * ((Sq + fwd90::BQ - 1) / fwd90::BQ);
+  const fwd90::FlashPlan plan{{Sq, Skv, Hq, Hkv, causal, Skv - Sq, scale}, B,
+                              total};
   return with_head_dim(D, [&](auto d) {
     constexpr int DD = decltype(d)::value;
-    return fwd90::launch(flash_fwd_kernel<DD>, fwd90::grid(B, Sq, Hq),
+    return fwd90::launch(flash_fwd_kernel<DD>,
+                         dim3(total < sms ? total : sms),
                          fwd90::Smem<DD>::BYTES, stream, maps.q, maps.k,
-                         maps.v, (bf16*)o, (float*)lse, t);
+                         maps.v, maps.o, (bf16*)o, (float*)lse, plan);
   });
 }
 

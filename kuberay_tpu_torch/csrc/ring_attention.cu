@@ -1,48 +1,85 @@
-// One step of sequence-parallel ring attention: a q shard against one K/V
-// block, merged online into f32 state.
+// Sequence-parallel ring attention's forward: every ring step of every
+// rank held here, in one persistent kernel.
 //
 // Replaces kuberay_tpu/parallel/ring_pallas.py::_ring_kernel (reached
-// through _ring_attention_fwd_sharded and ring_attention_rdma): the block
-// attention and online merge of one ring step (:130-158) and, at the last
-// step, the normalisation (:179).  The TPU kernel's remote DMAs, semaphores
-// and capacity token become the exchange in parallel/ring_kernel.py: NCCL
-// send/recv (or a device copy for ranks on one card) on a side stream,
-// ordered against this kernel by CUDA events.
+// through _ring_attention_fwd_sharded and ring_attention_rdma), whole: as
+// the TPU kernel loops over the n ring steps inside one call with its
+// state (acc, m, l) on chip, this kernel runs each q tile over every K/V
+// block its rank sees, in the ring's order, with O, m and l in registers,
+// and writes out and lse once.  The TPU kernel's remote DMAs, semaphores
+// and capacity token become the caller's exchange into an n-slot buffer
+// (parallel/ring_kernel.py) and an arrival word per slot that this kernel
+// waits on.
 //
-//   q      [B, Sq,  Hq,  D]  bf16   this rank's queries, global rows q_off + i
-//   k, v   [B, Skv, Hkv, D]  bf16   one K/V block, global rows k_off + j
-//   acc    [B, Sq,  Hq,  D]  f32    unnormalised output       (state)
-//   m, l   [B, Hq, Sq]       f32    running max and sum of each score row
-//   out    [B, Sq,  Hq,  D]  bf16   with `last`: acc / l (l == 0 -> 1)
-//   lse    [B, Hq, Sq]       f32    with `last`: m + log l
+//   q      [R, B, Sl, Hq, D]   bf16  the R held ranks' queries; held rank j
+//                                    is global rank rank0 + j, its rows are
+//                                    global positions (rank0 + j) * Sl + i
+//   k, v   [n, B, Sl, Hkv, D]  bf16  the n ranks' blocks, `kv_stride`
+//                                    elements apart (B * Sl * Hkv * D
+//                                    stacked; twice that in the n-slot
+//                                    buffer [n, 2, B, Sl, Hkv, D])
+//   out    [R, B, Sl, Hq, D]   bf16
+//   lse    [R, B, Hq, Sl]      f32
+//   words  [n]                 int32 arrival word of each source, or null
 //
 // Semantics, as the TPU kernel: f32 scores from bf16 operands times
-// `scale`; with `causal`, key j is visible to row i when k_off + j <=
-// q_off + i (global positions, any integers); probabilities rounded to bf16
-// before P @ V; f32 (acc, m, l).  Without `last` the state is updated in
-// place; with `last` the merged state is normalised into out and lse and
-// the state is not written back.  A row or block that sees no key leaves
-// the state as it was; a block that sees nothing does not touch it.  The
-// TPU kernel rounds P against the block's max, this kernel against the
-// running max of its 128-key tiles: the two differ by bf16 rounding only.
+// `scale`; rank r sees, in order, the blocks src = r, r - 1, ... (mod n):
+// with `causal` only those with src <= r, key j of block src visible to
+// row i when src * Sl + j <= r * Sl + i; probabilities rounded to bf16
+// before P @ V; f32 (O, m, l); out = O / l (l == 0 -> 1), lse = m + log l.
+// The TPU kernel rounds P against each block's max, this kernel against
+// the running max of its 128-key tiles: the two differ by bf16 rounding
+// only.
 //
-// Bound on an H100: operations, nearly balanced with bytes.  At the ring
-// smoke's shape (llama_1b heads: 16 q / 8 kv of 128; B 2; shards of 1024)
-// a step over a past block is 2 products of 8.6 GFLOP, 17.4 us at 989
-// TFLOP/s, and moves 51 MB (q, k, v and the f32 state read and written,
-// 34 MB of it), 15.2 us at 3.35 TB/s; a diagonal step does half the
-// products.  The state's round trip through device memory is what carrying
-// it in registers across steps (one kernel per ring) would remove.
+// Bound on an H100: operations.  At the long-context smoke's shape
+// (LocalRing(4), B 2, S 4096 in shards of 1024, 16 q / 8 kv heads of 128,
+// causal) the ring computes 2 products over 268 M visible (q, k) pairs,
+// 137 GFLOP, 0.139 ms at 989 TFLOP/s; its 101 MB of q, k, v and out take
+// 0.030 ms at 3.35 TB/s.  The one-launch-a-step kernel it replaces read and
+// wrote the f32 state through device memory at every step (34 MB of a past
+// step's 51 MB) and paid ten launches a ring.
 //
-// Design: the flash forward's Hopper main loop (attn_fwd_sm90.cuh: TMA
-// into a 2-stage K/V ring, a producer warpgroup, two consumer warpgroups
-// running wgmma with S, P and O in registers), one block per (128-row q
-// tile, q head, batch), with the global-offset mask (off = q_off - k_off):
-// past blocks are wholly visible and never pay the per-element test.  Its
-// prologue here reads the tile's state (acc into the O accumulator
-// fragment with 8-byte loads, m and l per row); its epilogue writes the
-// state back or, with `last`, normalises into out and lse.  A block that
-// sees nothing returns before touching the state.
+// Design: the Hopper main loop of attn_fwd_sm90.cuh (TMA, a 3-stage K/V
+// ring, a producer and two consumer warpgroups, wgmma, softmax overlapped
+// with the products) over a persistent grid:
+// - the unit of work is a q tile (held rank, batch, q head, 128 rows); its
+//   K/V stream runs through all of its blocks back to back, each block's
+//   tiles masked only where the diagonal or the ragged edge cuts them (off
+//   = (r - src) * Sl);
+// - the tiles are ordered largest work first (global q tile descending:
+//   under the causal mask a tile of rank r row q0 sees r full blocks and
+//   the diagonal's first q0 + 128 keys, so work grows with the global
+//   row), heads fastest, so the blocks that read one kv head run side by
+//   side; block c of a grid of G takes tiles c, 2G - 1 - c, 2G + c, ...
+//   (a snake over the order), which evens the causal ring's imbalance
+//   (rank 3's tiles see 4 blocks, rank 0's one) without a counter;
+// - q, k and v are read through 5-D tensor maps over [source, B, S, H, D]:
+//   the held rank is q's source coordinate and the K/V rank k's and v's,
+//   so a tile addresses any block without pointer tables.
+//
+// Arrival.  With `words` null every block is already in k and v (a
+// LocalRing: all ranks on this card), and the kernel reads them in place.
+// Otherwise (a DeviceRing: one rank per card) k and v are the n-slot buffer
+// that the exchange fills while the kernel runs: slot src holds block src
+// once words[src] is set (nonzero: the ring's epoch is 1,
+// parallel/ring_kernel.py zeroing the words at each forward), by a stream
+// memory operation (ring_arrival_write) after the block's copy.  The
+// producer waits for the word with an acquire load before a block's first
+// TMA load and then fences the async proxy (the data was written by another
+// engine); a word that never arrives faults the launch after about 5 s
+// instead of hanging. The buffer holds the whole sequence's K/V of one layer
+// while the forward runs (33.5 MB at the smoke's shape, against the old
+// double buffer's 2 slots).  Every kernel that delivers blocks must have
+// been launched once before this kernel waits: CUDA loads a module at a
+// kernel's first launch (lazy loading) only once the running kernels have
+// ended (measured on the H100: a fill kernel first launched on the side
+// stream never ran beside a waiting grid, with 4 to 66 SMs free; copies and
+// the word writes did).  parallel/ring_kernel.py queues the first rotation,
+// and with it NCCL's kernel, before the launch.  A waiting grid leaves
+// RESERVED_SMS of the card's SMs free: a block of this kernel fills an SM's
+// registers (2 x 128 x 232 + 128 x 40 of 65,536), so the copies or NCCL
+// kernels that deliver the blocks could otherwise find no SM while every
+// block spins.
 
 #include "attn_fwd_sm90.cuh"
 
@@ -50,124 +87,109 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-// The step's prologue and epilogue on the register fragment.
-template <int D>
-struct StepState {
-  float* acc;
-  float* m;
-  float* l;
-  bf16* out;
-  float* lse;
-  int Sq, Hq, h, b, last;
+// SMs left free while the kernel may wait for arrivals (3% of an H100's
+// 132): enough for the delivering copies' or NCCL's blocks to make
+// progress; 0 when every block is already on the card.
+constexpr int RESERVED_SMS = 4;
 
-  __device__ __forceinline__ size_t at(int row) const {   // acc, out
-    return ((size_t)(b * Sq + row) * Hq + h) * D;
-  }
-  __device__ __forceinline__ size_t at_row(int row) const {  // m, l, lse
-    return ((size_t)b * Hq + h) * Sq + row;
+// The persistent grid's schedule (fwd90::fwd_loop's Sched).
+struct RingPlan {
+  fwd90::Tile t;      // Sq = Skv = Sl; off unused
+  const int* words;   // arrival word of each source, or null
+  int R, rank0, n, B, total;
+
+  __device__ __forceinline__ int jobs() const {
+    return fwd90::snake_jobs(total);
   }
 
-  // The state of the fragment's rows (rows past Sq: empty); l as the quad
-  // leader's share, so the quad's sum gives it back.
-  __device__ __forceinline__ void init(float (&o)[D / 2], float (&mr)[2],
-                                       float (&lr)[2],
-                                       const fwd90::Frag& f) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = f.rows[r];
-      const bool in = row < Sq;
-      const float* ap = acc + (in ? at(row) : 0) + 2 * f.c;
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        const float2 v = in ? *reinterpret_cast<const float2*>(ap + 8 * j)
-                            : make_float2(0.f, 0.f);
-        o[4 * j + 2 * r] = v.x;
-        o[4 * j + 2 * r + 1] = v.y;
-      }
-      mr[r] = in ? m[at_row(row)] : fwd90::NEG;
-      lr[r] = in && f.c == 0 ? l[at_row(row)] : 0.f;
-    }
+  __device__ __forceinline__ fwd90::Job job(int k) const {
+    const int idx = fwd90::snake_index(k);
+    const int BH = B * t.Hq, nqt = (t.Sq + fwd90::BQ - 1) / fwd90::BQ;
+    const int gq = R * nqt - 1 - idx / BH, bh = idx % BH;
+    const int j = gq / nqt, b = bh / t.Hq;
+    return fwd90::Job{(gq - j * nqt) * fwd90::BQ, bh - b * t.Hq, b, j,
+                      rank0 + j, j * B + b};
   }
 
-  __device__ __forceinline__ void finish(const float (&o)[D / 2],
-                                         const float (&mr)[2],
-                                         const float (&lr)[2],
-                                         const fwd90::Frag& f) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = f.rows[r];
-      if (row >= Sq) continue;
-      if (last) {
-        const float ls = lr[r] == 0.f ? 1.f : lr[r];
-        const float inv = 1.f / ls;
-        bf16* op = out + at(row) + 2 * f.c;
-#pragma unroll
-        for (int j = 0; j < D / 8; ++j)
-          *reinterpret_cast<uint32_t*>(op + 8 * j) = fwd90::pack_bf16(
-              o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
-        if (f.c == 0) lse[at_row(row)] = mr[r] + logf(ls);
-      } else {
-        float* ap = acc + at(row) + 2 * f.c;
-#pragma unroll
-        for (int j = 0; j < D / 8; ++j)
-          *reinterpret_cast<float2*>(ap + 8 * j) =
-              make_float2(o[4 * j + 2 * r], o[4 * j + 2 * r + 1]);
-        if (f.c == 0) {
-          m[at_row(row)] = mr[r];
-          l[at_row(row)] = lr[r];
-        }
-      }
-    }
+  __device__ __forceinline__ int blocks(const fwd90::Job& jb) const {
+    return t.causal ? jb.r + 1 : n;
+  }
+
+  __device__ __forceinline__ fwd90::Block block(const fwd90::Job& jb,
+                                                int i) const {
+    const int src = jb.r - i < 0 ? jb.r - i + n : jb.r - i;
+    return fwd90::Block{src, (jb.r - src) * t.Sq};
+  }
+
+  __device__ __forceinline__ void wait(int src) const {
+    if (words) fwd90::wait_word(words + src);
   }
 };
 
 template <int D>
 __global__ void __launch_bounds__(fwd90::NT, 1)
-ring_step_kernel(const __grid_constant__ CUtensorMap qm,
-                 const __grid_constant__ CUtensorMap km,
-                 const __grid_constant__ CUtensorMap vm,
-                 float* __restrict__ acc, float* __restrict__ m,
-                 float* __restrict__ l, bf16* __restrict__ out,
-                 float* __restrict__ lse, fwd90::Tile t, int last) {
-  const int q0 = fwd90::block_q0(), h = blockIdx.x, b = blockIdx.y;
-  const int n_tiles = fwd90::kv_tiles(t, q0);
-  if (n_tiles == 0 && !last) return;     // nothing to merge
-  StepState<D> epi{acc, m, l, out, lse, t.Sq, t.Hq, h, b, last};
-  fwd90::fwd_block<D>(qm, km, vm, t, q0, h, b, n_tiles, epi);
+ring_fwd_kernel(const __grid_constant__ CUtensorMap qm,
+                const __grid_constant__ CUtensorMap km,
+                const __grid_constant__ CUtensorMap vm,
+                const __grid_constant__ CUtensorMap om, bf16* __restrict__ out,
+                float* __restrict__ lse, const RingPlan plan) {
+  fwd90::fwd_loop<D>(qm, km, vm, om, plan, out, lse);
 }
 
 }  // namespace
 
 // Returns cudaGetLastError() after the launch (0 = launched), or
 // cudaErrorInvalidValue for a shape without an instantiation (head_dim 64
-// or 128; group 1, 2, 4 or 8), `last` without out and lse, or tensor maps
+// or 128; group 1, 2, 4 or 8), held ranks outside the ring, a K/V stride
+// below a block or not 16-byte aligned, or tensor maps
 // cuTensorMapEncodeTiled refuses.
-extern "C" int ring_attention_step_bf16(const void* q, const void* k,
-                                        const void* v, void* acc, void* m,
-                                        void* l, void* out, void* lse, int B,
-                                        int Sq, int Skv, int Hq, int Hkv,
-                                        int D, int q_off, int k_off,
-                                        int causal, int last, float scale,
-                                        void* stream) {
+extern "C" int ring_attention_fwd_bf16(const void* q, const void* k,
+                                       const void* v, void* out, void* lse,
+                                       const void* words, int R, int rank0,
+                                       int n, int B, int Sl, int Hq, int Hkv,
+                                       int D, int kv_stride, int causal,
+                                       float scale, void* stream) {
   fwd90::Maps maps;
-  if (!attn::shape_ok(B, Sq, Skv, Hq, Hkv, D) || (last && (!out || !lse)) ||
-      !fwd90::make_maps(&maps, q, k, v, B, Sq, Skv, Hq, Hkv, D))
+  const int sms = fwd90::sm_count();
+  if (!attn::shape_ok(B, Sl, Sl, Hq, Hkv, D) || R < 1 || rank0 < 0 ||
+      rank0 + R > n || (long long)kv_stride < (long long)B * Sl * Hkv * D ||
+      kv_stride % 8 != 0 || sms <= RESERVED_SMS ||
+      !fwd90::fwd_maps(&maps, q, k, v, out, R, n, kv_stride, B, Sl, Sl, Hq,
+                       Hkv, D))
     return (int)cudaErrorInvalidValue;
-  const fwd90::Tile t{Sq, Skv, Hq, Hkv, causal, q_off - k_off, scale};
+  const int total = R * ((Sl + fwd90::BQ - 1) / fwd90::BQ) * B * Hq;
+  const int cap = sms - (words ? RESERVED_SMS : 0);
+  const RingPlan plan{{Sl, Sl, Hq, Hkv, causal, 0, scale},
+                      static_cast<const int*>(words), R, rank0, n, B, total};
+  const dim3 grid(total < cap ? total : cap);
   return attn::with_head_dim(D, [&](auto d) {
     constexpr int DD = decltype(d)::value;
-    return fwd90::launch(ring_step_kernel<DD>, fwd90::grid(B, Sq, Hq),
-                         fwd90::Smem<DD>::BYTES, stream, maps.q, maps.k,
-                         maps.v, (float*)acc, (float*)m, (float*)l,
-                         (bf16*)out, (float*)lse, t, last);
+    return fwd90::launch(ring_fwd_kernel<DD>, grid, fwd90::Smem<DD>::BYTES,
+                         stream, maps.q, maps.k, maps.v, maps.o,
+                         (bf16*)out, (float*)lse, plan);
   });
 }
 
-// The step kernel's shared memory a block at head dim D (64 or 128), as the
+// The kernel's shared memory a block at head dim D (64 or 128), as the
 // runtime holds it after a launch at D; -1 for another D.
-extern "C" int ring_attention_step_smem_bytes(int D) {
+extern "C" int ring_attention_fwd_smem_bytes(int D) {
   if (D != 64 && D != 128) return -1;
   return attn::with_head_dim(D, [](auto d) {
-    return fwd90::smem_bytes(ring_step_kernel<decltype(d)::value>);
+    return fwd90::smem_bytes(ring_fwd_kernel<decltype(d)::value>);
   });
+}
+
+// Sets the int32 arrival word at `word` (to 1) on `stream`, after the
+// stream's earlier work and its memory (cuStreamWriteValue32, default
+// flags).  Returns the CUresult (0 = enqueued), or cudaErrorNotSupported
+// without the driver entry point.
+extern "C" int ring_arrival_write(void* word, void* stream) {
+  using WriteValue32 =
+      CUresult (*)(CUstream, CUdeviceptr, cuuint32_t, unsigned int);
+  static const WriteValue32 fn = reinterpret_cast<WriteValue32>(
+      fwd90::driver_entry("cuStreamWriteValue32"));
+  if (!fn) return (int)cudaErrorNotSupported;
+  return (int)fn(static_cast<CUstream>(stream),
+                 reinterpret_cast<CUdeviceptr>(word), 1u,
+                 CU_STREAM_WRITE_VALUE_DEFAULT);
 }

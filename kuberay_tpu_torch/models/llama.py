@@ -67,7 +67,7 @@ class LlamaConfig:
     # attn_impl: "auto"/"pallas" = the flash kernels (their plain versions
     # on CPU tensors); "xla" = attention_ref, the plain attention the JAX
     # package's "xla" names; "ring" = the plain sequence-parallel ring over
-    # the mesh's sp axis, "ring_rdma" = the ring with the CUDA step kernel
+    # the mesh's sp axis, "ring_rdma" = the ring with the CUDA ring kernel
     # (parallel/ring.py; forward() must receive the mesh).
     attn_impl: str = "auto"
     remat: bool = True

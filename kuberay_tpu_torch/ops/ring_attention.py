@@ -1,27 +1,37 @@
-"""One step of sequence-parallel ring attention: a CUDA kernel and its plain
-version.
+"""Sequence-parallel ring attention's forward: one persistent CUDA kernel a
+ring, and its plain version.
 
-Replaces the compute of ``kuberay_tpu/parallel/ring_pallas.py``'s
-``_ring_kernel`` (one ring step's block attention and online merge, and the
-final normalisation) with the hand-written kernel in
+Replaces ``kuberay_tpu/parallel/ring_pallas.py``'s ``_ring_kernel``, whole
+(every ring step's block attention and online merge, and the final
+normalisation, in one call), with the hand-written kernel in
 ``csrc/ring_attention.cu``, built by ``ops/_build.py`` and called through
-ctypes.  Bound on an H100: operations, nearly balanced with the f32 state's
-bytes (the source's header note gives the numbers and the design).  The
-ring around it, with the exchange, is ``parallel/ring_kernel.py``.
+ctypes.  Bound on an H100: operations (the source's header note gives the
+numbers and the design).  The ring around it, with the exchange and the
+backward, is ``parallel/ring_kernel.py``.
 
-Layout: q [B, Sq, Hq, D], one K/V block [B, Skv, Hkv, D] (GQA when Hq >
-Hkv), global positions ``q_off + i`` and ``k_off + j``; the f32 state is
-acc [B, Sq, Hq, D] and the running max and sum m, l [B, Hq, Sq], updated
-in place.  With ``last`` the merged state is normalised into ``out`` (q's
-dtype) and ``lse`` ([B, Hq, Sq] f32) instead, and the state is left as it
-was.  ``ring_attention_step`` takes ``ring_attention_step_ref`` for CPU
-tensors only; on CUDA tensors it launches the kernel or raises.
+Layout: q [R, B, Sl, Hq, D], the R ranks held here (global ranks rank0 ..
+rank0 + R - 1, rows at global positions r * Sl + i); k, v [n, B, Sl, Hkv,
+D], every rank's K/V block (GQA when Hq > Hkv), each block contiguous and
+the blocks any 16-byte multiple apart, so the K and V views of an n-slot
+buffer [n, 2, B, Sl, Hkv, D] are taken as they are; out like q, lse [R, B,
+Hq, Sl] float32.  Rank r merges the blocks ``ring_blocks(r, n, causal)``
+in that order: src = r, r - 1, ... (mod n), with ``causal`` only src <= r,
+key j of block src visible to row i when src * Sl + j <= r * Sl + i.
+
+``ring_attention_fwd`` takes ``ring_attention_fwd_ref`` (the plain step
+chained over the same blocks in the same order) for CPU tensors only; on
+CUDA tensors it launches the kernel or raises.  With ``words`` (int32 [n]
+on the card, zeroed) the kernel reads block src only once ``words[src]``
+is set; ``arrive`` sets a word on the current stream after the work
+queued there (the block's copy).  ``ring_schedule`` and ``ring_grid``
+mirror the kernel's persistent grid for the CPU model of its schedule in
+``tests/test_torch_ring_persistent.py``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -32,15 +42,22 @@ launches = 0
 
 _NEG_INF = -1e30
 
+# csrc/ring_attention.cu's RESERVED_SMS and fwd90::BQ: SMs a waiting grid
+# leaves free, q rows a tile.
+RESERVED_SMS = 4
+BQ = 128
+
 # The C entry points of csrc/<LIBRARY>.cu and their ctypes argtypes: the
-# step (q, k, v, acc, m, l, out, lse; B, Sq, Skv, Hq, Hkv, D, q_off, k_off,
-# causal, last; the scale and the stream), and the kernel's shared memory
-# a block at head dim D as the runtime holds it after a launch
-# (tests/test_torch_abi.py holds them to the C signatures).
+# forward (q, k, v, out, lse, words; R, rank0, n, B, Sl, Hq, Hkv, D,
+# kv_stride, causal; the scale and the stream), the kernel's shared
+# memory a block at head dim D as the runtime holds it after a launch, and
+# the arrival write (word, stream) (tests/test_torch_abi.py holds
+# them to the C signatures).
 LIBRARY = "ring_attention"
-ARGTYPES = {"ring_attention_step_bf16": [PTR] * 8 + [INT] * 10
+ARGTYPES = {"ring_attention_fwd_bf16": [PTR] * 6 + [INT] * 10
             + [FLOAT, PTR],
-            "ring_attention_step_smem_bytes": [INT]}
+            "ring_attention_fwd_smem_bytes": [INT],
+            "ring_arrival_write": [PTR, PTR]}
 _fn = bind(LIBRARY, ARGTYPES)
 
 
@@ -51,11 +68,13 @@ def ring_attention_step_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             last: bool = False,
                             out: Optional[torch.Tensor] = None,
                             lse: Optional[torch.Tensor] = None) -> None:
-    """Plain version: ``_block_attention`` (f32 scores, causal mask on
-    global positions, block max, p zeroed where the max is at or below
+    """One ring step, plain: ``_block_attention`` (f32 scores, causal mask
+    on global positions, block max, p zeroed where the max is at or below
     -1e30/2, p rounded to v's dtype before P @ V) and the online merge of
-    ``parallel/ring.py`` in the JAX package, on the same arguments as the
-    kernel."""
+    ``parallel/ring.py`` in the JAX package, on q [B, Sq, Hq, D], one K/V
+    block [B, Skv, Hkv, D] and the f32 state acc [B, Sq, Hq, D], m, l
+    [B, Hq, Sq], updated in place; with ``last`` normalised into out and
+    lse instead.  ``ring_attention_fwd_ref`` chains it."""
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
@@ -87,134 +106,143 @@ def ring_attention_step_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse.copy_(m_new + torch.log(l_new))
 
 
-def _check(q, k, v, acc, m, l, last, out, lse):
-    """Device, shape, dtype, layout and alignment checks for a launch."""
-    name = "ring_attention_step"
-    if last and (out is None or lse is None):
-        raise ValueError(f"{name}: last=True needs out and lse")
-    tensors = [q, k, v, acc, m, l] + ([out, lse] if last else [])
-    if q.device.type != "cuda" or any(t.device != q.device for t in tensors):
-        raise ValueError(f"{name}: all inputs must be on one CUDA device")
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+def ring_blocks(r: int, n: int, causal: bool) -> List[int]:
+    """The sources whose blocks rank r merges, in the ring's order: its
+    own, then each left neighbour's; with ``causal`` none from its
+    future."""
+    return [(r - i) % n for i in range(n) if not causal or r - i >= 0]
+
+
+def ring_attention_fwd_ref(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, rank0: int, n: int,
+                           causal: bool = True,
+                           scale: Optional[float] = None
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version: for each held rank, ``ring_attention_step_ref`` over
+    ``ring_blocks`` from the empty state, normalising at the last block."""
+    R, B, Sl, Hq, D = q.shape
+    f32 = dict(dtype=torch.float32, device=q.device)
+    out = torch.empty_like(q)
+    lse = torch.empty((R, B, Hq, Sl), **f32)
+    for j in range(R):
+        r = rank0 + j
+        acc = torch.zeros((B, Sl, Hq, D), **f32)
+        m = torch.full((B, Hq, Sl), _NEG_INF, **f32)
+        l = torch.zeros((B, Hq, Sl), **f32)
+        srcs = ring_blocks(r, n, causal)
+        for i, src in enumerate(srcs):
+            ring_attention_step_ref(q[j], k[src], v[src], acc, m, l, r * Sl,
+                                    src * Sl, causal, scale,
+                                    i == len(srcs) - 1, out[j], lse[j])
+    return out, lse
+
+
+def _check(q, k, v, rank0, n, words):
+    """Shape, dtype, rank and layout checks, then device and alignment, for
+    a launch; returns the kernel's dims."""
+    name = "ring_attention_fwd"
+    if q.dim() != 5 or k.dim() != 5 or v.shape != k.shape:
         raise ValueError(f"{name}: shapes q {tuple(q.shape)}, k "
-                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
-    B, Sq, Hq, D = q.shape
-    Skv, Hkv = k.shape[1], k.shape[2]
-    if k.shape[0] != B or k.shape[3] != D or Hq % Hkv != 0:
+                         f"{tuple(k.shape)}, v {tuple(v.shape)} (q [R, B, "
+                         f"Sl, Hq, D], k/v [n, B, Sl, Hkv, D])")
+    R, B, Sl, Hq, D = q.shape
+    Hkv = k.shape[3]
+    if k.shape[0] != n or k.shape[1:3] != (B, Sl) or k.shape[4] != D or \
+            Hq % Hkv:
         raise ValueError(f"{name}: shapes q {tuple(q.shape)}, k "
-                         f"{tuple(k.shape)}")
+                         f"{tuple(k.shape)} for a ring of {n}")
+    if not 0 <= rank0 or rank0 + R > n:
+        raise ValueError(f"{name}: held ranks {rank0}..{rank0 + R - 1} lie "
+                         f"outside a ring of {n}")
     if D not in (64, 128) or Hq // Hkv not in (1, 2, 4, 8):
         raise ValueError(f"{name}: no kernel for head_dim {D}, group "
                          f"{Hq // Hkv} (64/128; 1, 2, 4, 8)")
     if any(t.dtype != torch.bfloat16 for t in (q, k, v)):
         raise TypeError(f"{name}: q/k/v must be bfloat16")
-    rows = (B, Hq, Sq)
-    if acc.shape != q.shape or m.shape != rows or l.shape != rows or any(
-            t.dtype != torch.float32 for t in (acc, m, l)):
-        raise ValueError(f"{name}: acc must be [B, Sq, Hq, D] and m, l "
-                         f"[B, Hq, Sq], all float32")
-    if last and (out.shape != q.shape or out.dtype != q.dtype
-                 or lse.shape != rows or lse.dtype != torch.float32):
-        raise ValueError(f"{name}: out must match q and lse be [B, Hq, Sq] "
-                         f"float32")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError(f"{name}: inputs must be contiguous")
-    if any(t.data_ptr() % 16 for t in tensors):
-        raise ValueError(f"{name}: inputs must be 16-byte aligned")
-    return B, Sq, Skv, Hq, Hkv, D
+    if words is not None and (words.shape != (n,) or words.dtype !=
+                              torch.int32):
+        raise ValueError(f"{name}: words must be int32 [{n}]")
+    tensors = [q, k, v] + ([words] if words is not None else [])
+    if q.device.type != "cuda" or any(t.device != q.device for t in tensors):
+        raise ValueError(f"{name}: all inputs must be on one CUDA device")
+    stride = k.stride(0)
+    if not (q.is_contiguous() and k[0].is_contiguous()
+            and v[0].is_contiguous() and v.stride(0) == stride
+            and (words is None or words.is_contiguous())):
+        raise ValueError(f"{name}: q and each K/V block must be contiguous, "
+                         f"k and v blocks equally far apart")
+    if stride < k[0].numel() or stride % 8 or stride >= 2 ** 31 or any(
+            t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError(f"{name}: K/V blocks must not overlap and lie "
+                         f"16-byte aligned (stride {stride})")
+    return R, B, Sl, Hq, Hkv, D, stride
 
 
-def _launch(ptrs, dims, q_off, k_off, causal, last, scale, stream) -> None:
-    """One launch of the step kernel: ``ptrs`` q, k, v, acc, m, l, out, lse
-    (out and lse None unless ``last``), ``dims`` B, Sq, Skv, Hq, Hkv, D."""
+def ring_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       rank0: int, n: int, causal: bool = True,
+                       scale: Optional[float] = None,
+                       words: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out, lse) of the held ranks' queries over the ring's blocks.  CPU
+    tensors take ``ring_attention_fwd_ref`` (``words`` unused: the blocks
+    are there); CUDA tensors launch the kernel or raise."""
     global launches
-    err = _fn("ring_attention_step_bf16")(
-        *ptrs, *dims, int(q_off), int(k_off), int(causal), int(last), scale,
-        stream)
+    if q.device.type == "cpu":
+        return ring_attention_fwd_ref(q, k, v, rank0, n, causal, scale)
+    R, B, Sl, Hq, Hkv, D, stride = _check(q, k, v, rank0, n, words)
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    out = torch.empty_like(q)
+    lse = torch.empty((R, B, Hq, Sl), dtype=torch.float32, device=q.device)
+    err = _fn("ring_attention_fwd_bf16")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), None if words is None else words.data_ptr(), R,
+        rank0, n, B, Sl, Hq, Hkv, D, stride, int(causal), scale,
+        torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"ring_attention_step kernel launch failed: "
+        raise RuntimeError(f"ring_attention_fwd kernel launch failed: "
                            f"cudaError {err}")
     launches += 1
+    return out, lse
 
 
-def ring_attention_step(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
-                        q_off: int, k_off: int, causal: bool = True,
-                        scale: Optional[float] = None, last: bool = False,
-                        out: Optional[torch.Tensor] = None,
-                        lse: Optional[torch.Tensor] = None) -> None:
-    """Merge one K/V block into (acc, m, l), or with ``last`` into out and
-    lse.  CPU tensors take ``ring_attention_step_ref``; CUDA tensors launch
-    the kernel or raise."""
-    if q.device.type == "cpu":
-        return ring_attention_step_ref(q, k, v, acc, m, l, q_off, k_off,
-                                       causal, scale, last, out, lse)
-    dims = _check(q, k, v, acc, m, l, last, out, lse)
-    scale = scale if scale is not None else 1.0 / math.sqrt(dims[-1])
-    ptrs = [t.data_ptr() for t in (q, k, v, acc, m, l)] + (
-        [out.data_ptr(), lse.data_ptr()] if last else [None, None])
-    _launch(ptrs, dims, q_off, k_off, causal, last, scale,
-            torch.cuda.current_stream(q.device).cuda_stream)
+def arrive(words: torch.Tensor, src: int) -> None:
+    """Sets words[src] (to 1) once the work queued on the current stream is
+    done (on the card a stream memory write; on the CPU a store)."""
+    if words.device.type == "cpu":
+        words[src] = 1
+        return
+    err = _fn("ring_arrival_write")(
+        words[src].data_ptr(),
+        torch.cuda.current_stream(words.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ring_arrival_write failed: error {err}")
 
 
-class RingSteps:
-    """``ring_attention_step`` over one ring's stacked buffers, checked
-    once: q, out [R, B, Sl, Hq, D]; kv [2, R, 2, B, Sl, Hkv, D], the
-    exchange's double buffer (slot, rank, K or V); acc like q in float32;
-    m, l, lse [R, B, Hq, Sl] float32.  ``step(slot, j, q_off, k_off,
-    last)`` merges ``kv[slot, j]`` into rank j's state.
+def ring_grid(total: int, sms: int, waits: bool) -> int:
+    """The kernel's grid: a block per SM, RESERVED_SMS left free while it
+    may wait for arrivals, no more blocks than tiles."""
+    return max(1, min(total, sms - (RESERVED_SMS if waits else 0)))
 
-    A ring forward makes up to n^2 launches, each a few tens of
-    microseconds on the card, so the per-call checks, views and stream
-    lookup would set its pace: they are done here once, and a step
-    launches from the pointers worked out here, on the stream that was
-    current at construction.  On CPU tensors a step is
-    ``ring_attention_step`` on rank j's views (its plain version)."""
 
-    def __init__(self, q, kv, acc, m, l, out, lse, causal: bool,
-                 scale: Optional[float]):
-        self.bufs = (q, kv, acc, m, l, out, lse)
-        self.causal = causal
-        self.scale = scale if scale is not None else 1.0 / math.sqrt(
-            q.shape[-1])
-        self.cpu = q.device.type == "cpu"
-        R = q.shape[0]
-        if kv.dim() != 7 or kv.shape[:3] != (2, R, 2) or any(
-                t.shape[0] != R for t in (acc, m, l, out, lse)):
-            raise ValueError(f"ring_attention_step: stacked buffers q "
-                             f"{tuple(q.shape)}, kv {tuple(kv.shape)}")
-        if not all(t.is_contiguous() for t in self.bufs):
-            raise ValueError("ring_attention_step: buffers must be "
-                             "contiguous")
-        # Rank j's view of a stacked buffer starts j strides past its base
-        # (q, acc, m, l, out, lse), K and V of kv[slot, j] likewise.
-        rank = [(t.data_ptr(), t.stride(0) * t.element_size())
-                for t in (q, acc, m, l, out, lse)]
-        self.rank_ptrs = [[p + j * s for p, s in rank] for j in range(R)]
-        p, (s0, s1, s2) = kv.data_ptr(), [
-            s * kv.element_size() for s in kv.stride()[:3]]
-        self.kv_ptrs = [[(p + s * s0 + j * s1, p + s * s0 + j * s1 + s2)
-                         for j in range(R)] for s in range(2)]
-        if self.cpu:
-            return
-        # Every rank's views share rank 0's shapes.
-        self.dims = _check(q[0], kv[0, 0, 0], kv[0, 0, 1], acc[0], m[0],
-                           l[0], True, out[0], lse[0])
-        if any(a % 16 for row in self.rank_ptrs + sum(self.kv_ptrs, [])
-               for a in row):
-            raise ValueError("ring_attention_step: inputs must be 16-byte "
-                             "aligned")
-        self.stream = torch.cuda.current_stream(q.device).cuda_stream
-
-    def step(self, slot: int, j: int, q_off: int, k_off: int,
-             last: bool) -> None:
-        if self.cpu:
-            q, kv, acc, m, l, out, lse = self.bufs
-            return ring_attention_step(
-                q[j], kv[slot, j, 0], kv[slot, j, 1], acc[j], m[j], l[j],
-                q_off, k_off, self.causal, self.scale, last, out[j], lse[j])
-        qp, accp, mp, lp, outp, lsep = self.rank_ptrs[j]
-        ptrs = (qp, *self.kv_ptrs[slot][j], accp, mp, lp,
-                *((outp, lsep) if last else (None, None)))
-        _launch(ptrs, self.dims, q_off, k_off, self.causal, last,
-                self.scale, self.stream)
+def ring_schedule(R: int, rank0: int, n: int, B: int, Sl: int, Hq: int,
+                  causal: bool, grid: int) -> List[List[dict]]:
+    """Each block's q tiles in the order it takes them, as the kernel's
+    ``RingPlan`` walks them: tile (j, b, h, q0) with its global rank r and
+    its blocks (src, off) in the order the kernel reads them."""
+    nqt = -(-Sl // BQ)
+    BH, total = B * Hq, R * nqt * B * Hq
+    out = []
+    for c in range(grid):
+        full = total // grid
+        pos = grid - 1 - c if full & 1 else c
+        jobs = []
+        for k in range(full + (pos < total - full * grid)):
+            idx = k * grid + (grid - 1 - c if k & 1 else c)
+            gq, bh = R * nqt - 1 - idx // BH, idx % BH
+            j, r = gq // nqt, rank0 + gq // nqt
+            jobs.append({"j": j, "r": r, "b": bh // Hq, "h": bh % Hq,
+                         "q0": (gq % nqt) * BQ,
+                         "blocks": [(s, (r - s) * Sl)
+                                    for s in ring_blocks(r, n, causal)]})
+        out.append(jobs)
+    return out

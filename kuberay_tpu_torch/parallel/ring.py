@@ -13,9 +13,10 @@ Hkv-sized blocks).  No rank ever forms the whole sequence's scores.
   forward sends right and receives left, backward the reverse, as JAX
   transposes ``ppermute``), so autograd differentiates it as JAX does.  Runs
   on any device.
-- ``"rdma"``: ``parallel/ring_kernel.py``, the CUDA step kernel with the
-  exchange overlapped on a side stream and a ring backward through the
-  flash backward kernels.  On CUDA tensors it launches the kernels or
+- ``"rdma"``: ``parallel/ring_kernel.py``, the persistent CUDA ring
+  kernel (one launch a ring forward; across processes the blocks rotate
+  into an n-slot buffer on a side stream while it runs) and a ring
+  backward through the flash backward kernels.  On CUDA tensors it launches the kernels or
   raises; it never falls back to the plain ring (the JAX package's VMEM,
   unroll and interpreter fallbacks have no counterpart: the kernel streams
   K/V tiles from device memory).  On CPU tensors every launch takes its

@@ -1,36 +1,38 @@
-"""Ring attention with the CUDA step kernel, the exchange overlapped.
+"""Ring attention with the persistent CUDA ring kernel.
 
 Port of ``kuberay_tpu/parallel/ring_pallas.py`` (``ring_attention_rdma``
 and ``_ring_kernel``).  A ``torch.autograd.Function`` over the ranks held
 here (q/k/v [R, B, S_local, H, D], from ``parallel/ring.py``):
 
-Forward.  K/V live in a double buffer [2, R, 2, B, S_local, Hkv, D] (slot,
-rank, K or V).  At step i a side stream sends slot ``i % 2`` one rank right
-and receives into slot ``(i + 1) % 2`` (``ring.rotate``:
-``dist.batch_isend_irecv`` on a
-``DeviceMesh``, a copy of the rolled shards on a ``LocalRing``), while the
-step kernel (``ops/ring_attention.py``'s ``RingSteps``: the buffers checked
-once a ring, not once a launch) merges slot ``i % 2`` into the f32 state
-on the current stream.  CUDA events take the place of the TPU
-kernel's DMA semaphores and capacity token: before the side stream
-overwrites a slot it waits on the compute event of the step that last read
-it, and the current stream waits on the arrival event before step i + 1.
-Blocks that lie wholly in a rank's causal future are skipped, and the
-state is normalised into (out, lse) at the last step whose block the rank
-sees.  The forward saves (q, k, v, out, lse).
+Forward.  One launch of ``ops/ring_attention.py``'s ``ring_attention_fwd``
+a ring, as the TPU kernel is one call a ring.  On a ``LocalRing`` every
+rank is held here (R = n) and every block is already on the card in k and
+v, so the kernel reads them in place: no exchange, no buffer, no event.
+On a ``DeviceRing`` (one rank a process, R = 1) the blocks go around into
+an n-slot buffer [n, 2, B, S_local, Hkv, D], block src into slot src
+(this rank's own first): a side stream runs the n - 1 rotations (slot
+(r - i + 1) % n sent right, slot (r - i) % n received from the left at
+rotation i; distinct slots, so no capacity token), and after each
+arrival sets that slot's int32 word (``ring_attention.arrive``, a stream
+memory write).  The kernel is launched on the current stream right after
+the first rotation is queued and reads each block once its word is set.
+The buffer holds the whole sequence's K/V of a layer while the forward
+runs.  The forward saves (q, k, v, out, lse).
 
 Backward.  The JAX package differentiates the ppermute ring here.  This
 runs the ring again with the flash backward kernels per block, from the
 global lse and delta = rowsum(dO * O): the block with ``src == my`` goes to
 ``flash_bwd_dkv`` / ``flash_bwd_dq`` with ``causal=True``, blocks with
 ``src < my`` with ``causal=False``, blocks with ``src > my`` are skipped.
-dQ accumulates in f32 here; dK/dV accumulate in f32 buffers that travel
-with K/V and are home after the n-th rotation (the partials of a block
-belong to its owner).  The shards must be equal (S divisible by sp), as
-``shard_map`` requires.
+K/V live in a double buffer [2, R, 2, B, S_local, Hkv, D] (slot, rank, K
+or V) whose next slot a side stream fills (``ring.rotate``) while the
+current one is read, ordered by CUDA events.  dQ accumulates in f32 here;
+dK/dV accumulate in f32 buffers that travel with K/V and are home after
+the n-th rotation (the partials of a block belong to its owner).  The
+shards must be equal (S divisible by sp), as ``shard_map`` requires.
 
-On CPU tensors every launch takes its plain version and the streams and
-events are skipped: the same control flow, in order.
+On CPU tensors every launch takes its plain version and the streams,
+events and words are skipped: the same control flow, in order.
 """
 
 from __future__ import annotations
@@ -44,9 +46,7 @@ from kuberay_tpu_torch.ops.attention import (
     flash_bwd_dkv,
     flash_bwd_dq,
 )
-from kuberay_tpu_torch.ops.ring_attention import RingSteps
-
-_NEG_INF = -1e30
+from kuberay_tpu_torch.ops import ring_attention as ra
 
 
 class _Overlap:
@@ -100,34 +100,34 @@ def _double_buffer(k, v):
 
 
 def _forward(q, k, v, ring, causal, scale):
-    R, B, Sl, Hq, D = q.shape
-    n = ring.n
-    f32 = dict(dtype=torch.float32, device=q.device)
-    kv = _double_buffer(k, v)
-    acc = torch.zeros(q.shape, **f32)
-    m = torch.full((R, B, Hq, Sl), _NEG_INF, **f32)
-    l = torch.zeros((R, B, Hq, Sl), **f32)
-    out = torch.empty_like(q)
-    lse = torch.empty((R, B, Hq, Sl), **f32)
-    steps = RingSteps(q, kv, acc, m, l, out, lse, causal, scale)
-    ov = _Overlap(q.device)
-    for i in range(n):
-        slot, nxt = i % 2, (i + 1) % 2
-        if i < n - 1:
-            with ov.exchange(kv):
-                ring.rotate(kv[slot], out=kv[nxt])
-        for j, r in enumerate(ring.ranks):
-            src = (r - i) % n
-            if not _sees(causal, src, r):
-                continue
-            # The last step whose block this rank sees: every later one
-            # lies in its causal future.
-            last = i == (r if causal else n - 1)
-            steps.step(slot, j, r * Sl, src * Sl, last)
-        ov.record_compute()
-        if i < n - 1:
-            ov.wait_arrival()
-    return out, lse
+    R, n = q.shape[0], ring.n
+    if R == n:                       # every block is here: read in place
+        return ra.ring_attention_fwd(q, k, v, ring.ranks[0], n, causal, scale)
+    r = ring.ranks[0]
+    buf = torch.empty((n, 2) + k.shape[1:], dtype=k.dtype, device=k.device)
+    buf[r, 0].copy_(k[0])
+    buf[r, 1].copy_(v[0])
+    kb, vb = buf[:, 0], buf[:, 1]
+    if q.device.type != "cuda":
+        for i in range(1, n):
+            ring.rotate(buf[(r - i + 1) % n], out=buf[(r - i) % n])
+        return ra.ring_attention_fwd(q, kb, vb, r, n, causal, scale)
+    words = torch.zeros(n, dtype=torch.int32, device=q.device)
+    words[r] = 1
+    main = torch.cuda.current_stream(q.device)
+    side = torch.cuda.Stream(q.device)
+    side.wait_stream(main)                     # buffer and words ready
+    buf.record_stream(side)
+    words.record_stream(side)
+    for i in range(1, n):                      # n >= 2 here
+        with torch.cuda.stream(side):
+            ring.rotate(buf[(r - i + 1) % n], out=buf[(r - i) % n])
+            ra.arrive(words, (r - i) % n)
+        if i == 1:
+            res = ra.ring_attention_fwd(q, kb, vb, r, n, causal, scale,
+                                        words)
+    main.wait_stream(side)
+    return res
 
 
 def _backward(q, k, v, out, lse, do, ring, causal, scale):
