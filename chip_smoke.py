@@ -103,6 +103,32 @@
    rounding error, per element).  Where the repeat leaves the batch's
    tokens, the recompute's logits of the two tokens at the first
    difference are recorded (a near-tie or a fault).
+   The serving options at llama3_8b's full width and depth, on the same
+   weights, each behind the HTTP frontend with 8 concurrent greedy
+   requests and one of them twice more: (a) chunked prefill in chunks of
+   256 tokens, through the dense engine on the prompts above and through
+   the paged engine on the shared-prefix prompts (same prefix hits);
+   (b) speculation with 4-token prompt-lookup drafts, dense and paged:
+   two random prompts and six that repeat a seeded phrase of 2-4 tokens,
+   each chosen of three by a plain engine's probe (bf16 and int8 weights)
+   for the model falling into a loop of its own, which prompt lookup
+   then drafts (fails without a verify step); (c) int8 weights through the dense engine, and through the
+   paged engine with the int8 pool, chunked prefill and speculation
+   together.  Every served token of the batch and of the repeat is held to
+   the no-cache recompute of the function served (with int8 weights, the
+   dequantised forward).  Launch identities: 65 RMSNorms per forward
+   (prefill chunks, decode and verify steps) and 32 decode attentions per
+   decode step (chunks and verify steps run the plain multi-query
+   attention and launch none).  With int8 weights, the peak memory inside
+   every decode step, over what was allocated before the engine, must
+   stay within the int8 weights and scales, the cache, one layer's bf16
+   weights and 2 GB (no whole bf16 tree).  (d) One streamed request on a
+   dense engine with a metrics registry: its NDJSON token lines, joined,
+   equal the blocking response's tokens for the same prompt, and GET
+   /metrics parses and carries the request-phase histogram for queue,
+   prefill and decode.  Each phase's line (TTFT, decode step ms, tokens
+   per second and per forward, speculation counters, weight bytes, peak
+   memory) is printed beside the card's name and power limit.
 4. Train: runs the launcher (``kuberay_tpu_torch.train.launcher.main``)
    on llama_1b at full width and depth, batch 4 x 2048, 8 steps, bf16
    masters, on the synthetic shard; then 8 steps of make_train_step on
@@ -135,6 +161,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import io
 import json
 import math
@@ -162,7 +189,11 @@ from kuberay_tpu_torch.parallel.mesh import LocalRing
 from kuberay_tpu_torch.parallel.ring import ring_attention
 from kuberay_tpu_torch.train import launcher
 from kuberay_tpu_torch.train import train_step as ts
-from kuberay_tpu_torch.serve.engine import ServeEngine
+from kuberay_tpu_torch.serve.engine import (
+    Request,
+    ServeEngine,
+    prompt_lookup_draft,
+)
 from kuberay_tpu_torch.serve.kv_cache import (
     forward_with_cache,
     init_kv_cache,
@@ -171,6 +202,8 @@ from kuberay_tpu_torch.serve.kv_cache import (
 from kuberay_tpu_torch.serve.paged_engine import PagedServeEngine
 from kuberay_tpu_torch.serve.paged_kv import quant_view
 from kuberay_tpu_torch.serve.server import ServeFrontend
+from kuberay_tpu_torch.serve.weight_quant import make_weight_dequant_forward
+from kuberay_tpu_torch.utils.metrics import MetricsRegistry
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_S = 3.35e12          # H100 SXM device memory rate
@@ -209,6 +242,16 @@ SHARED_SUFFIXES = (7, 33, 200, 511)
 OTHER_LENS = (64, 900, 1024, 1500)
 REPEAT = 1                     # the request repeated after the batch
 RECOMPUTE_MARGIN = {"bf16": 0.05, "int8": 0.1}
+# The serving options' phases: chunked prefill in chunks of 256 tokens,
+# speculation with 4-token drafts on prompts that repeat a phrase of a few
+# tokens, chosen by a probe for the model falling into a loop of its own
+# (so that prompt lookup finds drafts it agrees with: loop_prompts), int8
+# weights whose
+# decode steps may hold at most one layer's bf16 weights and MEM_SLACK bytes
+# beyond the int8 weights, their scales and the cache.
+PREFILL_CHUNK, GAMMA = 256, 4
+LOOP_PERIODS, LOOP_PROBE = (2, 3, 4), 24
+MEM_SLACK = 2e9
 # Sequence parallelism on one card: LocalRing(4) over a 4096 sequence,
 # llama_1b's heads, shards of 1024.
 RING_B, RING_S, RING_SP = 2, 4096, 4
@@ -1211,6 +1254,32 @@ def serve_counts() -> dict:
             "paged_decode_attention": pa.launches}
 
 
+def decode_peaks(engine) -> dict:
+    """Wrap ``engine._decode_call`` to record the peak device memory
+    inside each decode step (the peak statistics are reset before each);
+    ``phase`` keeps the peak of everything around them.  Read the phase's
+    peak through ``phase_peak``; delete the instance's ``_decode_call``
+    afterwards."""
+    peaks = {"phase": 0, "decode": 0}
+    real = engine._decode_call
+
+    def decode_call(*args):
+        peaks["phase"] = max(peaks["phase"], torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        out = real(*args)
+        peaks["decode"] = max(peaks["decode"],
+                              torch.cuda.max_memory_allocated())
+        return out
+
+    engine._decode_call = decode_call
+    return peaks
+
+
+def phase_peak(peaks: dict) -> int:
+    return max(peaks["phase"], peaks["decode"],
+               torch.cuda.max_memory_allocated())
+
+
 def drive(engine, prompts, repeat: int, same_as_batch: bool) -> dict:
     """The engine behind ServeFrontend on 127.0.0.1: every prompt POSTed
     at once (greedy, MAX_TOKENS new tokens each), then prompts[repeat]
@@ -1218,11 +1287,14 @@ def drive(engine, prompts, repeat: int, same_as_batch: bool) -> dict:
     the same tokens; with ``same_as_batch`` they must also equal the
     batch's (a dense engine prefills a prompt the same way each time; a
     paged engine prefills past however much of it was cached, and bf16
-    matmuls of other shapes round differently).  Launch counts are set to
-    0 just before and read just after."""
+    matmuls of other shapes round differently; speculation verifies other
+    drafts beside other requests).  Launch counts are set to 0 just
+    before and read just after; RMSNorm must have run 2 L + 1 times a
+    forward (prefill chunks, decode and verify steps)."""
     fe = ServeFrontend(engine)
     srv, url = fe.serve_background("127.0.0.1", 0)
     results, errors = {}, []
+    peaks = decode_peaks(engine)
 
     def client(i):
         try:
@@ -1253,6 +1325,7 @@ def drive(engine, prompts, repeat: int, same_as_batch: bool) -> dict:
         srv.shutdown()
         srv.server_close()
         fe.close()
+        del engine._decode_call         # the wrapper (a reference cycle)
     if errors or any(t.is_alive() for t in threads):
         raise AssertionError(f"serve requests failed: {errors}")
     vocab = engine.cfg.vocab_size
@@ -1272,21 +1345,33 @@ def drive(engine, prompts, repeat: int, same_as_batch: bool) -> dict:
     if any(r[0] != 200 for r in again) or tokens[0] != tokens[1] or (
             same_as_batch and tokens[0] != first):
         raise AssertionError(f"repeats differ: {tokens} (batch: {first})")
-    forwards = stats["prefills"] + stats["decode_steps"]
-    if stats["decode_steps"] == 0 or \
-            launches["rmsnorm"] != (2 * engine.cfg.n_layers + 1) * forwards:
-        raise AssertionError(f"rmsnorm launches {launches} (stats {stats})")
+    check_rmsnorm_launches(engine, launches, stats)
+    generated = stats["decode_tokens"] + stats["verify_tokens"]
+    forwards = stats["decode_steps"] + stats["verify_steps"]
     return {"batch_wall_s": batch_s,
             "ttft_ms": [results[i][2]["ttft_ms"] for i in sorted(results)],
             "decode_tokens_per_s": stats["decode_tokens"] / stats["decode_s"],
             "decode_step_ms": 1e3 * stats["decode_s"] / stats["decode_steps"],
-            "max_memory_allocated_gb":
-                torch.cuda.max_memory_allocated() / 1e9,
+            "tokens_per_s": generated / (stats["decode_s"]
+                                         + stats["verify_s"]),
+            "tokens_per_forward": generated / forwards,
+            "max_memory_allocated_gb": phase_peak(peaks) / 1e9,
+            "decode_peak_memory_gb": peaks["decode"] / 1e9,
             "launches": launches, "engine": stats,
             "engine_after_batch": batch_stats,
             "tokens": [results[i][2]["tokens"] for i in sorted(results)],
             "repeat_tokens": tokens[0],
             "repeat_equals_batch": tokens[0] == first}
+
+
+def check_rmsnorm_launches(engine, launches: dict, stats: dict) -> None:
+    """2 L + 1 RMSNorms a forward: every prefill (each chunk counted),
+    decode step and verify step; at least one decode step."""
+    forwards = stats["prefills"] + stats["decode_steps"] + \
+        stats["verify_steps"]
+    if stats["decode_steps"] == 0 or \
+            launches["rmsnorm"] != (2 * engine.cfg.n_layers + 1) * forwards:
+        raise AssertionError(f"rmsnorm launches {launches} (stats {stats})")
 
 
 def expect_decode_kernel(run: dict, kernel: str, n_layers: int) -> None:
@@ -1356,21 +1441,7 @@ def serve_cached(cfg, params, kv_quant: str, paged: bool,
     expect_decode_kernel(run, kernel, cfg.n_layers)
     out = {"paged": paged, "kv_quant": kv_quant, "setup_s": setup_s, **run}
     if paged:
-        # Admissions run one at a time, each publishing its full prompt
-        # blocks, so the three later sharers hit the whole prefix; the
-        # repeats hit every full block of the prompt.
-        batch_hits = run["engine_after_batch"]["prefix_hit_tokens"]
-        repeat_hits = (run["engine"]["prefix_hit_tokens"] - batch_hits) // 2
-        full = len(prompts[REPEAT]) // BLOCK_SIZE * BLOCK_SIZE
-        out.update(prefix_hit_tokens_batch=batch_hits,
-                   prefix_hit_tokens_repeat=repeat_hits)
-        print(f"prefix hits: batch {batch_hits}, repeat {repeat_hits}",
-              flush=True)
-        if batch_hits != (len(SHARED_SUFFIXES) - 1) * SHARED or \
-                repeat_hits != full:
-            raise AssertionError(f"prefix hits: batch {batch_hits} != "
-                                 f"{(len(SHARED_SUFFIXES) - 1) * SHARED} or "
-                                 f"repeat {repeat_hits} != {full}")
+        out.update(check_prefix_hits(run, prompts))
     # The repeat was served past a cached prefix (paged) and through the
     # kernel of the phase; so was the batch's request, unless it was the
     # first of the sharers admitted.  Every served token is checked.
@@ -1390,7 +1461,7 @@ def serve_cached(cfg, params, kv_quant: str, paged: bool,
 
 def check_against_recompute(cfg, params, prompt, served,
                             margin_frac: float = RECOMPUTE_MARGIN["bf16"],
-                            other=None) -> dict:
+                            other=None, forward=forward_with_cache) -> dict:
     """Greedy tokens served through the cache (prefill + decode kernel)
     vs one no-cache bf16 forward of prompt + served tokens (multi-token
     plain attention): each served token must be the reference's argmax, or
@@ -1398,14 +1469,14 @@ def check_against_recompute(cfg, params, prompt, served,
     With ``other`` (tokens served for the same prompt another time), the
     first position where the two differ and the reference's logits of
     both tokens there (the prefixes before it are the same, so one forward
-    gives both)."""
+    gives both).  ``forward``: the model function served (int8 weights
+    compute another function than bf16 ones)."""
     seq = torch.tensor([prompt + served], device="cuda")
     T = seq.shape[1]
     cache = init_kv_cache(cfg, 1, T, "cuda")
     with torch.no_grad():
-        logits, _ = forward_with_cache(cfg, params, seq, cache,
-                                       torch.zeros(1, dtype=torch.long,
-                                                   device="cuda"))
+        logits, _ = forward(cfg, params, seq, cache,
+                            torch.zeros(1, dtype=torch.long, device="cuda"))
     rows = logits[0, len(prompt) - 1:T - 1]                 # predicts served
     if not torch.isfinite(rows).all():
         raise AssertionError("recompute logits are not finite")
@@ -1427,6 +1498,301 @@ def check_against_recompute(cfg, params, prompt, served,
             "other_logit": rows[i, other[i]].item(),
             "max_logit": rows[i].max().item(),
             "gap": (rows[i, served[i]] - rows[i, other[i]]).item()}
+    return out
+
+
+def lookup_agreement(prompt, generated, gamma: int = GAMMA) -> int:
+    """How many of ``generated`` (a plain greedy run after ``prompt``)
+    prompt lookup would have drafted and the model agreed with, step by
+    step as the speculative engine accepts: after each emitted token, the
+    draft from the history, its agreeing prefix taken, then the next
+    token."""
+    n = j = 0
+    while j < len(generated):
+        draft = prompt_lookup_draft(prompt + generated[:j + 1], gamma)
+        k = 0
+        while k < len(draft) and j + 1 + k < len(generated) and \
+                draft[k] == generated[j + 1 + k]:
+            k += 1
+        n += k
+        j += k + 1
+    return n
+
+
+def loop_prompts(cfg, params, seed: int):
+    """Prompts on which prompt lookup drafts and the model agrees, for
+    the speculation phases.  Random weights repeat a long random phrase
+    no more than any text: after it, the model's tokens are not in the
+    prompt, so nothing drafts (at llama3_8b: repeats of 16- and 48-token
+    phrases, prompts quoting their own continuation, the one-token map's
+    fixed points and cycles; PERF.md).  After a long repeat of a
+    phrase of a few tokens, though, the model often falls into a short
+    loop of its own, as language models do on repetitive text, and
+    prompt lookup then drafts what it says next.  For each length of
+    PROMPT_LENS[2:], LOOP_PERIODS seeded phrases are repeated to it and
+    probed by plain dense engines, in bf16 and with int8 weights, for
+    LOOP_PROBE greedy tokens; the phrase whose run lookup would have
+    drafted most of (``lookup_agreement``, the smaller of the two) serves,
+    after two random prompts."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    lens = PROMPT_LENS[2:]
+    cands = [[(phrase * (n // p + 1))[:n] for p in LOOP_PERIODS
+              for phrase in [rng.integers(0, cfg.vocab_size, p).tolist()]]
+             for n in lens]
+    flat = [c for per_len in cands for c in per_len]
+    scores = []
+    for weight_quant in ("none", "int8"):
+        engine = ServeEngine(cfg, params, max_slots=SLOTS, max_len=MAX_LEN,
+                             device="cuda", weight_quant=weight_quant)
+        for k, prompt in enumerate(flat):
+            engine.add_request(Request(str(k), prompt,
+                                       max_new_tokens=LOOP_PROBE))
+        got = {int(r.request_id): r.tokens for r in engine.run()}
+        del engine
+        torch.cuda.empty_cache()
+        scores.append([lookup_agreement(flat[k], got[k])
+                       for k in range(len(flat))])
+    both = [min(a, b) for a, b in zip(*scores)]
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in PROMPT_LENS[:2]]
+    chosen = []
+    for i, per_len in enumerate(cands):
+        ks = range(i * len(LOOP_PERIODS), (i + 1) * len(LOOP_PERIODS))
+        best = max(ks, key=lambda k: both[k])
+        prompts.append(flat[best])
+        chosen.append({"len": lens[i],
+                       "period": LOOP_PERIODS[best - ks.start],
+                       "agreed_bf16_int8": [scores[0][best],
+                                            scores[1][best]]})
+    return prompts, {"chosen": chosen, "seconds": time.perf_counter() - t0}
+
+
+def weight_bytes(params) -> dict:
+    """Bytes of the quantised leaves (int8 values and float32 scales) and
+    of the same leaves in bf16."""
+    int8 = bf16 = 0
+    for leaf in [params["lm_head"], *params["layers"].values()]:
+        if isinstance(leaf, dict):
+            int8 += sum(t.numel() * t.element_size() for t in leaf.values())
+            bf16 += leaf["q8"].numel() * 2
+    return {"int8_and_scales": int8, "bf16": bf16}
+
+
+def tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def serve_option(name: str, cfg, params, smi: str, paged: bool,
+                 prompts, repeat: int, same_as_batch: bool,
+                 seed_note: str, shared_prefix: bool = False,
+                 **options) -> dict:
+    """llama3_8b at full width and depth through the dense or paged engine
+    with the serving options (``prefill_chunk``, ``speculative``,
+    ``weight_quant``, ``kv_quant``) behind the HTTP frontend: ``drive``'s
+    checks, the decode kernel's launch identity (32 a decode step; prefill
+    chunks and verify steps run the plain multi-query attention and launch
+    none), at least one verify step with speculation, every served token
+    of the batch and of the repeat against the no-cache recompute of the
+    function served, with int8 weights the decode steps' memory bound,
+    and on ``shared_prefix`` traffic the prefix hits."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    if paged:
+        engine = PagedServeEngine(cfg, params, max_slots=SLOTS,
+                                  max_len=MAX_LEN, block_size=BLOCK_SIZE,
+                                  device="cuda", **options)
+    else:
+        engine = ServeEngine(cfg, params, max_slots=SLOTS, max_len=MAX_LEN,
+                             device="cuda", **options)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    kv8 = options.get("kv_quant") == "int8"
+    kernel = "decode_attention_quant" if kv8 else (
+        "paged_decode_attention" if paged else "decode_attention")
+    run = drive(engine, prompts, repeat=repeat, same_as_batch=same_as_batch)
+    expect_decode_kernel(run, kernel, cfg.n_layers)
+    out = {"phase": name, "paged": paged, "prompts": seed_note,
+           "options": options, "setup_s": setup_s, **run}
+    if shared_prefix:
+        out.update(check_prefix_hits(run, prompts))
+    if options.get("speculative"):
+        spec = {k: run["engine"][k]
+                for k in ("drafted", "accepted", "verify_steps")}
+        out["spec"] = spec
+        if spec["verify_steps"] == 0:
+            raise AssertionError(f"{name}: no verify step ({run['engine']})")
+    forward, served_params = forward_with_cache, params
+    if options.get("weight_quant") == "int8":
+        forward = make_weight_dequant_forward(forward_with_cache)
+        served_params = engine.params
+        wb = weight_bytes(engine.params)
+        cache_bytes = tree_bytes(engine.cache)
+        layer_bf16 = sum(v["q8"][0].numel() * 2
+                         for v in engine.params["layers"].values()
+                         if isinstance(v, dict))
+        limit = wb["int8_and_scales"] + cache_bytes + layer_bf16 + MEM_SLACK
+        used = torch.cuda.memory_allocated() - base
+        decode_peak = run["decode_peak_memory_gb"] * 1e9 - base
+        out["memory"] = {
+            "weights_int8_and_scales": wb["int8_and_scales"],
+            "weights_bf16": wb["bf16"], "cache": cache_bytes,
+            "one_layer_bf16": layer_bf16, "engine_resident": used,
+            "decode_peak_over_base": decode_peak, "decode_limit": limit}
+        if decode_peak > limit:
+            raise AssertionError(f"{name}: decode steps peaked at "
+                                 f"{decode_peak} bytes > {limit}")
+    margin = RECOMPUTE_MARGIN["int8" if kv8 else "bf16"]
+    checks = [check_against_recompute(cfg, served_params, p, t, margin,
+                                      forward=forward)
+              for p, t in zip(prompts, run["tokens"])]
+    checks.append(check_against_recompute(
+        cfg, served_params, prompts[repeat], run["repeat_tokens"], margin,
+        other=run["tokens"][repeat], forward=forward))
+    out["recompute_check"] = {
+        "tokens": sum(c["tokens"] for c in checks),
+        "argmax_agree": sum(c["argmax_agree"] for c in checks),
+        "max_gap": max(c["max_gap"] for c in checks),
+        "margin": min(c["margin"] for c in checks),
+        "repeat_divergence": checks[-1]["divergence"]}
+    report(name, out, smi)
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def report(name: str, run: dict, smi: str) -> None:
+    """One line of the phase's serving numbers beside the card."""
+    keep = ("ttft_ms", "decode_step_ms", "decode_tokens_per_s",
+            "tokens_per_s", "tokens_per_forward", "max_memory_allocated_gb",
+            "decode_peak_memory_gb", "spec", "memory", "recompute_check",
+            "prefix_hit_tokens_batch", "prefix_hit_tokens_repeat")
+    print(f"{name} [{smi}]: " + json.dumps(
+        {k: run[k] for k in keep if k in run}), flush=True)
+
+
+def check_prefix_hits(run: dict, prompts) -> dict:
+    """The paged phases' prefix hits on shared-prefix traffic: admissions
+    run one at a time, each publishing its full prompt blocks, so the
+    three later sharers hit the whole prefix; the repeats hit every full
+    block of the prompt."""
+    batch_hits = run["engine_after_batch"]["prefix_hit_tokens"]
+    repeat_hits = (run["engine"]["prefix_hit_tokens"] - batch_hits) // 2
+    full = len(prompts[REPEAT]) // BLOCK_SIZE * BLOCK_SIZE
+    print(f"prefix hits: batch {batch_hits}, repeat {repeat_hits}",
+          flush=True)
+    if batch_hits != (len(SHARED_SUFFIXES) - 1) * SHARED or \
+            repeat_hits != full:
+        raise AssertionError(f"prefix hits: batch {batch_hits} != "
+                             f"{(len(SHARED_SUFFIXES) - 1) * SHARED} or "
+                             f"repeat {repeat_hits} != {full}")
+    return {"prefix_hit_tokens_batch": batch_hits,
+            "prefix_hit_tokens_repeat": repeat_hits}
+
+
+def serve_options(cfg, params, smi: str) -> dict:
+    """The serving options at llama3_8b: (a) chunked prefill, dense and
+    paged; (b) speculation, dense and paged; (c) int8 weights, dense, and
+    paged with the int8 cache, chunked prefill and speculation."""
+    rng_prompts = [np.random.default_rng(0).integers(0, cfg.vocab_size, n)
+                   .tolist() for n in PROMPT_LENS]
+    shared = shared_prefix_prompts(cfg.vocab_size, 1)
+    loops, chosen = loop_prompts(cfg, params, 2)
+    print(f"speculation prompts: {json.dumps(chosen)}", flush=True)
+    out = {}
+    out["serve_chunked_dense"] = serve_option(
+        "serve_chunked_dense", cfg, params, smi, False, rng_prompts, 0, True,
+        "random, seed 0", prefill_chunk=PREFILL_CHUNK)
+    out["serve_chunked_paged"] = serve_option(
+        "serve_chunked_paged", cfg, params, smi, True, shared, REPEAT, False,
+        "shared prefix, seed 1", shared_prefix=True,
+        prefill_chunk=PREFILL_CHUNK)
+    for paged in (False, True):
+        name = f"serve_spec_{'paged' if paged else 'dense'}"
+        out[name] = serve_option(name, cfg, params, smi, paged, loops, 7,
+                                 False, "looping repeats, seed 2",
+                                 speculative=GAMMA)
+        out[name]["loop_prompts"] = chosen
+    out["serve_wq_dense"] = serve_option(
+        "serve_wq_dense", cfg, params, smi, False, rng_prompts, 0, True,
+        "random, seed 0", weight_quant="int8")
+    out["serve_wq_combo"] = serve_option(
+        "serve_wq_combo", cfg, params, smi, True, loops, 7, False,
+        "looping repeats, seed 2", weight_quant="int8", kv_quant="int8",
+        prefill_chunk=PREFILL_CHUNK, speculative=GAMMA)
+    return out
+
+
+def serve_surface(cfg, params, smi: str, seed: int = 3) -> dict:
+    """(d) The serve surface at llama3_8b: one streamed request on a dense
+    engine with a metrics registry, whose NDJSON token lines, joined, must
+    equal the blocking response's tokens for the same prompt (and pass the
+    recompute); then GET /metrics must parse, and carry the
+    request-phase histogram's buckets for queue, prefill and decode."""
+    engine = ServeEngine(cfg, params, max_slots=SLOTS, max_len=MAX_LEN,
+                         device="cuda", metrics=MetricsRegistry())
+    fe = ServeFrontend(engine)
+    srv, url = fe.serve_background("127.0.0.1", 0)
+    prompt = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, 200).tolist()
+    try:
+        reset_counts()
+        req = urllib.request.Request(
+            f"{url}/v1/completions", data=json.dumps({
+                "prompt_tokens": prompt, "max_tokens": MAX_TOKENS,
+                "stream": True}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            ctype = resp.headers["Content-Type"]
+            docs = [json.loads(line) for line in resp]
+        _, _, body = post(url, {"prompt_tokens": prompt,
+                                "max_tokens": MAX_TOKENS})
+        launches = serve_counts()
+        stats = fe.stats()
+        with urllib.request.urlopen(f"{url}/metrics", timeout=60) as resp:
+            metrics = resp.read().decode()
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        fe.close()
+    lines, final = docs[:-1], docs[-1]
+    streamed = [t for d in lines for t in d["tokens"]]
+    if ctype != "application/x-ndjson" or \
+            any(set(d) != {"tokens"} for d in lines) or \
+            final.get("num_tokens") != len(streamed) or \
+            streamed != body["tokens"]:
+        raise AssertionError(f"stream {docs} != blocking {body}")
+    check_rmsnorm_launches(engine, launches, stats)
+    expect_decode_kernel({"engine": stats, "launches": launches},
+                         "decode_attention", cfg.n_layers)
+    series = {}
+    for line in metrics.splitlines():
+        if line.startswith("#") or not line:
+            continue
+        m = re.fullmatch(r'([a-z_]+)(\{[^}]*\})? (\S+)', line)
+        if m is None:
+            raise AssertionError(f"/metrics line does not parse: {line!r}")
+        series[m[1] + (m[2] or "")] = float(m[3])
+    for phase in ("queue", "prefill", "decode"):
+        key = ("tpu_serve_request_duration_seconds_bucket"
+               f'{{phase="{phase}",le="+Inf"}}')
+        if series.get(key) != 2.0:
+            raise AssertionError(f"/metrics: {key} = {series.get(key)}")
+    out = {"phase": "serve_surface", "stream_lines": len(lines),
+           "tokens": streamed, "ttft_ms": [body["ttft_ms"]],
+           "decode_step_ms": 1e3 * stats["decode_s"] / stats["decode_steps"],
+           "decode_tokens_per_s": stats["decode_tokens"] / stats["decode_s"],
+           "metrics_series": len(series), "launches": launches,
+           "engine": stats,
+           "recompute_check": check_against_recompute(cfg, params, prompt,
+                                                      streamed)}
+    report("serve_surface", out, smi)
+    del engine
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1649,18 +2015,21 @@ def main(argv=None) -> None:
                                                paged=True),
               "serve_int8_dense": serve_cached(cfg, params, "int8",
                                                paged=False)}
-    del params
-    torch.cuda.empty_cache()
     for name, run in {"serve": srv, **cached}.items():
         print(f"{name}: " + json.dumps(
             {k: v for k, v in run.items()
              if k not in ("engine", "engine_after_batch", "tokens")}),
             flush=True)
+    options = serve_options(cfg, params, smi)
+    options["serve_surface"] = serve_surface(cfg, params, smi)
+    del params
+    torch.cuda.empty_cache()
     trn = train(profile=args.profile)
     print(f"train: {json.dumps(trn)}", flush=True)
     trn_ring = train_ring(profile=args.profile)
     by_path = {"serve": srv["launches"],
                **{name: run["launches"] for name, run in cached.items()},
+               **{name: run["launches"] for name, run in options.items()},
                "train": trn["launcher"]["launches"],
                "train_ring": trn_ring["launches"]}
 
@@ -1718,7 +2087,7 @@ def main(argv=None) -> None:
         "rmsnorm": rms, "decode_attention": dec,
         "decode_attention_quant": decq, "paged_decode_attention": paged,
         "flash": flash, "chunked_xent": xe, "ring": ring, "serve": srv,
-        **cached, "train": trn, "train_ring": trn_ring,
+        **cached, **options, "train": trn, "train_ring": trn_ring,
         **kernels}, indent=1))
     print(smi, flush=True)
     print(json.dumps(kernels), flush=True)

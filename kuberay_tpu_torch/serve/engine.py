@@ -1,15 +1,37 @@
 """Continuous-batching inference engine, in PyTorch.
 
-Port of the core of ``kuberay_tpu/serve/engine.py::ServeEngine``: a fixed
-slot count over a static dense KV cache (bf16, or int8 with
-``kv_quant="int8"``); new requests prefill into free slots while the
-others keep decoding; prompt lengths are bucketed to powers of two;
-greedy, temperature, top-p and top-k sampling per request; eos and stop
-tokens; TTFT per request.  The host loop does bookkeeping only; every step
-runs ``serve/kv_cache.py::forward_with_cache`` (or its int8 wrapper) on
-the engine's device.  The paged engine (``serve/paged_engine.py``)
-subclasses it through the hooks ``_init_cache``, ``_prefill_forward``,
-``_decode_forward`` and ``_admit``.
+Port of ``kuberay_tpu/serve/engine.py::ServeEngine``: a fixed slot count
+over a static dense KV cache (bf16, or int8 with ``kv_quant="int8"``); new
+requests prefill into free slots while the others keep decoding; prompt
+lengths are bucketed to powers of two; greedy, temperature, top-p and
+top-k sampling per request; eos and stop tokens; TTFT per request.  The
+host loop does bookkeeping only; every step runs
+``serve/kv_cache.py::forward_with_cache`` (or its int8 wrapper) on the
+engine's device.  The paged engine (``serve/paged_engine.py``) subclasses
+it through the hooks ``_init_cache``, ``_base_forward``,
+``_prefill_forward``, ``_decode_forward``, ``_admit``, ``_begin_chunked``,
+``_chunk_finalize`` and ``_extra_draft_cap``.
+
+Options, as in the JAX engine:
+- ``prefill_chunk`` > 0: chunked prefill.  A prompt streams into its slot
+  in chunks of that many tokens, at most one chunk per engine step, with a
+  decode pass over the other slots in between;
+- ``speculative`` = gamma > 0: prompt-lookup speculation for greedy slots.
+  Drafts come from the slot's own history (``NgramIndex``); one verify
+  forward of gamma + 1 tokens per slot emits the longest prefix the model
+  agrees with, plus its correction, and reproduces sequential greedy
+  decoding;
+- ``weight_quant="int8"``: W8A16 weights (``serve/weight_quant.py``),
+  dequantised a layer at a time inside the forward;
+- ``metrics``: a ``utils/metrics.py::MetricsRegistry`` that receives the
+  request-phase histogram ``tpu_serve_request_duration_seconds`` (queue,
+  prefill, decode, and the TTFT);
+- ``tracer``: requests that carry a ``TraceContext`` get engine-queue,
+  prefill, kv-alloc and decode spans (the no-op tracer by default).
+
+Chunks and verify steps run T > 1 query tokens through the plain
+multi-token attention, as the JAX package runs them through XLA; only
+one-token decode steps launch a decode-attention kernel.
 
 Where the JAX prefill runs every slot's row (one of them real) and computes
 logits at every position, this one prefills only the target slot and takes
@@ -32,13 +54,19 @@ import numpy as np
 import torch
 
 from kuberay_tpu_torch.models.llama import LlamaConfig
+from kuberay_tpu_torch.obs.trace import NOOP_TRACER
 from kuberay_tpu_torch.serve.kv_cache import (
     forward_with_cache,
     init_kv_cache,
     make_quantized_forward,
     tree_map,
 )
+from kuberay_tpu_torch.serve.weight_quant import (
+    make_weight_dequant_forward,
+    quantize_weights,
+)
 from kuberay_tpu_torch.utils.device import resolve_device
+from kuberay_tpu_torch.utils.metrics import SERVE_LATENCY_BUCKETS
 
 
 @dataclasses.dataclass
@@ -52,6 +80,9 @@ class Request:
     eos_token: Optional[int] = None
     # Additional stop tokens (any match ends generation, reason "eos").
     stop_token_ids: Optional[List[int]] = None
+    # Trace context (obs/trace.py::TraceContext) adopted from the
+    # request's ``traceparent``; None = untraced.
+    trace: Optional[Any] = None
 
 
 @dataclasses.dataclass
@@ -73,6 +104,63 @@ def _bucket(n: int, max_len: int = 2048) -> int:
     return min(b, max_len)
 
 
+def prompt_lookup_draft(hist: List[int], gamma: int, ngram: int = 3,
+                        window: int = 4096) -> List[int]:
+    """Prompt-lookup drafting: if the history's suffix n-gram occurred
+    earlier (within ``window``), propose the tokens that followed its
+    latest occurrence; longest n-gram first.  The O(len(hist)) reference
+    scan; the engine uses ``NgramIndex`` (the same drafts)."""
+    lo = max(0, len(hist) - window)
+    for n in range(min(ngram, len(hist) - 1), 0, -1):
+        pat = hist[-n:]
+        for k in range(len(hist) - n - 1, lo - 1, -1):
+            if hist[k:k + n] == pat:
+                cont = hist[k + n:k + n + gamma]
+                if cont:
+                    return list(cont)
+    return []
+
+
+class NgramIndex:
+    """Incremental n-gram -> latest start position index over one slot's
+    history: ``extend`` costs O(new tokens), ``draft`` O(gamma).  Drafts
+    equal ``prompt_lookup_draft``'s: longest n-gram first, latest
+    occurrence wins, occurrences end before the history's last position
+    (the suffix never matches itself)."""
+
+    PRUNE_EVERY = 1024         # tokens between out-of-window evictions
+
+    def __init__(self, ngram: int = 3, window: int = 4096):
+        self.n_max = ngram
+        self.window = window
+        self.maps = {n: {} for n in range(1, ngram + 1)}
+        self.indexed = 0         # history length already processed
+
+    def extend(self, hist: List[int]) -> None:
+        L = len(hist)
+        for n, m in self.maps.items():
+            # Ascending order keeps "latest occurrence wins".
+            for k in range(max(0, self.indexed - n), L - n):
+                m[tuple(hist[k:k + n])] = k
+        # Entries whose latest occurrence fell behind the window are never
+        # drafted from; dropping them bounds the maps by the window.
+        if L // self.PRUNE_EVERY > self.indexed // self.PRUNE_EVERY:
+            floor = L - self.window
+            for m in self.maps.values():
+                for key in [t for t, k in m.items() if k < floor]:
+                    del m[key]
+        self.indexed = L
+
+    def draft(self, hist: List[int], gamma: int) -> List[int]:
+        for n in range(min(self.n_max, len(hist) - 1), 0, -1):
+            k = self.maps[n].get(tuple(hist[-n:]))
+            # A latest occurrence older than the window means none is in
+            # it: fall through to a shorter n-gram.
+            if k is not None and k >= len(hist) - self.window:
+                return list(hist[k + n:k + n + gamma])
+        return []
+
+
 def _gumbel(shape, generator: torch.Generator, device) -> torch.Tensor:
     u = torch.rand(shape, generator=generator, device=device,
                    dtype=torch.float32)
@@ -81,9 +169,18 @@ def _gumbel(shape, generator: torch.Generator, device) -> torch.Tensor:
 
 
 class ServeEngine:
+    SPEC_MISS_LIMIT = 3        # consecutive full rejects before backoff
+    SPEC_PROBE_EVERY = 8       # steps between probes while backed off
+    # A verify step costs every active slot a (gamma+1)-token forward, so
+    # speculate only when at least this share of active slots drafted.
+    SPEC_MIN_DRAFT_FRACTION = 0.25
+
     def __init__(self, cfg: LlamaConfig, params: Dict[str, Any],
                  max_slots: int = 8, max_len: int = 2048,
-                 rng_seed: int = 0, device="cuda", kv_quant: str = "none"):
+                 rng_seed: int = 0, device="cuda", kv_quant: str = "none",
+                 prefill_chunk: int = 0, speculative: int = 0,
+                 weight_quant: str = "none", donate_params: bool = False,
+                 metrics=None, tracer=None):
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params are on {params['embed'].device}, the "
@@ -91,14 +188,38 @@ class ServeEngine:
         if max_len > cfg.max_seq_len:
             raise ValueError(f"max_len {max_len} exceeds the model's "
                              f"max_seq_len {cfg.max_seq_len}")
+        if weight_quant not in ("none", "int8"):
+            raise ValueError(f"unknown weight_quant {weight_quant!r}")
         self.cfg = cfg
-        self.params = params
         self.max_slots = max_slots
         self.max_len = max_len
         self.kv_quant = kv_quant
+        self.prefill_chunk = prefill_chunk
+        self._inflight = None        # (req, slot, prompt offset) mid-chunking
+        self.speculative = speculative
+        self.spec_stats = {"drafted": 0, "accepted": 0, "verify_steps": 0}
+        # Backoff: a slot whose last SPEC_MISS_LIMIT drafts were all
+        # rejected pauses drafting for SPEC_PROBE_EVERY steps, then probes.
+        self._spec_miss = np.zeros(max_slots, dtype=np.int32)
+        self._spec_cooldown = np.zeros(max_slots, dtype=np.int32)
+        self._spec_index: List[Optional[NgramIndex]] = [None] * max_slots
+        self.metrics = metrics
+        self._tracer = tracer if tracer is not None else NOOP_TRACER
+        self._now = time.time
+        if metrics is not None:
+            metrics.describe(
+                "tpu_serve_request_duration_seconds",
+                "Per-request wall time by phase (queue | prefill | decode)")
+        self._req_phase_ts: Dict[str, Dict[str, float]] = {}
         self.cache = self._init_cache()
-        self._forward = make_quantized_forward() if kv_quant == "int8" \
-            else forward_with_cache
+        self.weight_quant = weight_quant
+        self._forward = self._base_forward()
+        if weight_quant == "int8":
+            # ``donate_params``: the caller hands the tree over and each
+            # bf16 leaf is freed once quantised.
+            params = quantize_weights(params, donate=donate_params)
+            self._forward = make_weight_dequant_forward(self._forward)
+        self.params = params
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(rng_seed)
         # Streaming hook: token_callback(request_id, [tokens]) as tokens are
@@ -116,10 +237,12 @@ class ServeEngine:
         self._ttft: List[Optional[float]] = [None] * max_slots
         # Device-call counters and decode wall time (host clock around
         # work that ends in a device sync), read through ``stats``.
-        self.prefills = 0
+        self.prefills = 0            # prefill forwards (chunks counted)
         self.decode_steps = 0
         self.decode_tokens = 0
         self.decode_s = 0.0
+        self.verify_tokens = 0       # tokens emitted by verify steps
+        self.verify_s = 0.0
 
     # ------------------------------------------------------------------
     # device steps
@@ -128,6 +251,11 @@ class ServeEngine:
     def _init_cache(self):
         return init_kv_cache(self.cfg, self.max_slots, self.max_len,
                              self.device, quant=self.kv_quant)
+
+    def _base_forward(self):
+        """The cache forward before the weight-dequantising wrapper."""
+        return make_quantized_forward() if self.kv_quant == "int8" \
+            else forward_with_cache
 
     def _prefill_forward(self, tokens: torch.Tensor, slot: int,
                          start: torch.Tensor, real_len: int,
@@ -141,10 +269,13 @@ class ServeEngine:
         return logits
 
     def _decode_forward(self, tokens: torch.Tensor, lens: torch.Tensor,
-                        mask: torch.Tensor) -> torch.Tensor:
-        """The decode step's model call over every slot."""
+                        mask: torch.Tensor,
+                        token_mask: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+        """The model call over every slot: a decode step (``tokens`` [B,
+        1]) or a verify step ([B, gamma+1], with the real-token mask)."""
         logits, _ = self._forward(self.cfg, self.params, tokens, self.cache,
-                                  lens, mask)
+                                  lens, mask, token_mask=token_mask)
         return logits
 
     @torch.no_grad()
@@ -182,6 +313,36 @@ class ServeEngine:
         self.decode_tokens += int(mask.sum())
         self.decode_s += time.perf_counter() - t0
         return toks
+
+    @torch.no_grad()
+    def _verify_call(self, toks: np.ndarray, ntok: np.ndarray,
+                     temps: np.ndarray, mask: np.ndarray):
+        """Speculative verify: T = gamma+1 tokens (the last emitted one and
+        the draft) for every slot in one forward.  Only each row's first
+        ``ntok`` tokens are real and write K/V (in the paged pool a
+        position past a slot's blocks would name another request's block).
+        Returns (greedy [B, T]: the model's next token after each prefix,
+        sampled0 [B]: position 0 sampled, for sampling slots)."""
+        t0 = time.perf_counter()
+        dev = self.device
+        tokens = torch.from_numpy(toks).to(dev, torch.long)
+        T = tokens.shape[1]
+        mask_t = torch.from_numpy(mask).to(dev)
+        ntok_t = torch.from_numpy(ntok).to(dev)
+        token_mask = mask_t[:, None] * (
+            torch.arange(T, device=dev)[None, :] < ntok_t[:, None]).float()
+        logits = self._decode_forward(tokens,
+                                      torch.from_numpy(self.lens).to(dev),
+                                      mask_t, token_mask)
+        greedy = logits.argmax(-1)
+        sample = self._sample if self._filters_on(temps) else self._sample_plain
+        noise = self._noise(logits[:, 0], temps)
+        sampled0 = sample(logits[:, 0], torch.from_numpy(temps).to(dev),
+                          noise)
+        greedy, sampled0 = greedy.cpu().numpy(), sampled0.cpu().numpy()
+        self.spec_stats["verify_steps"] += 1
+        self.verify_s += time.perf_counter() - t0
+        return greedy, sampled0
 
     def _noise(self, logits: torch.Tensor, samp: np.ndarray):
         """Gumbel noise [B, V] for the rows that sample; None when every
@@ -245,7 +406,8 @@ class ServeEngine:
     # ------------------------------------------------------------------
 
     def add_request(self, req: Request) -> None:
-        self._arrival[req.request_id] = time.time()
+        self._arrival[req.request_id] = self._now()
+        self._phase_mark(req.request_id, "queued")
         if len(req.prompt_tokens) >= self.max_len or req.max_new_tokens <= 0:
             self._cancel(req)
             return
@@ -253,9 +415,47 @@ class ServeEngine:
 
     def _cancel(self, req: Request) -> None:
         self._arrival.pop(req.request_id, None)
+        self._req_phase_ts.pop(req.request_id, None)
         self._finished.append(Response(
             req.request_id, [], "cancelled",
-            prompt_len=len(req.prompt_tokens), created=time.time()))
+            prompt_len=len(req.prompt_tokens), created=self._now()))
+
+    # -- request-phase latency -------------------------------------------
+
+    def _phase_mark(self, rid: str, phase: str) -> None:
+        """Stamp a request's phase (queued, admitted) for the metrics and
+        the spans; nothing when neither is on."""
+        if self.metrics is None and not self._tracer.enabled:
+            return
+        self._req_phase_ts.setdefault(rid, {})[phase] = self._now()
+
+    def _phase_observe(self, rid: str, terminal: bool = True) -> None:
+        """Observe one request's queue and prefill phases at its first
+        token (``terminal=False``), its decode phase at its finish."""
+        if self.metrics is None and not self._tracer.enabled:
+            return
+        ts = self._req_phase_ts.get(rid)
+        if ts is None:
+            return
+        now = self._now()
+        if not terminal:
+            if self.metrics is not None:
+                if "queued" in ts and "admitted" in ts:
+                    self.metrics.observe(
+                        "tpu_serve_request_duration_seconds",
+                        ts["admitted"] - ts["queued"], {"phase": "queue"})
+                if "admitted" in ts:
+                    self.metrics.observe(
+                        "tpu_serve_request_duration_seconds",
+                        now - ts["admitted"], {"phase": "prefill"})
+            if "admitted" in ts:
+                ts["first_token"] = now
+            return
+        if "first_token" in ts and self.metrics is not None:
+            self.metrics.observe(
+                "tpu_serve_request_duration_seconds",
+                now - ts["first_token"], {"phase": "decode"})
+        self._req_phase_ts.pop(rid, None)
 
     @property
     def num_active(self) -> int:
@@ -270,25 +470,41 @@ class ServeEngine:
                 "prefills": self.prefills,
                 "decode_steps": self.decode_steps,
                 "decode_tokens": self.decode_tokens,
-                "decode_s": self.decode_s}
+                "decode_s": self.decode_s,
+                "verify_tokens": self.verify_tokens,
+                "verify_s": self.verify_s}
 
     def has_work(self) -> bool:
         # _finished counts: instantly-cancelled requests must still be
         # drained by the driving loop or their callers would never wake.
         return (bool(self.queue) or self.num_active > 0
-                or bool(self._finished))
+                or bool(self._finished) or self._inflight is not None)
 
     def step(self) -> List[Response]:
         """One engine iteration: admit (prefill) into every free slot until
         an admission is blocked (the paged engine waits for memory), then
-        decode all active slots.  Returns finished responses."""
-        while self.queue:
+        decode all active slots.  Returns finished responses.
+
+        With ``prefill_chunk`` set, at most one chunk of prompt runs per
+        step, even on the step where an admission's last chunk lands, and
+        a decode pass runs in between."""
+        chunked_this_step = False
+        if self._inflight is not None:
+            self._chunk_step()
+            chunked_this_step = True
+        while self.queue and self._inflight is None \
+                and not chunked_this_step:
             free = next((i for i, r in enumerate(self.active) if r is None),
                         None)
             if free is None:
                 break
-            if not self._admit(self.queue.pop(0), free):
-                break
+            req = self.queue.pop(0)
+            if self.prefill_chunk > 0:
+                if self._begin_chunked(req, free) is None:
+                    continue        # cancelled outright; the slot is free
+                break               # one chunk per step
+            if not self._admit(req, free):
+                break               # blocked (the paged engine's memory)
         if self.num_active:
             self._decode_all()
         out, self._finished = self._finished, []
@@ -315,6 +531,7 @@ class ServeEngine:
         """Prefill a request into a free slot and return True.  The paged
         engine returns False when the admission is blocked on memory (the
         request goes back to the queue)."""
+        self._phase_mark(req.request_id, "admitted")
         plen = len(req.prompt_tokens)
         bucket = _bucket(plen, self.max_len)
         padded = np.zeros(bucket, dtype=np.int64)
@@ -325,15 +542,70 @@ class ServeEngine:
         self._finalize_admit(req, slot, tok)
         return True
 
+    # -- chunked prefill ---------------------------------------------------
+
+    def _begin_chunked(self, req: Request, slot: int):
+        """Start a chunked admission.  Returns True when the first chunk
+        ran, False when blocked (request requeued), None when the request
+        was cancelled.  The paged engine reserves its blocks here."""
+        self._phase_mark(req.request_id, "admitted")
+        self._inflight = (req, slot, 0)
+        self._chunk_step()
+        return True
+
+    def _chunk_step(self) -> None:
+        """Prefill the next chunk of the in-flight admission; the last
+        chunk's sample is the first generated token and activates the
+        slot.  The offset is absolute into the prompt (a paged admission
+        starts past its cached prefix).  Every chunk is padded to
+        ``prefill_chunk`` and sampled at its last real token."""
+        req, slot, off = self._inflight
+        chunk = self.prefill_chunk
+        toks = req.prompt_tokens[off:off + chunk]
+        padded = np.zeros(chunk, dtype=np.int64)
+        padded[:len(toks)] = toks
+        tok = self._prefill(padded, slot, len(toks), self._samp(req),
+                            start_pos=off)
+        off += len(toks)
+        if off >= len(req.prompt_tokens):
+            self._inflight = None
+            self._chunk_finalize(req, slot, tok)
+        else:
+            self._inflight = (req, slot, off)
+
+    def _chunk_finalize(self, req: Request, slot: int, tok: int) -> None:
+        self._finalize_admit(req, slot, tok)
+
     def _finalize_admit(self, req: Request, slot: int, tok: int) -> None:
-        """Activate a prefilled slot: TTFT, lengths, the first token."""
+        """Activate a prefilled slot: TTFT, phases, lengths, the first
+        token."""
+        self._phase_observe(req.request_id, terminal=False)
+        ts = self._req_phase_ts.get(req.request_id) or {}
         arrival = self._arrival.pop(req.request_id, None)
-        self._ttft[slot] = (time.time() - arrival) if arrival is not None \
-            else None
+        # The first-token stamp, where there is one, is the TTFT's instant
+        # too, so the span tree, the observation and its exemplar agree.
+        now = ts.get("first_token", self._now())
+        ttft = (now - arrival) if arrival is not None else None
+        self._ttft[slot] = ttft
+        if self.metrics is not None and ttft is not None:
+            self.metrics.observe(
+                "tpu_serve_request_duration_seconds", ttft,
+                {"phase": "ttft"}, buckets=SERVE_LATENCY_BUCKETS,
+                exemplar=(req.trace.trace_id if req.trace is not None
+                          else None),
+                exemplar_ts=now)
+        if req.trace is not None and arrival is not None:
+            admitted = ts.get("admitted", arrival)
+            self._tracer.record_span(req.trace, "engine-queue",
+                                     arrival, admitted)
+            self._tracer.record_span(req.trace, "prefill", admitted, now,
+                                     prompt_len=len(req.prompt_tokens))
         self.lens[slot] = len(req.prompt_tokens)
         self.active[slot] = req
         self.generated[slot] = [tok]
         self.budget[slot] = req.max_new_tokens - 1
+        self._spec_miss[slot] = 0
+        self._spec_index[slot] = None      # a fresh history for the slot
         self._emit_tokens(req, [tok])
         self._maybe_finish(slot)
 
@@ -354,6 +626,12 @@ class ServeEngine:
                 last[i] = self.generated[i][-1]
                 temps[i] = self._samp(req)
                 mask[i] = 1.0
+        if self.speculative > 0:
+            drafts = self._build_drafts()
+            drafting = sum(1 for d in drafts if d)
+            if drafting and drafting >= max(1, self.num_active) * \
+                    self.SPEC_MIN_DRAFT_FRACTION:
+                return self._spec_decode_all(last, temps, mask, drafts)
         toks = self._decode_call(last, temps, mask)
         for i, req in enumerate(self.active):
             if req is None:
@@ -362,6 +640,83 @@ class ServeEngine:
             self.generated[i].append(int(toks[i]))
             self.budget[i] -= 1
             self._emit_tokens(req, [int(toks[i])])
+            self._maybe_finish(i)
+
+    # -- speculative decoding ----------------------------------------------
+
+    def _build_drafts(self) -> List[List[int]]:
+        """Per-slot prompt-lookup drafts.  Sampling slots never draft
+        (greedy acceptance would bias their distribution); backed-off
+        slots wait out their cooldown."""
+        gamma = self.speculative
+        drafts: List[List[int]] = [[] for _ in range(self.max_slots)]
+        for i, req in enumerate(self.active):
+            if req is None or req.temperature > 0 or not self.generated[i]:
+                continue
+            if self._spec_miss[i] >= self.SPEC_MISS_LIMIT:
+                if self._spec_cooldown[i] > 0:
+                    self._spec_cooldown[i] -= 1
+                    continue
+            # Positions lens..lens+gamma must stay below max_len (and, in
+            # the paged engine, inside the slot's blocks).
+            cap = min(gamma, self.max_len - int(self.lens[i]) - 2,
+                      int(self.budget[i]), self._extra_draft_cap(i))
+            if cap <= 0:
+                continue
+            hist = list(req.prompt_tokens) + self.generated[i]
+            idx = self._spec_index[i]
+            if idx is None:
+                idx = self._spec_index[i] = NgramIndex()
+            idx.extend(hist)
+            drafts[i] = idx.draft(hist, cap)
+        return drafts
+
+    def _extra_draft_cap(self, slot: int) -> int:
+        """The engine's own bound on a draft (paged: block capacity)."""
+        return self.speculative
+
+    def _spec_decode_all(self, last, temps, mask, drafts):
+        gamma = self.speculative
+        toks = np.zeros((self.max_slots, gamma + 1), dtype=np.int64)
+        toks[:, 0] = last
+        ntok = np.zeros(self.max_slots, dtype=np.int64)
+        for i, d in enumerate(drafts):
+            toks[i, 1:1 + len(d)] = d
+            ntok[i] = (1 + len(d)) if mask[i] > 0 else 0
+        greedy, sampled0 = self._verify_call(toks, ntok, temps, mask)
+        for i, req in enumerate(self.active):
+            if req is None:
+                continue
+            if req.temperature > 0:
+                emitted = [int(sampled0[i])]
+            else:
+                # Longest-prefix acceptance: greedy[i, j] checks draft[j]
+                # and is the correction (or bonus) token where it stops.
+                emitted = []
+                for j in range(len(drafts[i]) + 1):
+                    emitted.append(int(greedy[i, j]))
+                    if j >= len(drafts[i]) or greedy[i, j] != drafts[i][j]:
+                        break
+                self.spec_stats["drafted"] += len(drafts[i])
+                self.spec_stats["accepted"] += len(emitted) - 1
+                if drafts[i]:
+                    if len(emitted) > 1:
+                        self._spec_miss[i] = 0
+                    else:
+                        self._spec_miss[i] += 1
+                        if self._spec_miss[i] >= self.SPEC_MISS_LIMIT:
+                            self._spec_cooldown[i] = self.SPEC_PROBE_EVERY
+            take: List[int] = []
+            for t in emitted:
+                take.append(t)
+                self.budget[i] -= 1
+                if self.budget[i] <= 0 or self._is_stop(req, t) \
+                        or self.lens[i] + len(take) + 1 >= self.max_len:
+                    break
+            self.lens[i] += len(take)
+            self.generated[i].extend(take)
+            self.verify_tokens += len(take)
+            self._emit_tokens(req, take)
             self._maybe_finish(i)
 
     @staticmethod
@@ -389,9 +744,16 @@ class ServeEngine:
         """The one finish path (length, eos or preemption); the paged
         engine hooks it to release the slot's blocks."""
         req = self.active[slot]
+        ts = self._req_phase_ts.get(req.request_id) or {}
+        now = self._now()
+        if req.trace is not None and "first_token" in ts:
+            self._tracer.record_span(
+                req.trace, "decode", ts["first_token"], now,
+                tokens=len(self.generated[slot]), reason=reason)
+        self._phase_observe(req.request_id)
         self._finished.append(Response(
             req.request_id, list(self.generated[slot]), reason,
-            prompt_len=len(req.prompt_tokens), created=time.time(),
+            prompt_len=len(req.prompt_tokens), created=now,
             ttft_s=self._ttft[slot]))
         self.active[slot] = None
         self.generated[slot] = []

@@ -243,6 +243,9 @@ def forward_with_cache(cfg, params: Dict[str, Any], tokens: torch.Tensor,
                        ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Run T new tokens through the model against the cache.
 
+    params: the model's tree, or a ``serve/weight_quant.py::DequantView``
+    of an int8 one (the loop's ``v[i]`` then dequantises one layer, and
+    ``lm_head`` is dequantised where the logits read it).
     tokens: [B, T] (right-padded); start: [B] tokens already in each row's
     cache; write_mask: [B] 1.0 for rows whose cache may be written;
     token_mask: [B, T] 1.0 for real tokens (the default layout then skips

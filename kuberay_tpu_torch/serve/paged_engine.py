@@ -16,9 +16,16 @@ Scheduling, as in the JAX engine:
 - on finish the request's blocks are released; full prompt blocks stay
   published in the prefix cache until cannibalised.
 
-Not ported yet: KV tiers, KV-block export/import and adverts, chunked
-prefill, speculative decoding, weight quantisation, tensor parallelism
-and Mixtral.
+Chunked prefill reserves every block of the prompt up front and starts
+past the prefix the cache serves.  Speculation grows each drafting slot's
+blocks for its draft best-effort, after every slot's mandatory next-token
+block, and caps a draft at the blocks the slot holds: a position past
+them would resolve through the zero-filled tail of its table into block
+0, another request's block, so only real tokens write.  Weight
+quantisation dequantises outermost, around the paged forward.
+
+Not ported yet: KV tiers, KV-block export/import and adverts, tensor
+parallelism and Mixtral.
 """
 
 from __future__ import annotations
@@ -42,18 +49,24 @@ class PagedServeEngine(ServeEngine):
     def __init__(self, cfg: LlamaConfig, params: Dict[str, Any],
                  max_slots: int = 8, max_len: int = 2048,
                  num_blocks: int = 0, block_size: int = 16,
-                 rng_seed: int = 0, device="cuda", kv_quant: str = "none"):
+                 rng_seed: int = 0, device="cuda", kv_quant: str = "none",
+                 prefill_chunk: int = 0, speculative: int = 0,
+                 weight_quant: str = "none", donate_params: bool = False,
+                 metrics=None, tracer=None):
         # Default pool = the dense engine's footprint; callers shrink it
         # to realise the memory gain (e.g. slots * expected length).
         num_blocks = num_blocks or (max_slots * max_len) // block_size
         self.block_size = block_size
         self.num_blocks = num_blocks
         self.max_blocks = (max_len + block_size - 1) // block_size
-        # The base constructor builds the pool through _init_cache.
+        # The base constructor builds the pool through _init_cache and the
+        # forward through _base_forward (wrapped by the weight dequant).
         super().__init__(cfg, params, max_slots=max_slots, max_len=max_len,
-                         rng_seed=rng_seed, device=device, kv_quant=kv_quant)
-        self._forward = (make_paged_quant_forward if kv_quant == "int8"
-                         else make_paged_forward)(block_size)
+                         rng_seed=rng_seed, device=device, kv_quant=kv_quant,
+                         prefill_chunk=prefill_chunk, speculative=speculative,
+                         weight_quant=weight_quant,
+                         donate_params=donate_params, metrics=metrics,
+                         tracer=tracer)
         self.allocator = BlockAllocator(num_blocks, block_size)
         self.tables = np.zeros((max_slots, self.max_blocks), dtype=np.int32)
         self.owned: List[List[int]] = [[] for _ in range(max_slots)]
@@ -62,6 +75,10 @@ class PagedServeEngine(ServeEngine):
     def _init_cache(self):
         return init_paged_cache(self.cfg, self.num_blocks, self.block_size,
                                 quant=self.kv_quant, device=self.device)
+
+    def _base_forward(self):
+        return (make_paged_quant_forward if self.kv_quant == "int8"
+                else make_paged_forward)(self.block_size)
 
     # ------------------------------------------------------------------
     # model calls (paged signatures)
@@ -81,12 +98,21 @@ class PagedServeEngine(ServeEngine):
             logits_index=logits_index)
         return logits
 
-    def _decode_forward(self, tokens, lens, mask):
+    def _decode_forward(self, tokens, lens, mask, token_mask=None):
+        """Decode or verify over every slot's table; the token mask gates
+        the pool's writes (a decode step's is the slot mask)."""
         logits, _ = self._forward(
             self.cfg, self.params, tokens, self.cache,
             torch.from_numpy(self.tables).to(self.device), lens, mask,
-            token_mask=mask[:, None])
+            token_mask=mask[:, None] if token_mask is None else token_mask)
         return logits
+
+    def _extra_draft_cap(self, slot: int) -> int:
+        """Drafts only reach into allocated blocks: positions lens ..
+        lens+cap stay below the slot's capacity (``_decode_all`` grows it
+        best-effort first; a full pool shrinks the draft)."""
+        capacity = len(self.owned[slot]) * self.block_size
+        return capacity - int(self.lens[slot]) - 1
 
     # ------------------------------------------------------------------
     # block bookkeeping
@@ -115,6 +141,16 @@ class PagedServeEngine(ServeEngine):
             self.allocator.free(bid)
         self.owned[slot] = []
         self.tables[slot] = 0
+
+    def _shrink_headroom(self, slot: int) -> None:
+        """Return unwritten draft-headroom blocks (past what lens+1 needs)
+        to the pool.  Tail blocks are always the slot's own (shared prefix
+        blocks sit at the front) and K/V past ``lens`` is dead."""
+        keep = self._blocks_needed(int(self.lens[slot]) + 1)
+        while len(self.owned[slot]) > keep:
+            bid = self.owned[slot].pop()
+            self.tables[slot, len(self.owned[slot])] = 0
+            self.allocator.free(bid)
 
     # ------------------------------------------------------------------
     # scheduling overrides
@@ -170,12 +206,15 @@ class PagedServeEngine(ServeEngine):
             self.owned[slot])
 
     def _admit(self, req: Request, slot: int) -> bool:
+        a0 = self._now()
         reserved = self._reserve(req, slot)
         if reserved is None:
             return True                     # cancelled; slot stays free
         if reserved is False:
             return False                    # blocked on memory
         ncached = reserved
+        self._phase_mark(req.request_id, "admitted")
+        self._kv_alloc_span(req, slot, a0, ncached)
         plen = len(req.prompt_tokens)
         new_tokens = plen - ncached
         bucket = _bucket(new_tokens, self.max_len)
@@ -187,15 +226,56 @@ class PagedServeEngine(ServeEngine):
         self._finalize_admit(req, slot, tok)
         return True
 
+    def _kv_alloc_span(self, req: Request, slot: int, a0: float,
+                       ncached: int) -> None:
+        if req.trace is not None:
+            self._tracer.record_span(
+                req.trace, "kv-alloc", a0, self._now(),
+                cached_tokens=ncached, blocks=len(self.owned[slot]))
+
+    # -- chunked prefill over the block tables -------------------------------
+
+    def _begin_chunked(self, req: Request, slot: int):
+        a0 = self._now()
+        reserved = self._reserve(req, slot)
+        if reserved is None or reserved is False:
+            return reserved                 # cancelled / blocked on memory
+        self._phase_mark(req.request_id, "admitted")
+        self._kv_alloc_span(req, slot, a0, reserved)
+        # Every block is reserved; start past the cache-served prefix.
+        self._inflight = (req, slot, reserved)
+        self._chunk_step()
+        return True
+
+    def _chunk_finalize(self, req: Request, slot: int, tok: int) -> None:
+        self._register_full_prompt(req, slot)
+        self._finalize_admit(req, slot, tok)
+
     def _decode_all(self):
-        # Grow tables for slots whose next write crosses a block boundary;
-        # preempt (finish early) when the pool is exhausted.
+        # Pass 1: the mandatory next-token block of every slot whose next
+        # write crosses a block boundary; preempt (finish early) when the
+        # pool is exhausted.  Draft headroom must never starve another
+        # slot's mandatory block.
         for i, req in enumerate(self.active):
             if req is None:
                 continue
             if self.lens[i] >= len(self.owned[i]) * self.block_size:
                 if not self._grow(i, 1):
                     self._finish(i, "preempted")
+        # Pass 2: best-effort draft headroom for draft-eligible slots; a
+        # slot that cannot draft (sampling, backed off) gives its idle
+        # headroom back.
+        for i, req in enumerate(self.active):
+            if req is None or self.speculative <= 0:
+                continue
+            if req.temperature > 0 or \
+                    self._spec_miss[i] >= self.SPEC_MISS_LIMIT:
+                self._shrink_headroom(i)
+                continue
+            want = int(self.lens[i]) + 1 + self.speculative
+            while len(self.owned[i]) * self.block_size < want:
+                if not self._grow(i, 1):
+                    break
         if self.num_active:
             super()._decode_all()
 

@@ -101,7 +101,7 @@ def test_concurrent_requests_and_stats(served):
     ({"prompt_tokens": [1], "top_k": -1}, 400),
     ({"prompt_tokens": [1], "max_tokens": "x"}, 400),
     ({"prompt_tokens": [1], "stop_token_ids": "x"}, 400),
-    ({"prompt_tokens": [1], "stream": True}, 501),
+    ({"prompt_tokens": [1], "stream": True, "max_tokens": 0}, 400),
 ])
 def test_bad_requests_rejected(served, body, code):
     _, url, _ = served
