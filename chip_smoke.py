@@ -149,7 +149,34 @@
    32 ring forwards (one a layer, run again under full remat), 160 dK/dV
    and 160 dQ (one each per causal block of the ring's 4 ranks, 16
    layers), no flash forward and 65 RMSNorms.  With ``--profile``, one more step likewise.
-5. Prints the kernels' JSON line, and as the last line
+5. Train to serve (``train_to_serve``): llama_1b, 4 x 2048, bf16 masters,
+   checkpoints in a temporary directory whose free space (printed) must
+   hold three saves of about 6.85 GB, with a coordinator recorder on
+   127.0.0.1 at the dashboard port.  (a) The library: 2 steps,
+   ``CheckpointWriter.save_async(state, 2)`` (a host clone kept aside), 2
+   more steps while it writes, ``save_async(state, 4)``, ``close()``;
+   ``restore(dir, 2)`` into another seed's fresh state equals the clone
+   bit for bit, its integer leaves included.  (b) The launcher with
+   ``--steps 6 --checkpoint-dir`` resumes at 4, prints steps 5-6 only,
+   feeds the seed's first two batches again (the JAX launcher's loader
+   restarts from its seed too), launches the ``train`` phase's per-step
+   counts twice, leaves steps 2, 4 and 6 on disk, posts heartbeats and
+   ``train_step`` events for steps 5-6 to the recorder and serves the
+   five ``tpu_train_*`` gauges on ``/metrics`` (``TPU_PEAK_TFLOPS=989``).
+   (c) ``python -m kuberay_tpu_torch.serve.server --checkpoint-dir
+   --coordinator auto`` as a process (its kernel launch counts printed at
+   exit): RUNNING at the recorder once it serves; 8 concurrent greedy
+   requests (7-1500 tokens, 32 new), each served token within the
+   no-cache recompute's margin of the restored params, which equal step
+   6's params bit for bit and differ from seed 0's in every matrix (not
+   the norms: their bf16 ones stay 1.0 under such small updates);
+   exactly 33 RMSNorms a forward and 16 decode attentions a decode step;
+   after SIGTERM, STOPPED, then ``drained=True``.  Prints the bytes of a
+   save, ``save_async``'s return (the snapshot), the commits, the steps
+   with a write in flight against the launcher's steady step, restore and
+   ``load_params_for_serving`` seconds, the server's start to its first
+   token and the heartbeats, beside the card's name and power limit.
+6. Prints the kernels' JSON line, and as the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Details go to chiprun_out/chip_smoke.json beside this script.  Any failure
@@ -165,11 +192,18 @@ import gc
 import io
 import json
 import math
+import os
 import re
+import shutil
+import signal
+import socket
 import subprocess
+import sys
+import tempfile
 import threading
 import time
 import urllib.request
+from http.server import ThreadingHTTPServer
 from pathlib import Path
 
 import numpy as np
@@ -187,8 +221,10 @@ from kuberay_tpu_torch.ops import rmsnorm as rn
 from kuberay_tpu_torch.ops import xent
 from kuberay_tpu_torch.parallel.mesh import LocalRing
 from kuberay_tpu_torch.parallel.ring import ring_attention
+from kuberay_tpu_torch.train import checkpoint as ckpt
 from kuberay_tpu_torch.train import launcher
 from kuberay_tpu_torch.train import train_step as ts
+from kuberay_tpu_torch.train.data import TokenShardLoader, synthetic_shard
 from kuberay_tpu_torch.serve.engine import (
     Request,
     ServeEngine,
@@ -203,6 +239,8 @@ from kuberay_tpu_torch.serve.paged_engine import PagedServeEngine
 from kuberay_tpu_torch.serve.paged_kv import quant_view
 from kuberay_tpu_torch.serve.server import ServeFrontend
 from kuberay_tpu_torch.serve.weight_quant import make_weight_dequant_forward
+from kuberay_tpu_torch.utils.constants import PORT_DASHBOARD
+from kuberay_tpu_torch.utils.httpjson import JsonHandler, serve_background
 from kuberay_tpu_torch.utils.metrics import MetricsRegistry
 
 ROOT = Path(__file__).resolve().parent
@@ -1847,15 +1885,19 @@ def profile_step(step, state, batch) -> dict:
                                      key=lambda kv: -kv[1])[:25]}
 
 
+def train_per_step(L: int) -> dict:
+    """Kernel launches of one llama training step through the launcher."""
+    return {"flash_fwd": 2 * L, "flash_bwd_dkv": L, "flash_bwd_dq": L,
+            "rmsnorm": 2 * 2 * L + 1,              # full remat: fwd twice
+            "ring_attention_fwd": 0}
+
+
 def train(seed: int = 0, profile: bool = False) -> dict:
     """llama_1b at full width and depth: the launcher on the synthetic
     shard (bf16 masters), then 8 steps on one fixed batch with f32
     masters (and with ``profile``, one more under torch.profiler)."""
     cfg = llama.CONFIGS["llama_1b"]
-    L = cfg.n_layers
-    per_step = {"flash_fwd": 2 * L, "flash_bwd_dkv": L, "flash_bwd_dq": L,
-                "rmsnorm": 2 * 2 * L + 1,          # full remat: fwd twice
-                "ring_attention_fwd": 0}
+    per_step = train_per_step(cfg.n_layers)
     argv = ["--model", "llama_1b", "--batch", str(TRAIN_BATCH), "--seq-len",
             str(TRAIN_SEQ), "--steps", str(TRAIN_STEPS), "--warmup", "1",
             "--log-every", "1", "--seed", str(seed)]
@@ -1930,6 +1972,463 @@ def train(seed: int = 0, profile: bool = False) -> dict:
     run["step_ms_median_steady"] = steady[len(steady) // 2]
     return {"model": "llama_1b", "params": cfg.num_params(),
             "launcher": run, "fixed_batch": fixed}
+
+
+# The train-to-serve handoff (llama_1b, the launcher's flags of ``train``):
+# the library's saves at steps 2 and 4, the launcher resuming at 4 to
+# step HANDOFF_STEPS, the server on that checkpoint.  A save holds params,
+# mu and nu in bf16, about 6.85 GB; three are kept on disk.
+HANDOFF_STEPS = 6
+HANDOFF_APP = "handoff"
+HANDOFF_JOB = "train-to-serve"
+# The server as ``python -m``, its kernel launch counts printed at exit.
+SERVE_WITH_COUNTS = (
+    "import atexit, json, runpy\n"
+    "from kuberay_tpu_torch.ops import decode_attention as da\n"
+    "from kuberay_tpu_torch.ops import paged_attention as pa\n"
+    "from kuberay_tpu_torch.ops import rmsnorm as rn\n"
+    "atexit.register(lambda: print('kernel launches ' + json.dumps(\n"
+    "    {'rmsnorm': rn.launches, 'decode_attention': da.launches,\n"
+    "     'decode_attention_quant': da.launches_quant,\n"
+    "     'paged_decode_attention': pa.launches}), flush=True))\n"
+    "runpy.run_module('kuberay_tpu_torch.serve.server', run_name='__main__',\n"
+    "                 alter_sys=True)\n")
+
+
+class CoordinatorRecorder:
+    """The head coordinator's API as far as the pods use it, on 127.0.0.1
+    at the dashboard port (where ``TPU_COORDINATOR_ADDRESS`` leads):
+    records the posted events and the serve apps' statuses in order."""
+
+    def __init__(self):
+        self.events, self.statuses = [], []
+        rec = self
+
+        class Handler(JsonHandler):
+            def do_POST(self):
+                if self.path != "/api/events":
+                    return self._send(404, {"message": "unknown path"})
+                events = self._body().get("events", [])
+                rec.events.extend(events)
+                return self._send(200, {"recorded": len(events)})
+
+            def do_PUT(self):
+                parts = self.path.strip("/").split("/")
+                if parts[:3] != ["api", "serve", "applications"] or \
+                        len(parts) != 5 or parts[4] != "status":
+                    return self._send(404, {"message": "unknown path"})
+                rec.statuses.append((parts[3], self._body()["status"]))
+                return self._send(200, {})
+
+        self.srv, self.url = serve_background(ThreadingHTTPServer(
+            ("127.0.0.1", PORT_DASHBOARD), Handler), "coordinator-recorder")
+
+    def close(self) -> None:
+        self.srv.shutdown()
+        self.srv.server_close()
+
+
+@contextlib.contextmanager
+def env_vars(**values):
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+
+
+def tree_items(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from tree_items(v, f"{prefix}{k}.")
+    else:
+        yield prefix[:-1], tree
+
+
+def handoff_library(cfg, ckpt_dir: Path, shard: Path, commits: list,
+                    seed: int) -> dict:
+    """(a) Two steps, ``save_async(state, 2)`` (a host clone of the state
+    kept aside), two more steps while it writes, ``save_async(state, 4)``,
+    ``close()``; then ``restore(dir, 2)`` into another seed's fresh state
+    must equal the clone bit for bit, the integer leaves included."""
+    tc = ts.TrainConfig(learning_rate=3e-4, warmup_steps=1,
+                        decay_steps=HANDOFF_STEPS)
+    opt = ts.make_optimizer(tc)
+    state = ts.init_train_state(
+        cfg, opt, torch.Generator(device="cuda").manual_seed(seed), "",
+        "cuda")
+    step = ts.make_train_step(cfg, tc, opt)
+    loader = TokenShardLoader(str(shard), TRAIN_SEQ, TRAIN_BATCH, seed=seed)
+    if loader.backend != "native":
+        raise AssertionError(f"the loader ran on {loader.backend}")
+    writer = ckpt.CheckpointWriter(str(ckpt_dir))
+    fed, step_ms, spans, losses = [], [], [], []
+    for i in range(4):
+        if i == 2:
+            clone = {k: v.cpu() if isinstance(v, torch.Tensor) else v
+                     for k, v in tree_items(state)}
+            t0 = time.perf_counter()
+            writer.save_async(state, 2)
+            snapshot_ms = (time.perf_counter() - t0) * 1e3
+        batch = launcher.device_batch(loader.next(), torch.device("cuda"))
+        fed.append(batch["tokens"][:, :8].clone())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        step_ms.append((t1 - t0) * 1e3)
+        spans.append((t0, t1))
+    # The wait for step 2's commit, then step 4's snapshot into the
+    # pinned buffers step 2's made.
+    t0 = time.perf_counter()
+    writer.wait()
+    t1 = time.perf_counter()
+    writer.save_async(state, 4)
+    t2 = time.perf_counter()
+    wait2_ms, snapshot4_ms = (t1 - t0) * 1e3, (t2 - t1) * 1e3
+    t0 = time.perf_counter()
+    writer.close()
+    close_s = time.perf_counter() - t0
+    loader.close()
+    del state, writer, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"handoff losses {losses}")
+    template = ts.init_train_state(
+        cfg, opt, torch.Generator(device="cuda").manual_seed(seed + 1), "",
+        "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored = ckpt.restore(str(ckpt_dir), 2, template)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    got = dict(tree_items(restored))
+    if set(got) != set(clone) or got["step"] != 2 or \
+            got["opt_state.count"] != 2:
+        raise AssertionError(f"restored step 2: keys {sorted(got)}, step "
+                             f"{got.get('step')}")
+    bad = [k for k, v in clone.items() if isinstance(v, torch.Tensor)
+           and not bits_equal(got[k].cpu(), v)]
+    if bad:
+        raise AssertionError(f"restore of step 2 differs from the state "
+                             f"saved: {bad}")
+    del restored, template, got, clone
+    gc.collect()
+    torch.cuda.empty_cache()
+    commit2 = next(c for c in commits if c[0] == 2)
+    # How much of step 2's write ran under steps 3 and 4.
+    overlap_s = max(0.0, min(commit2[2], spans[3][1])
+                    - max(commit2[1], spans[2][0]))
+    return {"losses": losses, "step_ms": step_ms,
+            "snapshot_ms": snapshot_ms, "commit2_wait_ms": wait2_ms,
+            "snapshot4_ms": snapshot4_ms,
+            "close_s": close_s, "restore_s": restore_s,
+            "commit_s": {c[0]: c[2] - c[1] for c in commits},
+            "write_under_steps_s": overlap_s, "fed": fed}
+
+
+def handoff_launcher(cfg, ckpt_dir: Path, recorder: CoordinatorRecorder,
+                     fed_before: list, seed: int) -> dict:
+    """(b) The launcher with --checkpoint-dir resumes at step 4, trains
+    5-6 on the seed's first batches again (the JAX launcher's loader
+    restarts from its seed too), saves step 6; its heartbeats and
+    train_step events reach the recorder and its /metrics serves the
+    five gauges."""
+    per_step = train_per_step(cfg.n_layers)
+    argv = ["--model", "llama_1b", "--batch", str(TRAIN_BATCH), "--seq-len",
+            str(TRAIN_SEQ), "--steps", str(HANDOFF_STEPS), "--warmup", "1",
+            "--log-every", "1", "--seed", str(seed), "--checkpoint-dir",
+            str(ckpt_dir)]
+    mport = free_port()
+    fed, final = [], {}
+    real_make = launcher.make_train_step
+
+    def make_train_step(*args, **kwargs):
+        step_fn = real_make(*args, **kwargs)
+
+        def step(state, batch):
+            fed.append(batch["tokens"][:, :8].clone())
+            state, metrics = step_fn(state, batch)
+            final["params"] = {k: v.clone()
+                               for k, v in tree_items(state["params"])}
+            return state, metrics
+
+        return step
+
+    scrapes, done = [], threading.Event()
+
+    def scrape():
+        while not done.wait(0.02):
+            try:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{mport}/metrics",
+                        timeout=2) as r:
+                    scrapes.append(r.read().decode())
+            except OSError:
+                pass                    # not up yet, or closed: try again
+
+    poller = threading.Thread(target=scrape, daemon=True)
+    buf = io.StringIO()
+    launcher.make_train_step = make_train_step
+    poller.start()
+    try:
+        with env_vars(TPU_COORDINATOR_ADDRESS="127.0.0.1:8476",
+                      TPU_PEAK_TFLOPS="989", TPU_JOB_ID=HANDOFF_JOB,
+                      TPU_TRAIN_METRICS_PORT=str(mport)):
+            reset_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = launcher.main(argv)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            launches = train_counts()
+    finally:
+        launcher.make_train_step = real_make
+        done.set()
+        poller.join(timeout=10)
+    print(buf.getvalue(), end="", flush=True)
+    steps = [re.fullmatch(r"step (\d+) loss (\S+) tok/s (\d+)", ln)
+             for ln in buf.getvalue().splitlines() if ln.startswith("step ")]
+    if rc != 0 or not all(steps) or [int(m.group(1)) for m in steps] != [
+            5, 6] or not all(math.isfinite(float(m.group(2)))
+                             for m in steps):
+        raise AssertionError(f"launcher resume: rc {rc}, output "
+                             f"{buf.getvalue()!r}")
+    want = {k: n * 2 for k, n in per_step.items()}
+    if launches != want:
+        raise AssertionError(f"resumed launcher launches {launches} != "
+                             f"{want}")
+    if len(fed) != 2 or not all(torch.equal(a, b)
+                                for a, b in zip(fed, fed_before[:2])):
+        raise AssertionError("the resumed launcher did not feed the seed's "
+                             "first two batches")
+    on_disk = sorted(int(n) for n in os.listdir(ckpt_dir) if n.isdigit())
+    if on_disk != [2, 4, 6] or ckpt.latest_step(str(ckpt_dir)) != 6:
+        raise AssertionError(f"checkpoint steps on disk {on_disk}")
+    mine = [e for e in recorder.events if e.get("job_id") == HANDOFF_JOB]
+    beats = [e["args"] for e in mine if e["name"] == "step_heartbeat"]
+    logs = [e["args"]["step"] for e in mine if e["name"] == "train_step"]
+    if [b["step"] for b in beats] != [5, 6] or logs != [5, 6] or any(
+            b["n_params"] != cfg.num_params() or b["device_count"] != 1
+            or b["peak_tflops"] != 989.0 for b in beats):
+        raise AssertionError(f"coordinator events {mine}")
+    gauges = {}
+    for text in scrapes:
+        for ln in text.splitlines():
+            m = re.fullmatch(r"(tpu_train_\w+) (\S+)", ln)
+            if m:
+                gauges[m.group(1)] = float(m.group(2))
+    if set(gauges) != {n for n, _ in launcher.TRAIN_GAUGES} or \
+            gauges["tpu_train_step"] < 5 or not gauges["tpu_train_mfu"] > 0:
+        raise AssertionError(f"/metrics gauges {gauges} ({len(scrapes)} "
+                             f"scrapes)")
+    return {"argv": argv, "wall_s": wall_s,
+            "losses": [float(m.group(2)) for m in steps],
+            "tok_s": [float(m.group(3)) for m in steps],
+            "launches": launches, "launches_per_step": per_step,
+            "heartbeats": beats, "metrics": gauges,
+            "metrics_scrapes": len(scrapes), "params": final["params"]}
+
+
+def handoff_server(cfg, ckpt_dir: Path, recorder: CoordinatorRecorder,
+                   trained: dict, seed: int) -> dict:
+    """(c) ``python -m kuberay_tpu_torch.serve.server --checkpoint-dir``
+    as a process: RUNNING once it serves, 8 greedy requests each held to
+    the no-cache recompute of the restored params, which must be step 6's
+    bit for bit and not seed 0's; after SIGTERM, STOPPED, then
+    ``drained=True``."""
+    port = free_port()
+    cmd = [sys.executable, "-c", SERVE_WITH_COUNTS, "--model", "llama_1b",
+           "--checkpoint-dir", str(ckpt_dir), "--coordinator", "auto",
+           "--app-name", HANDOFF_APP, "--host", "127.0.0.1", "--port",
+           str(port), "--max-slots", str(SLOTS), "--max-len", str(MAX_LEN)]
+    lines = []
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        cmd, cwd=str(ROOT), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, env=dict(os.environ,
+                            TPU_COORDINATOR_ADDRESS="127.0.0.1:8476"))
+
+    def read():
+        for ln in proc.stdout:
+            lines.append(ln.rstrip("\n"))
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    try:
+        deadline = time.perf_counter() + 300
+        while not any(ln.startswith("serving llama_1b") for ln in lines):
+            if proc.poll() is not None or time.perf_counter() > deadline:
+                raise AssertionError("server did not come up: "
+                                     + "\n".join(lines[-40:]))
+            time.sleep(0.05)
+        serving_s = time.perf_counter() - t0
+        running = list(recorder.statuses)
+        rng = np.random.default_rng(seed)
+        prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+                   for n in PROMPT_LENS]
+        results, errors = {}, []
+
+        def client(i):
+            sent = time.perf_counter() - t0
+            try:
+                results[i] = (sent, post(f"http://127.0.0.1:{port}", {
+                    "prompt_tokens": prompts[i], "max_tokens": MAX_TOKENS,
+                    "temperature": 0.0}))
+            except Exception as e:          # reported below, then raised
+                errors.append(f"request {i}: {e!r}")
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/stats",
+                                    timeout=30) as r:
+            stats = json.load(r)
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=180)
+        reader.join(timeout=30)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    print("\n".join(lines), flush=True)
+    if errors or len(results) != len(prompts) or rc != 0:
+        raise AssertionError(f"server: rc {rc}, errors {errors}")
+    if running != [(HANDOFF_APP, "RUNNING")] or recorder.statuses != [
+            (HANDOFF_APP, "RUNNING"), (HANDOFF_APP, "STOPPED")] or \
+            "serve: drained=True" not in lines:
+        raise AssertionError(f"app statuses {recorder.statuses} (at "
+                             f"serving: {running})")
+    counted = [ln for ln in lines if ln.startswith("kernel launches ")]
+    launches = json.loads(counted[-1][len("kernel launches "):])
+    forwards = stats["prefills"] + stats["decode_steps"] + \
+        stats["verify_steps"]
+    want = {"rmsnorm": (2 * cfg.n_layers + 1) * forwards,
+            "decode_attention": cfg.n_layers * stats["decode_steps"],
+            "decode_attention_quant": 0, "paged_decode_attention": 0}
+    if stats["decode_steps"] == 0 or launches != want:
+        raise AssertionError(f"server launches {launches} != {want} "
+                             f"(stats {stats})")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    params = ckpt.load_params_for_serving(str(ckpt_dir), dtype=cfg.dtype,
+                                          device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t1
+    got = dict(tree_items(params))
+    if set(got) != set(trained) or not all(
+            bits_equal(got[k], v) for k, v in trained.items()):
+        raise AssertionError("the served params are not step 6's")
+    # Every matrix moved; the norms' bf16 ones stay 1.0 under updates of
+    # lr 3e-4 (bf16's step at 1 is 2^-7).
+    seed0 = dict(tree_items(llama.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")))
+    same = [k for k, v in seed0.items() if not k.endswith("norm")
+            and bits_equal(got[k], v)]
+    if same:
+        raise AssertionError(f"served matrices equal seed 0's: {same}")
+    del seed0
+    checks = []
+    for i in sorted(results):
+        status, _, body = results[i][1]
+        n = len(body["tokens"])
+        if status != 200 or not (
+                n == MAX_TOKENS or (body["finish_reason"] == "eos"
+                                    and 0 < n <= MAX_TOKENS)):
+            raise AssertionError(f"request {i}: status {status}, {body}")
+        checks.append(check_against_recompute(cfg, params, prompts[i],
+                                              body["tokens"]))
+    first_token_s = min(sent + body["ttft_ms"] / 1e3
+                        for sent, (_, _, body) in results.values())
+    del params
+    torch.cuda.empty_cache()
+    return {"serving_s": serving_s, "first_token_s": first_token_s,
+            "load_params_for_serving_s": load_s,
+            "ttft_ms": [results[i][1][2]["ttft_ms"] for i in sorted(results)],
+            "engine": stats, "launches": launches, "statuses":
+            recorder.statuses, "recompute_check": checks}
+
+
+def train_to_serve(smi: str, steady_ms: float, seed: int = 0) -> dict:
+    """The handoff at llama_1b, 4 x 2048, bf16 masters: (a) the library,
+    (b) the launcher's resume, (c) the server on the checkpoint, all
+    reporting to a coordinator recorder.  Checkpoints go to a temporary
+    directory whose free space must hold three saves."""
+    cfg = llama.CONFIGS["llama_1b"]
+    save_bytes = 3 * 2 * cfg.num_params()       # params, mu, nu in bf16
+    tmp = Path(tempfile.mkdtemp(prefix="train-to-serve-"))
+    recorder, commits = None, []
+    real_commit = ckpt._commit
+
+    def timed_commit(directory, state, step, keep):
+        t0 = time.perf_counter()
+        real_commit(directory, state, step, keep)
+        commits.append((step, t0, time.perf_counter()))
+
+    try:
+        free = shutil.disk_usage(tmp).free
+        print(f"train_to_serve: {free} bytes free in {tmp} for three saves "
+              f"of about {save_bytes}", flush=True)
+        if free < 3.1 * save_bytes:
+            raise AssertionError(f"{tmp} has {free} bytes free, three saves "
+                                 f"need {3 * save_bytes}")
+        ckpt._commit = timed_commit
+        recorder = CoordinatorRecorder()
+        shard = tmp / "shard.bin"
+        synthetic_shard(str(shard), 2_000_000, cfg.vocab_size, seed)
+        ckpt_dir = tmp / "ckpt"
+        lib = handoff_library(cfg, ckpt_dir, shard, commits, seed)
+        saved_bytes = sum(f.stat().st_size
+                          for f in (ckpt_dir / "2").iterdir())
+        run = handoff_launcher(cfg, ckpt_dir, recorder, lib.pop("fed"), seed)
+        srv = handoff_server(cfg, ckpt_dir, recorder, run.pop("params"),
+                             seed)
+    finally:
+        ckpt._commit = real_commit
+        if recorder is not None:
+            recorder.close()
+        shutil.rmtree(tmp)
+    out = {"model": "llama_1b", "params": cfg.num_params(),
+           "save_bytes": saved_bytes, "free_bytes": free, "library": lib,
+           "launcher": run, "server": srv, "steady_step_ms": steady_ms,
+           "heartbeats": len(run["heartbeats"])}
+    print(f"train_to_serve ({smi}): a save {saved_bytes} bytes; save_async "
+          f"returned in {lib['snapshot_ms']:.1f} ms (the snapshot, pinned "
+          f"buffers allocated; step 4's {lib['snapshot4_ms']:.1f} into them, "
+          f"after {lib['commit2_wait_ms']:.1f} ms waiting for step 2's "
+          f"commit), commits "
+          f"{json.dumps(lib['commit_s'])} s, {lib['write_under_steps_s']:.2f}"
+          f" s of step 2's under steps 3-4; steps "
+          f"{[round(x, 1) for x in lib['step_ms']]} ms (3-4 with the write "
+          f"in flight) against the launcher's steady {steady_ms:.1f}; "
+          f"restore {lib['restore_s']:.2f} s, load_params_for_serving "
+          f"{srv['load_params_for_serving_s']:.2f} s; server up in "
+          f"{srv['serving_s']:.1f} s, first token at "
+          f"{srv['first_token_s']:.1f} s; {out['heartbeats']} heartbeats",
+          flush=True)
+    return out
 
 
 def main(argv=None) -> None:
@@ -2027,11 +2526,14 @@ def main(argv=None) -> None:
     trn = train(profile=args.profile)
     print(f"train: {json.dumps(trn)}", flush=True)
     trn_ring = train_ring(profile=args.profile)
+    handoff = train_to_serve(smi, trn["launcher"]["step_ms_median_steady"])
     by_path = {"serve": srv["launches"],
                **{name: run["launches"] for name, run in cached.items()},
                **{name: run["launches"] for name, run in options.items()},
                "train": trn["launcher"]["launches"],
-               "train_ring": trn_ring["launches"]}
+               "train_ring": trn_ring["launches"],
+               "train_ckpt": handoff["launcher"]["launches"],
+               "serve_ckpt": handoff["server"]["launches"]}
 
     def entry(name, route, source, replaces, res):
         m = res["main"]
@@ -2088,7 +2590,7 @@ def main(argv=None) -> None:
         "decode_attention_quant": decq, "paged_decode_attention": paged,
         "flash": flash, "chunked_xent": xe, "ring": ring, "serve": srv,
         **cached, **options, "train": trn, "train_ring": trn_ring,
-        **kernels}, indent=1))
+        "train_to_serve": handoff, **kernels}, indent=1))
     print(smi, flush=True)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,7 @@ Port of ``kuberay_tpu/parallel/mesh.py``'s ``MeshSpec`` (axis names and
 ``resolve``, copied).  ``MeshSpec.build`` maps onto
 ``torch.distributed.device_mesh.init_device_mesh`` over the default process
 group; only the ``sp`` axis may be larger than 1 here (FSDP and tensor
-parallel placements are ROADMAP C5).
+parallel placements are ROADMAP A8).
 
 Two kinds of mesh carry the ``sp`` ring:
 
@@ -82,7 +82,7 @@ def _only_sp(sizes: Dict[str, int]) -> None:
     if big:
         raise NotImplementedError(
             f"mesh axes {big}: only the sp axis may be larger than 1 here; "
-            f"FSDP, tensor, data and expert parallel layouts are ROADMAP C5")
+            f"FSDP, tensor, data and expert parallel layouts are ROADMAP A8")
 
 
 class LocalRing:

@@ -1,7 +1,7 @@
 """Inference HTTP server for the PyTorch engine.
 
-Port of the core of ``kuberay_tpu/serve/server.py``: a background thread
-drains the continuous batcher; HTTP handlers enqueue requests and wait on
+Port of ``kuberay_tpu/serve/server.py``: a background thread drains the
+continuous batcher; HTTP handlers enqueue requests and wait on
 per-request events.  Same wire format as the JAX server:
 
     POST /v1/completions   {"prompt_tokens": [...], "max_tokens": N,
@@ -21,13 +21,12 @@ that trace) and echoed.  ``/metrics`` is Prometheus text: every numeric
 stat as a ``tpu_serve_*`` counter or gauge, then the engine registry's
 request-phase histogram ``tpu_serve_request_duration_seconds``.
 
-The KV-block endpoints, coordinator registration (and
-``--config-from-coordinator``) and multi-host serving are not ported yet.
-
 Run:  python -m kuberay_tpu_torch.serve.server --model llama3_8b
           [--paged [--block-size 16] [--num-blocks N]] [--kv-quant int8]
           [--prefill-chunk N] [--speculative N] [--weight-quant int8]
-          [--app-name NAME]
+          [--checkpoint-dir DIR [--checkpoint-step N]]
+          [--app-name NAME] [--coordinator URL|auto
+          [--config-from-coordinator [--config-wait S]]]
 
 ``--paged`` serves from the paged KV pool with prefix caching
 (``serve/paged_engine.py``); ``--kv-quant int8`` stores K/V in int8, in
@@ -35,12 +34,26 @@ the paged pool or, without ``--paged``, in the dense cache;
 ``--prefill-chunk`` prefills prompts in chunks of that many tokens;
 ``--speculative`` drafts that many tokens by prompt lookup for greedy
 requests; ``--weight-quant int8`` serves int8 weights.
+
+``--checkpoint-dir`` serves the params of a train checkpoint
+(``train/checkpoint.py``, the newest step or ``--checkpoint-step``)
+instead of seed 0's random weights; a missing checkpoint is a usage
+error.  With ``--coordinator`` the app reports RUNNING to the head's
+coordinator once its socket is bound and STOPPED before it drains;
+``--config-from-coordinator`` first reads the app's block of the
+submitted serve config (the TpuService's ``serveConfig``), which
+overrides the flags.  Config keys for features the port lacks are
+refused, naming their ROADMAP item: ``tp`` > 1 and ``group_*``
+(multi-host and tensor-parallel serving, A9) and ``host_blocks`` /
+``spill_blocks`` > 0 (KV tiers, A7); so is a slice of more than one
+process (A9).  The KV-block endpoints (A7) are not ported yet.
 """
 
 from __future__ import annotations
 
 import itertools
 import json
+import os
 import queue
 import sys
 import threading
@@ -51,6 +64,11 @@ from http.server import ThreadingHTTPServer
 from typing import Any, Dict, Optional
 
 from kuberay_tpu_torch.obs.trace import TraceContext
+from kuberay_tpu_torch.runtime.coordinator_client import (
+    CoordinatorClient,
+    CoordinatorError,
+    dashboard_url,
+)
 from kuberay_tpu_torch.serve.engine import Request, Response, ServeEngine
 from kuberay_tpu_torch.serve.paged_engine import PagedServeEngine
 from kuberay_tpu_torch.utils import constants as C
@@ -438,6 +456,108 @@ class ServeFrontend:
         return serve_background(self.make_server(host, port), "serve-http")
 
 
+def register_with_coordinator(app_name: str, coordinator_url: str,
+                              status: str = "RUNNING") -> bool:
+    """Report the serve app's status to the head's coordinator (what the
+    TpuService controller reads)."""
+    try:
+        CoordinatorClient(coordinator_url).set_serve_app_status(
+            app_name, status)
+        return True
+    except CoordinatorError:
+        return False
+
+
+# The serve config's application keys -> engine CLI args (the
+# serveConfig-to-engine wire, as the JAX server reads it): key ->
+# (coercion, allowed choices or None).  Explicit CLI flags are
+# overwritten: in a managed pod the submitted config is the source of
+# truth.
+_CONFIG_KEYS = {
+    "model": (str, None),
+    "paged": (bool, None),
+    "block_size": (int, None),
+    "num_blocks": (int, None),
+    "host_blocks": (int, None),
+    "spill_blocks": (int, None),
+    "prefill_chunk": (int, None),
+    "speculative": (int, None),
+    "kv_quant": (str, ("none", "int8")),
+    "weight_quant": (str, ("none", "int8")),
+    "tp": (int, None),
+    "max_slots": (int, None),
+    "max_len": (int, None),
+    "checkpoint_dir": (str, None),
+    "checkpoint_step": (int, None),
+    "decode_impl": (str, ("auto", "pallas", "xla", "pallas_interpret")),
+    "group_miss_timeout": (float, None),
+    "group_step_timeout": (float, None),
+    "group_compile_timeout": (float, None),
+    "group_budget_multiplier": (float, None),
+}
+
+
+def _unported(key: str, val) -> Optional[str]:
+    """Why the port cannot honour config ``key`` = ``val``, or None."""
+    if key == "tp" and val > 1:
+        return "tensor-parallel serving is not ported yet (ROADMAP A9)"
+    if key.startswith("group_"):
+        return "multi-host serve groups are not ported yet (ROADMAP A9)"
+    if key in ("host_blocks", "spill_blocks") and val > 0:
+        return "the paged pool's KV tiers are not ported yet (ROADMAP A7)"
+    if key == "decode_impl" and val != "auto":
+        return ("the port has one decode path, its CUDA kernels (auto); "
+                "it has no XLA or Pallas path to choose")
+    return None
+
+
+def _apply_coordinator_config(args, ap) -> None:
+    """Fetch the submitted serve config and fold this app's settings into
+    ``args`` (a bounded wait: the controller PUTs the config only once
+    the cluster reports ready, which may be after the pod starts)."""
+    if not args.coordinator:
+        ap.error("--config-from-coordinator requires --coordinator "
+                 "(or auto with the operator env)")
+    client = CoordinatorClient(args.coordinator)
+    deadline = time.time() + args.config_wait
+    cfg = None
+    while time.time() < deadline:
+        try:
+            doc = client.get_serve_config()
+        except CoordinatorError:
+            doc = {}
+        for app in (doc or {}).get("applications", []) or []:
+            if app.get("name") == args.app_name:
+                cfg = app
+                break
+        if cfg is not None:
+            break
+        time.sleep(1.0)
+    if cfg is None:
+        ap.error(f"serve config for app {args.app_name!r} did not "
+                 f"appear on {args.coordinator} within "
+                 f"{args.config_wait:.0f}s")
+    applied = {}
+    for key, (coerce, choices) in _CONFIG_KEYS.items():
+        if key not in cfg:
+            continue
+        try:
+            val = coerce(cfg[key])
+        except (TypeError, ValueError):
+            ap.error(f"serve config {key}={cfg[key]!r}: not a valid "
+                     f"{coerce.__name__}")
+        if choices is not None and val not in choices:
+            ap.error(f"serve config {key}={val!r}: must be one of "
+                     f"{choices}")
+        why = _unported(key, val)
+        if why is not None:
+            ap.error(f"serve config {key}={val!r}: {why}")
+        setattr(args, key, val)
+        applied[key] = val
+    print(f"serve config applied for app {args.app_name!r}: {applied}",
+          flush=True)
+
+
 def main(argv=None):
     import argparse
     import signal
@@ -445,6 +565,8 @@ def main(argv=None):
     import torch
 
     from kuberay_tpu_torch.models import llama
+    from kuberay_tpu_torch.train.checkpoint import load_params_for_serving
+    from kuberay_tpu_torch.train.launcher import WorkerIdentity
     from kuberay_tpu_torch.utils.device import resolve_device
 
     ap = argparse.ArgumentParser(prog="kuberay-tpu-torch-serve")
@@ -475,13 +597,51 @@ def main(argv=None):
                          "scales (half the weight bytes)")
     ap.add_argument("--app-name", default="llm",
                     help="the serve application's name")
+    ap.add_argument("--coordinator", default="",
+                    help="the head coordinator's URL, or auto (from "
+                         "TPU_COORDINATOR_ADDRESS): the app reports "
+                         "RUNNING and STOPPED there")
+    ap.add_argument("--checkpoint-dir", default="",
+                    help="serve the params of this train checkpoint "
+                         "directory instead of seed 0's random weights")
+    ap.add_argument("--checkpoint-step", type=int, default=-1,
+                    help="checkpoint step to serve (-1 = latest; 0 is "
+                         "a real step)")
+    ap.add_argument("--config-from-coordinator", action="store_true",
+                    help="read this app's engine settings from the "
+                         "coordinator's submitted serve config before "
+                         "starting")
+    ap.add_argument("--config-wait", type=float, default=60.0,
+                    help="seconds to wait for the serve config to "
+                         "appear on the coordinator")
     args = ap.parse_args(argv)
+    if args.coordinator == "auto":
+        addr = os.environ.get(C.ENV_COORDINATOR_ADDRESS, "")
+        args.coordinator = dashboard_url(addr) if addr else ""
+    if args.config_from_coordinator:
+        _apply_coordinator_config(args, ap)
+    ident = WorkerIdentity.from_env()
+    if ident.is_distributed:
+        raise NotImplementedError(
+            f"a slice of {ident.global_process_count} processes: "
+            f"multi-host serving is not ported yet (ROADMAP A9)")
     device = resolve_device(args.device)
 
     cfg = llama.CONFIGS[args.model]
-    # Seed-0 random init: no checkpoint loading in the port yet.
-    gen = torch.Generator(device=device).manual_seed(0)
-    params = llama.init_params(cfg, gen, device)
+    if args.checkpoint_dir:
+        # The train-to-serve handoff.  A missing checkpoint is an error:
+        # serving random weights instead would look like a broken model.
+        step = None if args.checkpoint_step < 0 else args.checkpoint_step
+        params = load_params_for_serving(args.checkpoint_dir, step=step,
+                                         dtype=cfg.dtype, device=device)
+        if params is None:
+            ap.error(f"no checkpoint found in {args.checkpoint_dir}"
+                     + (f" at step {step}" if step is not None else ""))
+        print(f"restored params from {args.checkpoint_dir} "
+              f"(step {'latest' if step is None else step})", flush=True)
+    else:
+        gen = torch.Generator(device=device).manual_seed(0)
+        params = llama.init_params(cfg, gen, device)
     engine_kw = dict(max_slots=args.max_slots, max_len=args.max_len,
                      device=device, kv_quant=args.kv_quant,
                      prefill_chunk=args.prefill_chunk,
@@ -499,6 +659,8 @@ def main(argv=None):
     del params
     frontend = ServeFrontend(engine)
     srv = frontend.make_server(args.host, args.port)
+    if args.coordinator:
+        register_with_coordinator(args.app_name, args.coordinator)
     kind = "paged" if args.paged else "dense"
     print(f"serving {args.model} on {args.host}:{srv.server_address[1]} "
           f"(app {args.app_name}; {device}, {kind} KV cache, kv quant "
@@ -511,10 +673,18 @@ def main(argv=None):
         print("serve: SIGTERM — draining", flush=True)
         threading.Thread(target=srv.shutdown, daemon=True).start()
 
-    signal.signal(signal.SIGTERM, _on_term)
+    try:
+        signal.signal(signal.SIGTERM, _on_term)
+    except ValueError:                 # not the main thread
+        pass
     try:
         srv.serve_forever()
     finally:
+        if args.coordinator:
+            # First, so the controller stops routing here while we drain
+            # (the socket already stopped accepting).
+            register_with_coordinator(args.app_name, args.coordinator,
+                                      status="STOPPED")
         drained = frontend.drain(timeout=60.0)
         srv.server_close()
         print(f"serve: drained={drained}", flush=True)

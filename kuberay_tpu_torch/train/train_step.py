@@ -23,7 +23,7 @@ one device) or a ``DeviceMesh`` (one process per rank).  Parameters and
 optimizer state are replicated over sp; each rank takes its S shard of the
 global batch, divides its loss sum by the global token count, and the
 gradients are summed over sp before clipping and AdamW.  FSDP and tensor
-parallel placements wait for ROADMAP C5.
+parallel placements wait for ROADMAP A8.
 """
 
 from __future__ import annotations

@@ -1,6 +1,7 @@
-"""Prometheus text exposition for the serving engine, no client library
-(a copy of the histogram part of ``kuberay_tpu/utils/metrics.py``: the
-engine observes the request-phase histogram, the server renders it)."""
+"""Prometheus text exposition, no client library (a copy of the gauge and
+histogram parts of ``kuberay_tpu/utils/metrics.py``: the serving engine
+observes the request-phase histogram, the training launcher sets its
+``tpu_train_*`` gauges, and their HTTP servers render them)."""
 
 from __future__ import annotations
 
@@ -43,6 +44,7 @@ class Histogram:
 class MetricsRegistry:
     def __init__(self):
         self._lock = threading.Lock()
+        self._gauges: Dict[Tuple[str, Tuple], float] = {}
         self._hists: Dict[Tuple[str, Tuple], Histogram] = {}
         self._help: Dict[str, str] = {}
 
@@ -52,6 +54,11 @@ class MetricsRegistry:
 
     def describe(self, name: str, help_text: str):
         self._help[name] = help_text
+
+    def set_gauge(self, name: str, value: float,
+                  labels: Optional[Dict[str, str]] = None):
+        with self._lock:
+            self._gauges[(name, self._labels_key(labels))] = value
 
     def observe(self, name: str, value: float,
                 labels: Optional[Dict[str, str]] = None,
@@ -94,14 +101,21 @@ class MetricsRegistry:
         lines: List[str] = []
         with self._lock:
             seen = set()
-            for (name, labels), h in sorted(self._hists.items()):
+
+            def header(name, mtype):
                 if name not in seen:
                     seen.add(name)
                     if name in self._help:
                         lines.append(
                             f"# HELP {name} "
                             f"{self._escape_help(self._help[name])}")
-                    lines.append(f"# TYPE {name} histogram")
+                    lines.append(f"# TYPE {name} {mtype}")
+
+            for (name, labels), v in sorted(self._gauges.items()):
+                header(name, "gauge")
+                lines.append(f"{name}{self._fmt_labels(labels)} {v}")
+            for (name, labels), h in sorted(self._hists.items()):
+                header(name, "histogram")
                 cum = 0
                 for i, (b, c) in enumerate(zip(h.buckets, h.counts)):
                     cum += c

@@ -16,14 +16,14 @@ from kuberay_tpu_torch.ops import paged_attention as pa
 from kuberay_tpu_torch.ops import rmsnorm as rn
 from kuberay_tpu_torch.parallel.mesh import LocalRing
 from kuberay_tpu_torch.serve import engine, paged_engine, server
-from kuberay_tpu_torch.train import launcher, train_step
+from kuberay_tpu_torch.train import checkpoint, launcher, train_step
 
 torch.set_num_threads(2)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "kuberay_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "optax", "kuberay_tpu")
+FORBIDDEN = ("jax", "jaxlib", "optax", "orbax", "tensorstore", "kuberay_tpu")
 
 
 def _imported_modules(tree):
@@ -70,6 +70,8 @@ def test_entry_points_raise_without_a_card(monkeypatch):
             server.main(["--model", "llama_tiny", "--port", "0", *extra])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         launcher.main(["--model", "llama_tiny", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        checkpoint.load_params_for_serving("no-such-checkpoint")
     init, _, _ = train_step.make_sharded_train_fns(
         cfg, train_step.TrainConfig(), LocalRing(4))
     with pytest.raises(RuntimeError, match="no CUDA device"):
