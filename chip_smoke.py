@@ -129,6 +129,38 @@
    prefill and decode.  Each phase's line (TTFT, decode step ms, tokens
    per second and per forward, speculation counters, weight bytes, peak
    memory) is printed beside the card's name and power limit.
+   KV tiers (``serve_tiers``): the same weights through
+   PagedServeEngine(block_size=16, 384 blocks, host_blocks=512) behind the
+   frontend: 8 prompts of 519-1500 tokens (4 share a 512-token prefix),
+   32 new tokens each; the same wave again while its blocks are on the
+   card; the demotions still queued drained; 6 unrelated 1500-token
+   prompts that cannibalise every block of the first wave; the first wave
+   again.  The repeat must promote from the host tier and prefill fewer
+   tokens than the first wave, its tokens must equal the warm wave's bit
+   for bit, and the first wave's and the repeat's tokens must pass the
+   no-cache recompute.  Prints demotions per step, device-to-host and
+   host-to-device ms a block.  Disaggregated serving (``serve_disagg``):
+   two PagedServeEngines sharing the weights, each behind its frontend;
+   the gateway's calls in its order (prefill replica for one token,
+   ``/v1/kv/resident`` on the decode replica, ``/v1/kv/export`` past the
+   resident blocks, ``/v1/kv/import``, then the prompt and its first
+   token on the decode replica) for prompts of 519, 1023 (sharing the
+   first's prefix) and 1500 tokens: the imported blocks' prefix hits, the
+   prefill replica's own tokens for the same body, the recompute, a
+   second handoff that sends nothing, the seven load headers; prints the
+   bytes and export and import ms a block.
+   Mixtral (``mixtral_serve``): mixtral_8x7b at its published widths
+   (d 4096, 32/8 heads of 128, d_ff 14336, 8 experts top-2, vocab 32000,
+   RoPE theta 1e6) and 8 of its 32 layers (seeded random bf16, about 23.8
+   GB; the full depth does not fit one card), through the dense bf16
+   engine on the serve prompts, the paged engine on the shared-prefix
+   prompts and the dense engine with int8 weights, as the serving options
+   above: 17 RMSNorms a forward, 8 decode-kernel launches a decode step,
+   8 host syncs of the grouped expert FFN a forward; rows per expert.
+   ``mixtral_train``: ``mixtral.loss_fn`` forward and backward (no
+   optimizer) at the same widths, 4 layers, B 2 x S 2048, full remat,
+   chunked CE 8192, three steps: finite loss and gradients, the aux
+   losses, 8 flash forwards, 4 dK/dV, 4 dQ and 17 RMSNorms a step.
 4. Train: runs the launcher (``kuberay_tpu_torch.train.launcher.main``)
    on llama_1b at full width and depth, batch 4 x 2048, 8 steps, bf16
    masters, on the synthetic shard; then 8 steps of make_train_step on
@@ -211,10 +243,11 @@ import torch
 import torch.nn.functional as F
 from torch.nn.attention import SDPBackend, sdpa_kernel
 
-from kuberay_tpu_torch.models import llama
+from kuberay_tpu_torch.models import llama, mixtral
 from kuberay_tpu_torch.ops import _build
 from kuberay_tpu_torch.ops import attention as fa
 from kuberay_tpu_torch.ops import decode_attention as da
+from kuberay_tpu_torch.ops import moe_matmul as moe
 from kuberay_tpu_torch.ops import paged_attention as pa
 from kuberay_tpu_torch.ops import ring_attention as ra
 from kuberay_tpu_torch.ops import rmsnorm as rn
@@ -231,6 +264,7 @@ from kuberay_tpu_torch.serve.engine import (
     prompt_lookup_draft,
 )
 from kuberay_tpu_torch.serve.kv_cache import (
+    base_forward_for,
     forward_with_cache,
     init_kv_cache,
     quantize_kv,
@@ -290,6 +324,23 @@ RECOMPUTE_MARGIN = {"bf16": 0.05, "int8": 0.1}
 PREFILL_CHUNK, GAMMA = 256, 4
 LOOP_PERIODS, LOOP_PROBE = (2, 3, 4), 24
 MEM_SLACK = 2e9
+# KV tiers (serve_tiers): a pool of TIER_BLOCKS blocks that holds the
+# first wave whole (its 8 prompts and their decode blocks take about 355),
+# so its warm repeat and its promoted repeat prefill the same tails; a
+# host tier of TIER_HOST blocks; an evicting wave of EVICT_LENS prompts of
+# one new token each, which needs more blocks than the pool has.
+TIER_BLOCKS, TIER_HOST = 384, 512
+TIER_OTHER_LENS = (600, 900, 1024, 1500)
+EVICT_LENS = (1500,) * 6
+# Disaggregated serving (serve_disagg): two paged replicas with host tiers
+# (so every KV load header is sent), the gateway's calls in its order.
+DISAGG_HOST, DISAGG_LONG = 256, 1500
+# Mixtral: mixtral_8x7b's published widths at MIXTRAL_SERVE_LAYERS of its
+# 32 layers for serving (about 23.8 GB of bf16 weights; the full depth's
+# 93 GB does not fit one card) and MIXTRAL_TRAIN_LAYERS for the training
+# step (weights and their gradients), B 2 x S 2048.
+MIXTRAL_SERVE_LAYERS, MIXTRAL_TRAIN_LAYERS = 8, 4
+MIXTRAL_B, MIXTRAL_S, MIXTRAL_STEPS = 2, 2048, 3
 # Sequence parallelism on one card: LocalRing(4) over a 4096 sequence,
 # llama_1b's heads, shards of 1024.
 RING_B, RING_S, RING_SP = 2, 4096, 4
@@ -1398,7 +1449,8 @@ def drive(engine, prompts, repeat: int, same_as_batch: bool) -> dict:
             "launches": launches, "engine": stats,
             "engine_after_batch": batch_stats,
             "tokens": [results[i][2]["tokens"] for i in sorted(results)],
-            "repeat_tokens": tokens[0],
+            "ids": [results[i][2]["id"] for i in sorted(results)],
+            "repeat_tokens": tokens[0], "repeat_id": again[0][2]["id"],
             "repeat_equals_batch": tokens[0] == first}
 
 
@@ -1446,14 +1498,15 @@ def serve(cfg, params, seed: int = 0) -> dict:
             "setup_s": setup_s, **run, "recompute_check": ref}
 
 
-def shared_prefix_prompts(vocab: int, seed: int):
-    """Four prompts that share one SHARED-token prefix, then four that
-    share nothing."""
+def shared_prefix_prompts(vocab: int, seed: int, other=None):
+    """Four prompts that share one SHARED-token prefix, then prompts of the
+    ``other`` lengths (default OTHER_LENS) that share nothing."""
+    other = OTHER_LENS if other is None else other
     rng = np.random.default_rng(seed)
     prefix = rng.integers(0, vocab, SHARED).tolist()
     return ([prefix + rng.integers(0, vocab, n).tolist()
              for n in SHARED_SUFFIXES]
-            + [rng.integers(0, vocab, n).tolist() for n in OTHER_LENS])
+            + [rng.integers(0, vocab, n).tolist() for n in other])
 
 
 def serve_cached(cfg, params, kv_quant: str, paged: bool,
@@ -1497,9 +1550,95 @@ def serve_cached(cfg, params, kv_quant: str, paged: bool,
     return out
 
 
+class RouteRecorder:
+    """The experts a Mixtral engine chose for every row it served.
+
+    Wraps the engine's model calls (``_prefill_forward``,
+    ``_decode_forward``, and ``_admit`` for the request being prefilled)
+    to note which request and position each row of the call is, and
+    ``mixtral.route`` to keep each layer's top-k expert ids on the device
+    (no sync while serving).  ``close`` counts the rows each expert ran
+    (``rows_per_expert``, idle slots' rows included, as the grouped FFN
+    runs them); ``experts(rid, seq)`` then gives, per layer,
+    the [len(seq), K] ids the serving chose for the positions of ``seq``
+    (the request's own rows, or the rows of another request whose cached
+    blocks it reused, matched by token prefix), -1 where no row was
+    served.  ``close`` restores everything."""
+
+    def __init__(self, engine):
+        self.engine, self.calls, self.ctx = engine, [], None
+        self._req = None
+        self._real = {n: getattr(engine, n) for n in
+                      ("_admit", "_prefill_forward", "_decode_forward")}
+        self._route = mixtral.route
+        engine._admit = self._admit
+        engine._prefill_forward = self._prefill_forward
+        engine._decode_forward = self._decode_forward
+        mixtral.route = self.route
+
+    def _admit(self, req, slot):
+        self._req = req
+        return self._real["_admit"](req, slot)
+
+    def _prefill_forward(self, tokens, slot, start, real_len, logits_index):
+        s0 = int(start[0])
+        req = self._req
+        self.ctx = {"rows": [(req.request_id, req.prompt_tokens, s0 + j)
+                             for j in range(real_len)], "layers": []}
+        self.calls.append(self.ctx)
+        return self._real["_prefill_forward"](tokens, slot, start, real_len,
+                                              logits_index)
+
+    def _decode_forward(self, tokens, lens, mask, token_mask=None):
+        e = self.engine
+        self.ctx = {"rows": [
+            None if r is None else
+            (r.request_id, list(r.prompt_tokens) + e.generated[i],
+             int(e.lens[i])) for i, r in enumerate(e.active)],
+            "layers": []}
+        self.calls.append(self.ctx)
+        return self._real["_decode_forward"](tokens, lens, mask, token_mask)
+
+    def route(self, cfg, xt, router):
+        out = self._route(cfg, xt, router)
+        if self.ctx is not None:
+            self.ctx["layers"].append(out[3])
+        return out
+
+    def close(self):
+        for n in self._real:
+            delattr(self.engine, n)
+        mixtral.route = self._route
+        self.by_req, self.by_prefix = {}, {}
+        rows = torch.zeros(self.engine.cfg.n_experts, dtype=torch.long)
+        for call in self.calls:
+            ids = [t.cpu() for t in call["layers"]]
+            for t in ids:
+                rows += torch.bincount(t.flatten(), minlength=len(rows))
+            for row, info in enumerate(call["rows"]):
+                if info is None:
+                    continue
+                rid, seq, pos = info
+                chosen = [t[row].tolist() for t in ids]
+                self.by_req[(rid, pos)] = chosen
+                self.by_prefix.setdefault(tuple(seq[:pos + 1]), chosen)
+        self.calls = []
+        self.rows_per_expert = rows.tolist()
+
+    def experts(self, rid, seq, n_layers: int, K: int):
+        out = torch.full((n_layers, len(seq), K), -1, dtype=torch.long)
+        for pos in range(len(seq)):
+            chosen = self.by_req.get((rid, pos)) or \
+                self.by_prefix.get(tuple(seq[:pos + 1]))
+            if chosen is not None:
+                out[:, pos] = torch.tensor(chosen)
+        return out
+
+
 def check_against_recompute(cfg, params, prompt, served,
                             margin_frac: float = RECOMPUTE_MARGIN["bf16"],
-                            other=None, forward=forward_with_cache) -> dict:
+                            other=None, forward=forward_with_cache,
+                            experts=None) -> dict:
     """Greedy tokens served through the cache (prefill + decode kernel)
     vs one no-cache bf16 forward of prompt + served tokens (multi-token
     plain attention): each served token must be the reference's argmax, or
@@ -1508,13 +1647,44 @@ def check_against_recompute(cfg, params, prompt, served,
     first position where the two differ and the reference's logits of
     both tokens there (the prefixes before it are the same, so one forward
     gives both).  ``forward``: the model function served (int8 weights
-    compute another function than bf16 ones)."""
+    compute another function than bf16 ones).  ``experts`` (Mixtral: [L,
+    T, K] expert ids the serving chose, -1 where none, from
+    ``RouteRecorder``): the recompute routes each row to those experts,
+    weighted by its own router probabilities.  Without it the recompute
+    would be another function: a token whose top-k experts nearly tie
+    goes to other experts in calls whose products round differently,
+    which moves its output by an expert's share (my chip runs 1-3, PR 11:
+    served tokens up to 4.4 below the recompute's best where the margin
+    is 0.23).  How often the recompute's own routing agrees with the
+    served one is reported (``routing_agreement``)."""
     seq = torch.tensor([prompt + served], device="cuda")
     T = seq.shape[1]
     cache = init_kv_cache(cfg, 1, T, "cuda")
-    with torch.no_grad():
-        logits, _ = forward(cfg, params, seq, cache,
-                            torch.zeros(1, dtype=torch.long, device="cuda"))
+    real_route, route_agree = mixtral.route, []
+
+    def route(cfg_, xt, router):
+        logits, probs, topw, topi = real_route(cfg_, xt, router)
+        forced = experts[len(route_agree)].to(topi.device)
+        own = forced[:, 0] < 0
+        route_agree.append((forced.sort(-1).values == topi.sort(-1).values)
+                           .all(-1)[~own])
+        topi = torch.where(own[:, None], topi, forced)
+        topw = probs.gather(-1, topi)
+        topw = topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9)
+        return logits, probs, topw, topi
+
+    if experts is not None:
+        if (experts[:, :T - 1] < 0).any():
+            raise AssertionError("the serving's experts were not recorded "
+                                 "for every row of the sequence")
+        mixtral.route = route
+    try:
+        with torch.no_grad():
+            logits, _ = forward(cfg, params, seq, cache,
+                                torch.zeros(1, dtype=torch.long,
+                                            device="cuda"))
+    finally:
+        mixtral.route = real_route
     rows = logits[0, len(prompt) - 1:T - 1]                 # predicts served
     if not torch.isfinite(rows).all():
         raise AssertionError("recompute logits are not finite")
@@ -1527,6 +1697,8 @@ def check_against_recompute(cfg, params, prompt, served,
                              f"choices: gaps {gap.tolist()} > {margin}")
     out = {"tokens": len(served), "argmax_agree": agree,
            "max_gap": gap.max().item(), "margin": margin}
+    if route_agree:
+        out["routing_agreement"] = torch.cat(route_agree).float().mean().item()
     if other is not None:
         i = next((i for i, (a, b) in enumerate(zip(served, other))
                   if a != b), None)
@@ -1652,7 +1824,14 @@ def serve_option(name: str, cfg, params, smi: str, paged: bool,
     kv8 = options.get("kv_quant") == "int8"
     kernel = "decode_attention_quant" if kv8 else (
         "paged_decode_attention" if paged else "decode_attention")
-    run = drive(engine, prompts, repeat=repeat, same_as_batch=same_as_batch)
+    moe_cfg = isinstance(cfg, mixtral.MixtralConfig)
+    recorder = RouteRecorder(engine) if moe_cfg else None
+    try:
+        run = drive(engine, prompts, repeat=repeat,
+                    same_as_batch=same_as_batch)
+    finally:
+        if recorder is not None:
+            recorder.close()
     expect_decode_kernel(run, kernel, cfg.n_layers)
     out = {"phase": name, "paged": paged, "prompts": seed_note,
            "options": options, "setup_s": setup_s, **run}
@@ -1664,9 +1843,12 @@ def serve_option(name: str, cfg, params, smi: str, paged: bool,
         out["spec"] = spec
         if spec["verify_steps"] == 0:
             raise AssertionError(f"{name}: no verify step ({run['engine']})")
-    forward, served_params = forward_with_cache, params
+    if moe_cfg:
+        out["moe"] = moe_counts(cfg, run["engine"], recorder)
+    family = base_forward_for(cfg) or forward_with_cache
+    forward, served_params = family, params
     if options.get("weight_quant") == "int8":
-        forward = make_weight_dequant_forward(forward_with_cache)
+        forward = make_weight_dequant_forward(family)
         served_params = engine.params
         wb = weight_bytes(engine.params)
         cache_bytes = tree_bytes(engine.cache)
@@ -1685,15 +1867,26 @@ def serve_option(name: str, cfg, params, smi: str, paged: bool,
             raise AssertionError(f"{name}: decode steps peaked at "
                                  f"{decode_peak} bytes > {limit}")
     margin = RECOMPUTE_MARGIN["int8" if kv8 else "bf16"]
+    def experts(rid, prompt, served):
+        if recorder is None:
+            return None
+        return recorder.experts(rid, prompt + served, cfg.n_layers,
+                                cfg.top_k)
+
     checks = [check_against_recompute(cfg, served_params, p, t, margin,
-                                      forward=forward)
-              for p, t in zip(prompts, run["tokens"])]
+                                      forward=forward,
+                                      experts=experts(rid, p, t))
+              for p, t, rid in zip(prompts, run["tokens"], run["ids"])]
+    rt = run["repeat_tokens"]
     checks.append(check_against_recompute(
-        cfg, served_params, prompts[repeat], run["repeat_tokens"], margin,
-        other=run["tokens"][repeat], forward=forward))
+        cfg, served_params, prompts[repeat], rt, margin,
+        other=run["tokens"][repeat], forward=forward,
+        experts=experts(run["repeat_id"], prompts[repeat], rt)))
     out["recompute_check"] = {
         "tokens": sum(c["tokens"] for c in checks),
         "argmax_agree": sum(c["argmax_agree"] for c in checks),
+        **({"routing_agreement": min(c["routing_agreement"]
+                                     for c in checks)} if moe_cfg else {}),
         "max_gap": max(c["max_gap"] for c in checks),
         "margin": min(c["margin"] for c in checks),
         "repeat_divergence": checks[-1]["divergence"]}
@@ -1708,7 +1901,7 @@ def report(name: str, run: dict, smi: str) -> None:
     keep = ("ttft_ms", "decode_step_ms", "decode_tokens_per_s",
             "tokens_per_s", "tokens_per_forward", "max_memory_allocated_gb",
             "decode_peak_memory_gb", "spec", "memory", "recompute_check",
-            "prefix_hit_tokens_batch", "prefix_hit_tokens_repeat")
+            "prefix_hit_tokens_batch", "prefix_hit_tokens_repeat", "moe")
     print(f"{name} [{smi}]: " + json.dumps(
         {k: run[k] for k in keep if k in run}), flush=True)
 
@@ -1834,10 +2027,445 @@ def serve_surface(cfg, params, smi: str, seed: int = 3) -> dict:
     return out
 
 
+def post_json(url: str, path: str, body: dict, timeout: float = 600.0):
+    """(status, headers, JSON body, response bytes) of one POST."""
+    req = urllib.request.Request(
+        url + path, data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        raw = resp.read()
+        return resp.status, dict(resp.headers), json.loads(raw), len(raw)
+
+
+def post_batch(url: str, prompts, max_tokens: int) -> list:
+    """Every prompt POSTed at once (greedy); the bodies in prompt order."""
+    results, errors = {}, []
+
+    def client(i):
+        try:
+            results[i] = post(url, {"prompt_tokens": prompts[i],
+                                    "max_tokens": max_tokens,
+                                    "temperature": 0.0})
+        except Exception as e:              # reported below, then raised
+            errors.append(f"request {i}: {e!r}")
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    if errors or any(t.is_alive() for t in threads) or \
+            any(results[i][0] != 200 or len(results[i][2]["tokens"])
+                != max_tokens for i in results):
+        raise AssertionError(f"batch failed: {errors} {results}")
+    return [results[i][2] for i in range(len(prompts))]
+
+
+def timed_method(obj, name: str, log: list, sync: bool = False):
+    """Replace ``obj.name`` by a wrapper that appends (result, ms) to
+    ``log``, the device synchronised after the call when ``sync`` (a write
+    on the stream is timed to its end).  Delete ``obj.name`` after."""
+    real = getattr(obj, name)
+
+    def wrapper(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = real(*args, **kwargs)
+        if sync:
+            torch.cuda.synchronize()
+        log.append((out, (time.perf_counter() - t0) * 1e3))
+        return out
+
+    setattr(obj, name, wrapper)
+
+
+def prefilled(stats: dict) -> int:
+    """Prompt tokens the paged engine ran through prefill past its cache
+    (full blocks; partial tails are not counted by either side)."""
+    return stats["prefix_query_tokens"] - stats["prefix_hit_tokens"]
+
+
+def serve_tiers(cfg, params, smi: str, seed: int = 5) -> dict:
+    """llama3_8b at full width and depth through PagedServeEngine with a
+    host KV tier, behind the HTTP frontend: a first wave of 8 prompts (4
+    share a 512-token prefix), the same wave again while its blocks are
+    on the device (the warm wave), the demotions still queued drained, an
+    evicting wave of unrelated prompts that cannibalises every block of
+    the first wave, then the first wave once more.  That repeat must
+    promote from the host tier (tier_fetch_blocks > 0) and prefill fewer
+    tokens than the first wave; its tokens must equal the warm wave's bit
+    for bit (the promoted rows are the device rows' bf16 values, and both
+    waves prefill the same tails); the first wave's and the repeat's
+    tokens must pass the no-cache recompute.  The first wave prefilled
+    whole prompts, so its tokens may leave the repeat's where bf16
+    products of other shapes round differently (recorded, not held)."""
+    engine = PagedServeEngine(cfg, params, max_slots=SLOTS, max_len=MAX_LEN,
+                              block_size=BLOCK_SIZE, num_blocks=TIER_BLOCKS,
+                              host_blocks=TIER_HOST, device="cuda")
+    pumps, promotions = [], []
+    timed_method(engine, "_pump_demotions", pumps)
+    timed_method(engine, "_promote_from_tiers", promotions, sync=True)
+    fe = ServeFrontend(engine)
+    srv, url = fe.serve_background("127.0.0.1", 0)
+    prompts = shared_prefix_prompts(cfg.vocab_size, seed, TIER_OTHER_LENS)
+    rng = np.random.default_rng(seed + 1)
+    evict = [rng.integers(0, cfg.vocab_size, n).tolist() for n in EVICT_LENS]
+
+    def stats():
+        return fe.call_engine(lambda e: dict(e.stats))
+
+    def resident():
+        return fe.call_engine(lambda e: [e.resident_prefix_blocks(p)
+                                         for p in prompts])
+
+    waves = {}
+    try:
+        reset_counts()
+        s0 = stats()
+        for name, batch, n in (("first", prompts, MAX_TOKENS),
+                               ("warm", prompts, MAX_TOKENS)):
+            before, n_pumps = stats(), len(pumps)
+            t0 = time.perf_counter()
+            tokens = [b["tokens"] for b in post_batch(url, batch, n)]
+            after = stats()
+            waves[name] = {
+                "wall_s": time.perf_counter() - t0, "tokens": tokens,
+                "prefilled": prefilled(after) - prefilled(before),
+                "demoted_by_steps": sum(o for o, _ in pumps[n_pumps:]),
+                "resident_blocks": resident()}
+        pending = stats()["pending_demotions"]
+        n_pumps = len(pumps)
+        drained = fe.call_engine(lambda e: e._pump_demotions(limit=1 << 20))
+        drain_ms = pumps[n_pumps][1]
+        post_batch(url, evict, 1)
+        waves["evict"] = {"resident_blocks": resident(),
+                          "host_blocks_used": stats()["host_blocks_used"]}
+        before = stats()
+        n_prom = len(promotions)
+        t0 = time.perf_counter()
+        tokens = [b["tokens"] for b in post_batch(url, prompts, MAX_TOKENS)]
+        after = stats()
+        waves["repeat"] = {
+            "wall_s": time.perf_counter() - t0, "tokens": tokens,
+            "prefilled": prefilled(after) - prefilled(before),
+            "tier_fetch_blocks": after["tier_fetch_blocks"]
+            - before["tier_fetch_blocks"],
+            "promotions": [(n, ms) for n, ms in promotions[n_prom:] if n]}
+        launches = serve_counts()
+        final = fe.stats()
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        fe.close()
+        del engine._pump_demotions, engine._promote_from_tiers
+    if any(waves["evict"]["resident_blocks"]):
+        raise AssertionError(f"the evicting wave left first-wave blocks on "
+                             f"the device: {waves['evict']}")
+    rep, first, warm = waves["repeat"], waves["first"], waves["warm"]
+    if rep["tier_fetch_blocks"] <= 0 or \
+            rep["prefilled"] >= first["prefilled"]:
+        raise AssertionError(f"no promotion from the host tier: {rep} "
+                             f"(first wave prefilled {first['prefilled']})")
+    if rep["tokens"] != warm["tokens"]:
+        raise AssertionError(f"promoted repeat {rep['tokens']} != warm "
+                             f"wave {warm['tokens']}")
+    check_rmsnorm_launches(engine, launches, final)
+    expect_decode_kernel({"engine": final, "launches": launches},
+                         "paged_decode_attention", cfg.n_layers)
+    checks = [check_against_recompute(cfg, params, p, t, other=r)
+              for p, t, r in zip(prompts, first["tokens"], rep["tokens"])]
+    checks += [check_against_recompute(cfg, params, p, t)
+               for p, t in zip(prompts, rep["tokens"])]
+    step_pumps = [(o, ms) for o, ms in pumps if o and o <= 4]
+    prom_blocks = sum(n for n, _ in rep["promotions"])
+    out = {
+        "phase": "serve_tiers", "num_blocks": TIER_BLOCKS,
+        "host_blocks": TIER_HOST, "prompt_lens": [len(p) for p in prompts],
+        "evict_lens": list(EVICT_LENS), "launches": launches,
+        "engine": final, "waves": {k: {kk: vv for kk, vv in v.items()
+                                       if kk != "tokens"}
+                                   for k, v in waves.items()},
+        "pending_before_drain": pending, "drained": drained,
+        "drain_ms": drain_ms,
+        "demotions_per_step": [o for o, _ in pumps],
+        "d2h_ms_per_block": {
+            "steps": (sum(ms for _, ms in step_pumps)
+                      / max(1, sum(o for o, _ in step_pumps))),
+            "drain": drain_ms / max(1, drained)},
+        "promotions_per_admission": [n for n, _ in rep["promotions"]],
+        "h2d_ms_per_block": (sum(ms for _, ms in rep["promotions"])
+                             / max(1, prom_blocks)),
+        "first_equals_repeat": sum(a == b for a, b in
+                                   zip(first["tokens"], rep["tokens"])),
+        "warm_equals_first": sum(a == b for a, b in
+                                 zip(first["tokens"], warm["tokens"])),
+        "recompute_check": {
+            "tokens": sum(c["tokens"] for c in checks),
+            "argmax_agree": sum(c["argmax_agree"] for c in checks),
+            "max_gap": max(c["max_gap"] for c in checks),
+            "divergence": [c["divergence"] for c in checks[:len(prompts)]]},
+        "decode_step_ms": 1e3 * final["decode_s"] / final["decode_steps"]}
+    print(f"serve_tiers [{smi}]: " + json.dumps(
+        {k: out[k] for k in ("waves", "pending_before_drain", "drained",
+                             "drain_ms", "demotions_per_step",
+                             "d2h_ms_per_block", "promotions_per_admission",
+                             "h2d_ms_per_block", "first_equals_repeat",
+                             "warm_equals_first", "decode_step_ms")}),
+        flush=True)
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_disagg(cfg, params, smi: str, seed: int = 6) -> dict:
+    """The disaggregated prefill -> decode handoff at llama3_8b: two
+    PagedServeEngines sharing one params tree, each behind its own
+    ServeFrontend, driven with the gateway's calls over HTTP in its order
+    (kuberay_tpu/serve/gateway.py's two-hop forward): the prompt on the
+    prefill replica for one token, ``resident`` on the decode replica,
+    ``export`` on the prefill replica past the resident blocks,
+    ``import`` on the decode replica, then the prompt and its first token
+    on the decode replica.  Checks, per prompt: the decode replica's
+    prefix hits cover the resident and imported blocks; its tokens equal
+    the prefill replica's own for the same body; the whole answer passes
+    the no-cache recompute; a second handoff sends nothing and skips every
+    block.  The second prompt shares the first's 512-token prefix, so its
+    probe finds those blocks resident and the export sends the rest."""
+    kw = dict(max_slots=SLOTS, max_len=MAX_LEN, block_size=BLOCK_SIZE,
+              host_blocks=DISAGG_HOST, device="cuda")
+    engines = {"prefill": PagedServeEngine(cfg, params, **kw),
+               "decode": PagedServeEngine(cfg, params, **kw)}
+    xfer = {"export": [], "import": []}
+    timed_method(engines["prefill"], "export_kv_blocks", xfer["export"])
+    timed_method(engines["decode"], "import_kv_blocks", xfer["import"],
+                 sync=True)
+    fes = {k: ServeFrontend(e) for k, e in engines.items()}
+    served = {k: fe.serve_background("127.0.0.1", 0) for k, fe in fes.items()}
+    pf, de = served["prefill"][1], served["decode"][1]
+    rng = np.random.default_rng(seed + 1)
+    shared = shared_prefix_prompts(cfg.vocab_size, seed)
+    prompts = [shared[0], shared[3],
+               rng.integers(0, cfg.vocab_size, DISAGG_LONG).tolist()]
+    rows = []
+    try:
+        reset_counts()
+        for prompt in prompts:
+            total = len(prompt) // BLOCK_SIZE
+            t0 = time.perf_counter()
+            _, _, hop1, _ = post_json(pf, "/v1/completions", {
+                "prompt_tokens": prompt, "max_tokens": 1})
+            hop1_s = time.perf_counter() - t0
+            tok0 = hop1["tokens"]
+            _, _, res, _ = post_json(de, "/v1/kv/resident",
+                                     {"prompt_tokens": prompt})
+            resident = res["resident_blocks"]
+            t1 = time.perf_counter()
+            _, _, exp, nbytes = post_json(pf, "/v1/kv/export", {
+                "prompt_tokens": prompt, "skip_blocks": resident,
+                "max_blocks": 0})
+            t2 = time.perf_counter()
+            _, _, imp, _ = post_json(de, "/v1/kv/import", {
+                "prompt_tokens": prompt, "blocks": exp["blocks"]})
+            t3 = time.perf_counter()
+            hits0 = fes["decode"].call_engine(
+                lambda e: e.stats["prefix_hit_tokens"])
+            body = {"prompt_tokens": prompt + tok0,
+                    "max_tokens": MAX_TOKENS - 1}
+            _, headers, dec, _ = post_json(de, "/v1/completions", body)
+            handoff_s = time.perf_counter() - t0
+            hits = fes["decode"].call_engine(
+                lambda e: e.stats["prefix_hit_tokens"]) - hits0
+            _, _, own, _ = post_json(pf, "/v1/completions", body)
+            _, _, res2, _ = post_json(de, "/v1/kv/resident",
+                                      {"prompt_tokens": prompt})
+            _, _, exp2, _ = post_json(pf, "/v1/kv/export", {
+                "prompt_tokens": prompt,
+                "skip_blocks": res2["resident_blocks"]})
+            sent = len(exp["blocks"])
+            rows.append({
+                "prompt_len": len(prompt), "blocks": total,
+                "resident": resident, "sent": sent, "import": imp,
+                "export_bytes": nbytes,
+                "export_http_ms_per_block": (t2 - t1) * 1e3 / max(1, sent),
+                "import_http_ms_per_block": (t3 - t2) * 1e3 / max(1, sent),
+                "decode_hits": hits, "handoff_s": handoff_s,
+                "prefill_hop_s": hop1_s, "hop1_ttft_ms": hop1["ttft_ms"],
+                "tokens": tok0 + dec["tokens"],
+                "equals_prefill_replica": dec["tokens"] == own["tokens"],
+                "second": {"resident": res2["resident_blocks"],
+                           "sent": len(exp2["blocks"])},
+                "load_headers": {k: v for k, v in headers.items()
+                                 if k.startswith("X-TPU-")}})
+        launches = serve_counts()
+        stats = {k: fe.stats() for k, fe in fes.items()}
+    finally:
+        for srv, _ in served.values():
+            srv.shutdown()
+            srv.server_close()
+        for fe in fes.values():
+            fe.close()
+        for e, name in ((engines["prefill"], "export_kv_blocks"),
+                        (engines["decode"], "import_kv_blocks")):
+            delattr(e, name)
+    for row, prompt in zip(rows, prompts):
+        want = {"imported": row["blocks"] - row["resident"],
+                "skipped": row["resident"]}
+        if row["sent"] != row["blocks"] - row["resident"] or \
+                row["import"] != want or \
+                row["decode_hits"] < row["blocks"] * BLOCK_SIZE or \
+                not row["equals_prefill_replica"] or \
+                row["second"] != {"resident": row["blocks"], "sent": 0}:
+            raise AssertionError(f"disaggregated handoff: {row}")
+        if len(row["load_headers"]) != 7:
+            raise AssertionError(f"load headers: {row['load_headers']}")
+        row["recompute_check"] = check_against_recompute(
+            cfg, params, prompt, row.pop("tokens"))
+    if rows[1]["resident"] != SHARED // BLOCK_SIZE:
+        raise AssertionError(f"the shared prefix was not resident: {rows}")
+    both = {k: sum(st[k] for st in stats.values())
+            for k in ("prefills", "decode_steps", "verify_steps")}
+    check_rmsnorm_launches(engines["decode"], launches, both)
+    expect_decode_kernel({"engine": both, "launches": launches},
+                         "paged_decode_attention", cfg.n_layers)
+    engine_ms = {k: [(len(o) if isinstance(o, list) else o["imported"], ms)
+                     for o, ms in v] for k, v in xfer.items()}
+    out = {"phase": "serve_disagg", "handoffs": rows, "launches": launches,
+           "engine": both, "engine_ms": engine_ms}
+    print(f"serve_disagg [{smi}]: " + json.dumps(
+        {"handoffs": [{k: v for k, v in r.items()
+                       if k != "recompute_check"} for r in rows],
+         "engine_ms_per_block": {
+             k: [ms / max(1, n) for n, ms in v] for k, v in
+             engine_ms.items()}}), flush=True)
+    del engines, fes
+    torch.cuda.empty_cache()
+    return out
+
+
+def mixtral_serve(smi: str, seed: int = 0) -> dict:
+    """mixtral_8x7b at its published widths, MIXTRAL_SERVE_LAYERS of its
+    32 layers, seeded random bf16 weights, through serve_option: the
+    dense bf16 engine on the serve prompts (repeats bit for bit), the
+    paged engine on shared-prefix traffic (prefix hits, every token
+    against the no-cache recompute) and int8 weights on the dense engine
+    once; 2 L + 1 RMSNorms a forward, L decode-kernel launches a decode
+    step, L host syncs of the grouped FFN a forward."""
+    cfg = dataclasses.replace(mixtral.CONFIGS["mixtral_8x7b"],
+                              n_layers=MIXTRAL_SERVE_LAYERS)
+    t0 = time.perf_counter()
+    params = mixtral.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    out = {"layers": cfg.n_layers, "params": cfg.num_params(),
+           "weight_bytes": tree_bytes(params), "init_s": init_s}
+    print(f"mixtral_serve: {cfg.n_layers} layers, {out['params']} params, "
+          f"{out['weight_bytes']} bytes, init {init_s:.1f} s", flush=True)
+    rng_prompts = [np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, n).tolist() for n in PROMPT_LENS]
+    shared = shared_prefix_prompts(cfg.vocab_size, 1)
+    out["mixtral_dense"] = serve_option(
+        "mixtral_dense", cfg, params, smi, False, rng_prompts, 0, True,
+        "random, seed 0")
+    out["mixtral_paged"] = serve_option(
+        "mixtral_paged", cfg, params, smi, True, shared, REPEAT, False,
+        "shared prefix, seed 1", shared_prefix=True)
+    out["mixtral_wq_dense"] = serve_option(
+        "mixtral_wq_dense", cfg, params, smi, False, rng_prompts, 0, True,
+        "random, seed 0", weight_quant="int8")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mixtral_train(smi: str, seed: int = 0) -> dict:
+    """mixtral.loss_fn forward and backward (no optimizer: no entry point
+    trains Mixtral) at mixtral_8x7b's published widths,
+    MIXTRAL_TRAIN_LAYERS layers, B 2 x S 2048, full remat, the config's
+    chunked CE (8192).  Checks the loss, the aux losses and every
+    gradient are finite and each step launches 2 L flash forwards (the
+    layer again under remat), L dK/dV, L dQ and 4 L + 1 RMSNorms."""
+    cfg = dataclasses.replace(mixtral.CONFIGS["mixtral_8x7b"],
+                              n_layers=MIXTRAL_TRAIN_LAYERS)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = mixtral.init_params(cfg, gen, "cuda")
+    for leaf in param_leaves(params):
+        leaf.requires_grad_(True)
+    raw = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (MIXTRAL_B, MIXTRAL_S + 1))
+    tokens = torch.tensor(raw[:, :-1], device="cuda")
+    targets = torch.tensor(raw[:, 1:], device="cuda")
+    per_step = train_per_step(cfg.n_layers)
+    steps = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(MIXTRAL_STEPS):
+        for leaf in param_leaves(params):
+            leaf.grad = None
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, m = mixtral.loss_fn(cfg, params, tokens, targets)
+        loss.backward()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = train_counts()
+        finite = all(bool(torch.isfinite(leaf.grad).all())
+                     for leaf in param_leaves(params))
+        steps.append({"ms": ms, **{k: v.item() for k, v in m.items()},
+                      "grads_finite": finite, "launches": launches,
+                      "moe_host_syncs": moe.host_syncs})
+        if launches != per_step or not finite or \
+                not all(math.isfinite(v) for k, v in steps[-1].items()
+                        if isinstance(v, float)):
+            raise AssertionError(f"mixtral training step: {steps[-1]} "
+                                 f"(launches expected {per_step})")
+    out = {"layers": cfg.n_layers, "params": cfg.num_params(),
+           "batch": [MIXTRAL_B, MIXTRAL_S], "steps": steps,
+           "launches": steps[-1]["launches"],
+           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(f"mixtral_train [{smi}]: " + json.dumps(
+        {"step_ms": [s["ms"] for s in steps],
+         "total_loss": steps[-1]["total_loss"],
+         "aux_load_balance": steps[-1]["aux_load_balance"],
+         "aux_router_z": steps[-1]["aux_router_z"],
+         "launches_per_step": per_step,
+         "max_memory_allocated_gb": out["max_memory_allocated_gb"]}),
+        flush=True)
+    del params, loss, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def param_leaves(params) -> list:
+    """The tensors of a params tree, in a fixed order."""
+    return [params["embed"], params["lm_head"], params["final_norm"],
+            *(params["layers"][k] for k in sorted(params["layers"]))]
+
+
 def reset_counts() -> None:
     rn.launches = da.launches = da.launches_quant = pa.launches = 0
     fa.fwd_launches = fa.bwd_dkv_launches = fa.bwd_dq_launches = 0
     ra.launches = 0
+    moe.host_syncs = 0
+
+
+def moe_counts(cfg, stats: dict, recorder) -> dict:
+    """The grouped MoE FFN's host syncs since ``reset_counts`` and the rows
+    each expert ran (``RouteRecorder``); fails unless every forward
+    (prefill chunk, decode and verify step) synced exactly once a layer
+    (the group sizes)."""
+    forwards = stats["prefills"] + stats["decode_steps"] + \
+        stats["verify_steps"]
+    out = {"host_syncs": moe.host_syncs, "forwards": forwards,
+           "host_syncs_per_forward": moe.host_syncs / max(forwards, 1),
+           "rows_per_expert": recorder.rows_per_expert}
+    print(f"moe: {json.dumps(out)}", flush=True)
+    if moe.host_syncs != cfg.n_layers * forwards:
+        raise AssertionError(f"moe host syncs {out} != {cfg.n_layers} a "
+                             f"forward")
+    return out
 
 
 def train_counts() -> dict:
@@ -2521,8 +3149,15 @@ def main(argv=None) -> None:
             flush=True)
     options = serve_options(cfg, params, smi)
     options["serve_surface"] = serve_surface(cfg, params, smi)
+    options["serve_tiers"] = serve_tiers(cfg, params, smi)
+    options["serve_disagg"] = serve_disagg(cfg, params, smi)
     del params
+    gc.collect()
     torch.cuda.empty_cache()
+    moe_serve = mixtral_serve(smi)
+    options.update({k: v for k, v in moe_serve.items()
+                    if k.startswith("mixtral_")})
+    moe_train = mixtral_train(smi)
     trn = train(profile=args.profile)
     print(f"train: {json.dumps(trn)}", flush=True)
     trn_ring = train_ring(profile=args.profile)
@@ -2530,6 +3165,7 @@ def main(argv=None) -> None:
     by_path = {"serve": srv["launches"],
                **{name: run["launches"] for name, run in cached.items()},
                **{name: run["launches"] for name, run in options.items()},
+               "mixtral_train": moe_train["launches"],
                "train": trn["launcher"]["launches"],
                "train_ring": trn_ring["launches"],
                "train_ckpt": handoff["launcher"]["launches"],
@@ -2589,7 +3225,10 @@ def main(argv=None) -> None:
         "rmsnorm": rms, "decode_attention": dec,
         "decode_attention_quant": decq, "paged_decode_attention": paged,
         "flash": flash, "chunked_xent": xe, "ring": ring, "serve": srv,
-        **cached, **options, "train": trn, "train_ring": trn_ring,
+        **cached, **options, "mixtral_serve_setup": {
+            k: v for k, v in moe_serve.items() if not k.startswith(
+                "mixtral_")}, "mixtral_train": moe_train,
+        "train": trn, "train_ring": trn_ring,
         "train_to_serve": handoff, **kernels}, indent=1))
     print(smi, flush=True)
     print(json.dumps(kernels), flush=True)

@@ -1,6 +1,8 @@
-"""Convert a JAX Llama parameter tree (as numpy arrays) into the port's.
+"""Convert a JAX Llama or Mixtral parameter tree (as numpy arrays) into
+the port's.
 
-The tree is the same leaf for leaf, and the port keeps the reference's
+The tree is the same leaf for leaf (Mixtral's 4-D expert leaves ``[L, E,
+in, out]`` and its router included), and the port keeps the reference's
 ``[in, out]`` matmul orientation, so nothing is transposed.  bf16 leaves
 (numpy arrays of ml_dtypes' bfloat16) go through float32, which holds
 every bf16 value exactly.
@@ -41,7 +43,7 @@ def params_from_jax(cfg, np_tree: Dict[str, Any], device="cuda"
 
     params = walk(np_tree)
     expected = {"embed", "layers", "final_norm"} | (
-        set() if cfg.tie_embeddings else {"lm_head"})
+        set() if getattr(cfg, "tie_embeddings", False) else {"lm_head"})
     if set(params) != expected:
         raise ValueError(f"parameter tree keys {sorted(params)} != "
                          f"{sorted(expected)}")

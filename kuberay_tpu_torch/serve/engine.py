@@ -39,6 +39,10 @@ logits at its last real token: the other rows were write-masked anyway, so
 the slot's result is the same, and at Llama-3-8B width it avoids gigabytes
 of float32 logits.
 
+The model is Llama or, for a ``MixtralConfig``, Mixtral (the dropless
+MoE FFN of ``forward_with_cache_mixtral``), picked by config type as the
+JAX engines pick it.
+
 Random draws use a ``torch.Generator`` on the engine's device, so sampled
 (temperature > 0) tokens differ from the JAX engine's; greedy tokens do
 not depend on the generator.
@@ -56,6 +60,7 @@ import torch
 from kuberay_tpu_torch.models.llama import LlamaConfig
 from kuberay_tpu_torch.obs.trace import NOOP_TRACER
 from kuberay_tpu_torch.serve.kv_cache import (
+    base_forward_for,
     forward_with_cache,
     init_kv_cache,
     make_quantized_forward,
@@ -253,9 +258,13 @@ class ServeEngine:
                              self.device, quant=self.kv_quant)
 
     def _base_forward(self):
-        """The cache forward before the weight-dequantising wrapper."""
-        return make_quantized_forward() if self.kv_quant == "int8" \
-            else forward_with_cache
+        """The cache forward before the weight-dequantising wrapper: the
+        config's model family (Llama, or Mixtral's dropless MoE FFN)
+        under the cache layout."""
+        base = base_forward_for(self.cfg)
+        if self.kv_quant == "int8":
+            return make_quantized_forward(base)
+        return base or forward_with_cache
 
     def _prefill_forward(self, tokens: torch.Tensor, slot: int,
                          start: torch.Tensor, real_len: int,

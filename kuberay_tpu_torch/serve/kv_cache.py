@@ -9,7 +9,10 @@ them), so a step holds one copy of the cache, not two.
 
 ``forward_with_cache`` keeps the JAX package's seams: ``kv_update``
 chooses the cache layout (dense here; the int8 cache below; the paged pool
-in ``serve/paged_kv.py``) and ``attention`` how attention reads it.
+in ``serve/paged_kv.py``), ``attention`` how attention reads it, and
+``ffn`` the feed-forward block (dense SwiGLU by default; the dropless MoE
+of ``forward_with_cache_mixtral`` for Mixtral configs, which
+``base_forward_for`` picks by config type for both engines).
 
 Per step the model reaches two kernels: ``ops/rmsnorm.py`` (2 per layer +
 the final norm) and, for one-token steps, a decode-attention kernel (one
@@ -28,6 +31,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from kuberay_tpu_torch.models.mixtral import MixtralConfig, moe_ffn_dropless
 from kuberay_tpu_torch.ops.decode_attention import (
     decode_attention,
     decode_attention_quant,
@@ -219,8 +223,37 @@ def make_quantized_forward(base_forward=None):
     return fwd
 
 
-def _dense_ffn(h, lp):
+def _dense_ffn(cfg, h, lp, token_mask):
     return (F.silu(h @ lp["w_gate"]) * (h @ lp["w_up"])) @ lp["w_down"]
+
+
+def _moe_ffn(cfg, h, lp, token_mask):
+    # Dropless routing for decode and prefill alike: a token's experts
+    # depend on its own hidden state only, so outputs do not depend on
+    # batch composition, chunk boundaries or cached-prefix reuse (capacity
+    # routing, the training path, has none of these properties).
+    return moe_ffn_dropless(cfg, h, lp, token_mask=token_mask)
+
+
+def forward_with_cache_mixtral(cfg, params, tokens, cache, start,
+                               write_mask=None, logits_index=None,
+                               token_mask=None, kv_update=None,
+                               attention=None):
+    """Mixtral against the cache: ``forward_with_cache`` with the dropless
+    MoE FFN.  The token mask keeps padding and idle slots' weight out of
+    the expert combine; router aux losses play no part at inference."""
+    return forward_with_cache(cfg, params, tokens, cache, start, write_mask,
+                              logits_index=logits_index,
+                              token_mask=token_mask, kv_update=kv_update,
+                              attention=attention, ffn=_moe_ffn)
+
+
+def base_forward_for(cfg):
+    """The cache forward of a config's model family: None (the default,
+    ``forward_with_cache``) for Llama, ``forward_with_cache_mixtral`` for
+    a ``MixtralConfig``."""
+    return forward_with_cache_mixtral if isinstance(cfg, MixtralConfig) \
+        else None
 
 
 def _logits(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
@@ -239,7 +272,7 @@ def forward_with_cache(cfg, params: Dict[str, Any], tokens: torch.Tensor,
                        write_mask: Optional[torch.Tensor] = None,
                        logits_index: Optional[torch.Tensor] = None,
                        token_mask: Optional[torch.Tensor] = None,
-                       kv_update=None, attention=None
+                       kv_update=None, attention=None, ffn=None
                        ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Run T new tokens through the model against the cache.
 
@@ -260,8 +293,9 @@ def forward_with_cache(cfg, params: Dict[str, Any], tokens: torch.Tensor,
     new K/V (kk/vv [B, T, Hkv, D]) into that layer's cache ck/cv in place
     and returns what ``attention(q, k_view, v_view, lens, positions)``
     reads; the defaults are the dense cache's insert and
-    ``_cached_attention``.  Returns (float32 logits [B, T or 1, V], the
-    cache, updated in place).
+    ``_cached_attention``.  ``ffn(cfg, h, lp, token_mask)`` is the
+    feed-forward block (default: the dense SwiGLU).  Returns (float32
+    logits [B, T or 1, V], the cache, updated in place).
     """
     B, T = tokens.shape
     dev = tokens.device
@@ -272,6 +306,8 @@ def forward_with_cache(cfg, params: Dict[str, Any], tokens: torch.Tensor,
         write_mask = torch.ones(B, device=dev)
     if attention is None:
         attention = _cached_attention
+    if ffn is None:
+        ffn = _dense_ffn
     if kv_update is None:
         def kv_update(ck, cv, kk, vv):
             _insert_kv(ck, cv, kk, vv, positions, start, write_mask, T,
@@ -298,10 +334,15 @@ def forward_with_cache(cfg, params: Dict[str, Any], tokens: torch.Tensor,
         attn = attention(q, k_view, v_view, lens, positions)
         x = x + (attn.reshape(B, T, -1) @ lp["wo"]).to(x.dtype)
         h = rmsnorm(x, lp["mlp_norm"], cfg.norm_eps)
-        x = x + _dense_ffn(h, lp).to(x.dtype)
+        x = x + ffn(cfg, h, lp, token_mask).to(x.dtype)
+        # Drop the layer's leaves before the next layer's are made: with
+        # int8 weights each is a dequantised copy, so only one layer's
+        # bf16 weights are held at a time.
+        del lp
     if logits_index is not None:
         rows = torch.arange(B, device=dev)
         x = x[rows, logits_index.to(device=dev, dtype=torch.long)][:, None]
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    head = params["embed"].T if getattr(cfg, "tie_embeddings", False) \
+        else params["lm_head"]
     return _logits(x, head), cache

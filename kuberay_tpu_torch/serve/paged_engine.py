@@ -16,6 +16,29 @@ Scheduling, as in the JAX engine:
 - on finish the request's blocks are released; full prompt blocks stay
   published in the prefix cache until cannibalised.
 
+KV tiers (``host_blocks`` / ``spill_blocks`` > 0, ``serve/kv_tiers.py``):
+a prompt block whose last reference drops is queued for demotion, and the
+step after it copies at most 4 such blocks device-to-host (float32, the
+wire layout), each looked up in the allocator at copy time so an evicted or
+re-registered block never demotes stale bytes under a hash.  Admission
+first promotes the tier-resident run that extends the device-resident
+prefix back into the pool, so the prefix match serves it.  Both copies run
+on the engine-loop thread, between steps, on the current stream: a
+promoted row lands before the next step's kernels read it.
+
+KV-block transfer (disaggregated prefill and decode): ``resident_prefix_
+blocks`` probes how much of a prompt a replica holds, ``export_kv_blocks``
+reads a prompt's registered blocks out of the pool (or their tier copies
+once the pool evicted them) as float32 ``[L, Hkv, block_size, D]``
+little-endian base64 records, byte for byte the JAX engine's, and
+``import_kv_blocks`` adopts them refcount-0 cached, stopping clean at a
+chain gap, a malformed payload or a full pool.  Callers serialise these
+with ``step()`` (``ServeFrontend.call_engine``).
+
+Mixtral configs run ``forward_with_cache_mixtral`` (the dropless MoE FFN)
+as the paged forward's base; prefix sharing stays on, since a dropless
+token's experts depend on its own hidden state only.
+
 Chunked prefill reserves every block of the prompt up front and starts
 past the prefix the cache serves.  Speculation grows each drafting slot's
 blocks for its draft best-effort, after every slot's mandatory next-token
@@ -24,25 +47,30 @@ them would resolve through the zero-filled tail of its table into block
 0, another request's block, so only real tokens write.  Weight
 quantisation dequantises outermost, around the paged forward.
 
-Not ported yet: KV tiers, KV-block export/import and adverts, tensor
-parallelism and Mixtral.
+Not ported yet: tensor parallelism.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List
+import base64
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from kuberay_tpu_torch.models.llama import LlamaConfig
 from kuberay_tpu_torch.serve.engine import Request, ServeEngine, _bucket
+from kuberay_tpu_torch.serve.kv_cache import base_forward_for
+from kuberay_tpu_torch.serve.kv_tiers import KvTierStore
 from kuberay_tpu_torch.serve.paged_kv import (
     BlockAllocator,
     init_paged_cache,
     make_paged_forward,
     make_paged_quant_forward,
 )
+
+# The KV-block wire payload's element type: float32, little-endian.
+WIRE_DTYPE = np.dtype("<f4")
 
 
 class PagedServeEngine(ServeEngine):
@@ -52,7 +80,12 @@ class PagedServeEngine(ServeEngine):
                  rng_seed: int = 0, device="cuda", kv_quant: str = "none",
                  prefill_chunk: int = 0, speculative: int = 0,
                  weight_quant: str = "none", donate_params: bool = False,
-                 metrics=None, tracer=None):
+                 metrics=None, tracer=None, host_blocks: int = 0,
+                 spill_blocks: int = 0):
+        if (host_blocks > 0 or spill_blocks > 0) and kv_quant != "none":
+            raise ValueError(
+                "KV tiering requires kv_quant='none' (tier payloads "
+                "ride the float32 export wire format)")
         # Default pool = the dense engine's footprint; callers shrink it
         # to realise the memory gain (e.g. slots * expected length).
         num_blocks = num_blocks or (max_slots * max_len) // block_size
@@ -71,14 +104,26 @@ class PagedServeEngine(ServeEngine):
         self.tables = np.zeros((max_slots, self.max_blocks), dtype=np.int32)
         self.owned: List[List[int]] = [[] for _ in range(max_slots)]
         self._wait_state = None        # (request id, num_free) at last block
+        # Optional host/spill tiers behind the device pool: freed blocks
+        # demote in the step pump, admissions promote tier-resident
+        # prefix blocks back instead of recomputing them.
+        self.tiers: Optional[KvTierStore] = None
+        self.tier_fetch_blocks = 0
+        self.tier_demoted_blocks = 0
+        if host_blocks > 0 or spill_blocks > 0:
+            self.tiers = KvTierStore(host_blocks, spill_blocks,
+                                     metrics=metrics)
+            self.allocator.on_register = self._on_device_register
+            self.allocator.on_evict = self._on_device_evict
 
     def _init_cache(self):
         return init_paged_cache(self.cfg, self.num_blocks, self.block_size,
                                 quant=self.kv_quant, device=self.device)
 
     def _base_forward(self):
-        return (make_paged_quant_forward if self.kv_quant == "int8"
-                else make_paged_forward)(self.block_size)
+        make = make_paged_quant_forward if self.kv_quant == "int8" \
+            else make_paged_forward
+        return make(self.block_size, base_forward_for(self.cfg))
 
     # ------------------------------------------------------------------
     # model calls (paged signatures)
@@ -139,6 +184,12 @@ class PagedServeEngine(ServeEngine):
     def _release(self, slot: int):
         for bid in self.owned[slot]:
             self.allocator.free(bid)
+            if self.tiers is not None and self.allocator.refcount[bid] == 0:
+                h = self.allocator.hash_of(bid)
+                if h is not None:
+                    # Last reference dropped: queue the (still resident)
+                    # block for the step pump's device-to-host copy.
+                    self.tiers.note_freed(h)
         self.owned[slot] = []
         self.tables[slot] = 0
 
@@ -151,6 +202,126 @@ class PagedServeEngine(ServeEngine):
             bid = self.owned[slot].pop()
             self.tables[slot, len(self.owned[slot])] = 0
             self.allocator.free(bid)
+
+    # ------------------------------------------------------------------
+    # tier hierarchy (device -> host -> spill; serve/kv_tiers.py)
+    # ------------------------------------------------------------------
+
+    def _on_device_register(self, h: int) -> None:
+        self.tiers.note_device(h, True)
+
+    def _on_device_evict(self, h: int) -> None:
+        # The pool block is cannibalised: the hash leaves the device tier;
+        # host and spill copies (where the pump made one) survive.
+        self.tiers.note_device(h, False)
+
+    def _block_rows(self, bids: Sequence[int]) -> torch.Tensor:
+        """Pool positions of the given blocks, in order, on the device."""
+        bs = self.block_size
+        idx = np.concatenate([np.arange(b * bs, (b + 1) * bs) for b in bids])
+        return torch.from_numpy(idx).to(self.device)
+
+    def _read_blocks(self, bids: Sequence[int]):
+        """The pool rows of ``bids`` as float32 numpy ``[L, Hkv, n *
+        block_size, D]`` K and V: one gather per pool, one device-to-host
+        copy (a sync) for both."""
+        idx = self._block_rows(bids)
+        kv = torch.stack([self.cache[n][:, :, idx, :] for n in ("k", "v")])
+        kv = kv.to(torch.float32).cpu().numpy()
+        return kv[0], kv[1]
+
+    def _write_blocks(self, bids: Sequence[int], k: np.ndarray,
+                      v: np.ndarray) -> None:
+        """Write float32 ``[L, Hkv, n * block_size, D]`` K and V into the
+        pool rows of ``bids``, cast to the pool's dtype, in place on the
+        current stream (so before the next step's kernels read them)."""
+        idx = self._block_rows(bids)
+        for n, rows in (("k", k), ("v", v)):
+            pool = self.cache[n]
+            pool[:, :, idx, :] = torch.from_numpy(
+                np.ascontiguousarray(rows)).to(pool.device, pool.dtype)
+
+    def step(self):
+        out = super().step()
+        if self.tiers is not None:
+            self._pump_demotions()
+        return out
+
+    def _pump_demotions(self, limit: int = 4) -> int:
+        """Copy up to ``limit`` freed blocks device-to-host per step.
+
+        Bounded so demotion never stalls the decode loop for long; a block
+        evicted from the pool before its turn is lost to the hierarchy
+        (the next miss recomputes it).  Each block is looked up in the
+        allocator when its copy is made, so a racing eviction or
+        re-registration never demotes stale bytes under a hash.  Returns
+        the blocks taken off the pending queue."""
+        picks = []                                   # (hash, block id, toks)
+        done = 0
+        while done < limit:
+            h = self.tiers.pop_pending()
+            if h is None:
+                break
+            entry = self.allocator.lookup_block(h)
+            if entry is not None:                    # else evicted first
+                picks.append((h, entry[0], entry[1]))
+            done += 1
+        if not picks:
+            return done
+        k, v = self._read_blocks([bid for _, bid, _ in picks])
+        bs = self.block_size
+        for j, (h, _, toks) in enumerate(picks):
+            sl = slice(j * bs, (j + 1) * bs)
+            if self.tiers.admit(h, toks, (k[:, :, sl, :].copy(),
+                                          v[:, :, sl, :].copy())):
+                self.tier_demoted_blocks += 1
+                if self.metrics is not None:
+                    self.metrics.inc("tpu_kv_tier_demotions_total",
+                                     {"src": "device", "dst": "host"})
+        return done
+
+    def _promote_from_tiers(self, req: Request) -> int:
+        """Import the tier-resident run extending the device-resident
+        prefix back into the pool, so admission's match_prefix serves it
+        without recompute.  Records a ``tier-fetch`` span on the request's
+        trace when any block moved."""
+        tokens = req.prompt_tokens
+        bs = self.block_size
+        t0 = self._now()
+        resident = self.allocator.resident_prefix_blocks(tokens)
+        hashes = self.allocator.block_hashes(tokens)
+        promoted: List[tuple] = []          # (block id, (k, v))
+        for i in range(resident, len(hashes)):
+            toks = tuple(tokens[i * bs:(i + 1) * bs])
+            payload = self.tiers.checkout(hashes[i], toks)
+            if payload is None:
+                break
+            bid = self.allocator.import_block(hashes[i], toks)
+            if bid is None:
+                break                       # resident after all / pool full
+            promoted.append((bid, payload))
+        if not promoted:
+            return 0
+        self._write_blocks([bid for bid, _ in promoted],
+                           np.concatenate([p[0] for _, p in promoted], 2),
+                           np.concatenate([p[1] for _, p in promoted], 2))
+        for bid, _ in promoted:
+            self.allocator.free(bid)        # refcount-0 cached, like import
+        self.tier_fetch_blocks += len(promoted)
+        if self.metrics is not None:
+            self.metrics.inc("tpu_kv_tier_promotions_total",
+                             {"src": "host"}, value=len(promoted))
+        if req.trace is not None:
+            self._tracer.record_span(req.trace, "tier-fetch", t0,
+                                     self._now(), blocks=len(promoted))
+        return len(promoted)
+
+    def kv_advert(self, since: int = 0) -> Dict[str, Any]:
+        """Residency advert for the gateway's fleet index (an empty one
+        without tiers)."""
+        if self.tiers is None:
+            return {"seq": 0, "reset": False, "add": [], "del": []}
+        return self.tiers.advert_since(int(since))
 
     # ------------------------------------------------------------------
     # scheduling overrides
@@ -173,6 +344,10 @@ class PagedServeEngine(ServeEngine):
         if self._wait_state == (id(req), self.allocator.num_free):
             self.queue.insert(0, req)
             return False
+        # Tier promotion first: blocks demoted to host or spill come back
+        # into the pool, so the match below serves them from cache.
+        if self.tiers is not None:
+            self._promote_from_tiers(req)
         # Longest cached block-aligned prefix — but at least one token
         # must run through prefill to produce logits.
         cached = self.allocator.match_prefix(req.prompt_tokens)
@@ -283,11 +458,138 @@ class PagedServeEngine(ServeEngine):
         super()._finish(slot, reason)
         self._release(slot)
 
+    # ------------------------------------------------------------------
+    # KV-block transfer (disaggregated prefill and decode)
+    # ------------------------------------------------------------------
+    #
+    # A prefill replica exports the registered prefix blocks of a prompt;
+    # a decode replica imports them into its own allocator and pool, after
+    # which its admission (_reserve -> match_prefix) serves the prompt from
+    # cache and only the partial tail block runs through prefill.  Blocks
+    # are keyed by the chained block hashes the gateway's prefix index
+    # shadows, so a transfer is content-addressed and delta-only.  Not
+    # safe against a running engine loop: call through
+    # ServeFrontend.call_engine.
+
+    def resident_prefix_blocks(self, prompt_tokens: Sequence[int]) -> int:
+        """Delta probe: longest cached block-aligned prefix (blocks)."""
+        return self.allocator.resident_prefix_blocks(prompt_tokens)
+
+    @staticmethod
+    def _encode(a: np.ndarray) -> str:
+        return base64.b64encode(a.astype(WIRE_DTYPE).tobytes()).decode()
+
+    def export_kv_blocks(self, prompt_tokens: Sequence[int],
+                         skip_blocks: int = 0,
+                         max_blocks: int = 0) -> List[Dict[str, Any]]:
+        """The registered prefix blocks of ``prompt_tokens``, past the
+        first ``skip_blocks`` (resident on the importer), as wire records
+        ``{index, hash, k, v}`` with float32 base64 payloads of shape [L,
+        Hkv, block_size, D].  Stops at the first block this replica holds
+        in no tier (a block the pool evicted is served from its host or
+        spill copy when tiers are on); ``max_blocks`` > 0 caps the record
+        count, so the importer still holds a contiguous prefix."""
+        if self.kv_quant != "none":
+            raise NotImplementedError(
+                "KV-block export requires kv_quant='none' (int8 pools "
+                "carry per-position scales the wire format omits)")
+        bs = self.block_size
+        # bid None: the block left the pool, a tier copy serves it.
+        picks: List[tuple] = []            # (index, hash, block id | None)
+        tier_payloads: Dict[int, tuple] = {}
+        for i, h in enumerate(self.allocator.block_hashes(prompt_tokens)):
+            toks = tuple(prompt_tokens[i * bs:(i + 1) * bs])
+            entry = self.allocator.lookup_block(h)
+            if entry is not None and entry[1] == toks:
+                bid: Optional[int] = entry[0]
+            elif self.tiers is not None:
+                payload = self.tiers.checkout(h, toks)
+                if payload is None:
+                    break
+                bid = None
+                tier_payloads[i] = payload
+            else:
+                break
+            if i >= skip_blocks:
+                picks.append((i, h, bid))
+            if max_blocks > 0 and len(picks) >= max_blocks:
+                break
+        if not picks:
+            return []
+        # One gather per pool: only the exported rows leave the device.
+        dev = [(i, bid) for i, _, bid in picks if bid is not None]
+        if dev:
+            k, v = self._read_blocks([bid for _, bid in dev])
+        dev_pos = {i: j for j, (i, _) in enumerate(dev)}
+        out = []
+        for i, h, bid in picks:
+            if bid is not None:
+                sl = slice(dev_pos[i] * bs, (dev_pos[i] + 1) * bs)
+                kb, vb = k[:, :, sl, :], v[:, :, sl, :]
+            else:
+                kb, vb = tier_payloads[i]
+            out.append({"index": i, "hash": h, "k": self._encode(kb),
+                        "v": self._encode(vb)})
+        return out
+
+    def import_kv_blocks(self, prompt_tokens: Sequence[int],
+                         blocks: List[Dict[str, Any]]) -> Dict[str, int]:
+        """Adopt shipped prefix blocks into this replica's pool.  Walks the
+        prompt's hash chain from block 0: resident blocks count as
+        ``skipped``, shipped ones are allocated, written and published
+        refcount-0 cached; the walk stops at the first chain gap, malformed
+        payload or pool exhaustion (match_prefix serves only contiguous
+        prefixes).  Returns ``{"imported": n, "skipped": m}``."""
+        if self.kv_quant != "none":
+            raise NotImplementedError(
+                "KV-block import requires kv_quant='none'")
+        bs = self.block_size
+        shape = (self.cfg.n_layers, self.cfg.n_kv_heads, bs,
+                 self.cfg.head_dim)
+        by_index = {int(b["index"]): b for b in blocks}
+        imported = skipped = 0
+        adopted: List[tuple] = []          # (block id, k array, v array)
+        for i, h in enumerate(self.allocator.block_hashes(prompt_tokens)):
+            toks = tuple(prompt_tokens[i * bs:(i + 1) * bs])
+            entry = self.allocator.lookup_block(h)
+            if entry is not None and entry[1] == toks:
+                skipped += 1
+                continue
+            rec = by_index.get(i)
+            if rec is None or rec.get("hash", h) != h:
+                break
+            try:
+                k = np.frombuffer(base64.b64decode(rec["k"]),
+                                  WIRE_DTYPE).reshape(shape)
+                v = np.frombuffer(base64.b64decode(rec["v"]),
+                                  WIRE_DTYPE).reshape(shape)
+            except (KeyError, ValueError, TypeError):
+                break                      # malformed payload: stop clean
+            bid = self.allocator.import_block(h, toks)
+            if bid is None:
+                break                      # pool exhausted
+            adopted.append((bid, k, v))
+            imported += 1
+        if adopted:
+            self._write_blocks([bid for bid, _, _ in adopted],
+                               np.concatenate([k for _, k, _ in adopted], 2),
+                               np.concatenate([v for _, _, v in adopted], 2))
+            # The content is in the pool: release to refcount-0 cached,
+            # the state a locally prefilled and finished prompt leaves.
+            for bid, _, _ in adopted:
+                self.allocator.free(bid)
+        return {"imported": imported, "skipped": skipped}
+
     @property
     def stats(self) -> Dict[str, Any]:
         a = self.allocator
-        return {**super().stats,
-                "num_blocks": a.num_blocks,
-                "free_blocks": a.num_free,
-                "prefix_hit_tokens": a.prefix_hits,
-                "prefix_query_tokens": a.prefix_queries}
+        out = {**super().stats,
+               "num_blocks": a.num_blocks,
+               "free_blocks": a.num_free,
+               "prefix_hit_tokens": a.prefix_hits,
+               "prefix_query_tokens": a.prefix_queries}
+        if self.tiers is not None:
+            out.update(self.tiers.stats())
+            out["tier_fetch_blocks"] = self.tier_fetch_blocks
+            out["tier_demoted_blocks"] = self.tier_demoted_blocks
+        return out

@@ -9,12 +9,27 @@ per-request events.  Same wire format as the JAX server:
                             "eos_token": E, "stop_token_ids": [...]}
                            -> {"id", "tokens", "finish_reason",
                                "prompt_len", "ttft_ms"}
-                           with X-TPU-Queue-Depth / X-TPU-Active-Slots
                            ("stream": true -> NDJSON, chunked: one
                            {"tokens": [...]} line per engine emission,
                            then {"id", "finish_reason", "prompt_len",
                            "num_tokens"} or {"error": ...})
+    POST /v1/kv/resident   {"prompt_tokens"} -> {"resident_blocks"}
+    POST /v1/kv/export     {"prompt_tokens", "skip_blocks", "max_blocks"}
+                           -> {"blocks": [{index, hash, k, v}],
+                               "block_size"}
+    POST /v1/kv/import     {"prompt_tokens", "blocks"}
+                           -> {"imported", "skipped"}
+    GET  /v1/kv/advert?since=N -> {"seq", "reset", "add", "del"}
     GET  /healthz | /stats | /metrics
+
+Responses carry the gateway's load headers: X-TPU-Queue-Depth and
+X-TPU-Active-Slots always; X-TPU-KV-Free-Blocks and X-TPU-KV-Total-Blocks
+from a paged engine; X-TPU-KV-Advert-Seq, X-TPU-KV-Host-Free-Blocks and
+X-TPU-KV-Host-Total-Blocks from a paged engine with KV tiers.  The
+``/v1/kv/*`` endpoints are the disaggregated prefill-to-decode handoff
+and the fleet KV index's advert channel (a dense engine answers 501);
+they run on the engine-loop thread between steps
+(``ServeFrontend.call_engine``), never beside a step.
 
 A ``traceparent`` request header is adopted (the engine's spans join
 that trace) and echoed.  ``/metrics`` is Prometheus text: every numeric
@@ -22,15 +37,18 @@ stat as a ``tpu_serve_*`` counter or gauge, then the engine registry's
 request-phase histogram ``tpu_serve_request_duration_seconds``.
 
 Run:  python -m kuberay_tpu_torch.serve.server --model llama3_8b
-          [--paged [--block-size 16] [--num-blocks N]] [--kv-quant int8]
+          [--paged [--block-size 16] [--num-blocks N]
+           [--host-blocks N [--spill-blocks N]]] [--kv-quant int8]
           [--prefill-chunk N] [--speculative N] [--weight-quant int8]
           [--checkpoint-dir DIR [--checkpoint-step N]]
           [--app-name NAME] [--coordinator URL|auto
           [--config-from-coordinator [--config-wait S]]]
 
 ``--paged`` serves from the paged KV pool with prefix caching
-(``serve/paged_engine.py``); ``--kv-quant int8`` stores K/V in int8, in
-the paged pool or, without ``--paged``, in the dense cache;
+(``serve/paged_engine.py``), ``--host-blocks`` / ``--spill-blocks`` add
+its host and spill KV tiers (``serve/kv_tiers.py``); ``--kv-quant int8``
+stores K/V in int8, in the paged pool or, without ``--paged``, in the
+dense cache;
 ``--prefill-chunk`` prefills prompts in chunks of that many tokens;
 ``--speculative`` drafts that many tokens by prompt lookup for greedy
 requests; ``--weight-quant int8`` serves int8 weights.
@@ -44,9 +62,8 @@ coordinator once its socket is bound and STOPPED before it drains;
 submitted serve config (the TpuService's ``serveConfig``), which
 overrides the flags.  Config keys for features the port lacks are
 refused, naming their ROADMAP item: ``tp`` > 1 and ``group_*``
-(multi-host and tensor-parallel serving, A9) and ``host_blocks`` /
-``spill_blocks`` > 0 (KV tiers, A7); so is a slice of more than one
-process (A9).  The KV-block endpoints (A7) are not ported yet.
+(multi-host and tensor-parallel serving, A9); so is a slice of more than
+one process (A9).
 """
 
 from __future__ import annotations
@@ -106,6 +123,10 @@ class ServeFrontend:
         # rid -> queue of token lists for a streaming consumer; completion
         # is signalled through the rid's waiter event.
         self._streams: Dict[str, "queue.Queue"] = {}
+        # Control calls the engine-loop thread runs between steps (KV-block
+        # export and import must not race a step's pool writes): (fn, done
+        # event, result box).
+        self._control: list = []
         self._stop = threading.Event()
         self._stats = {"requests": 0, "completed": 0, "rejected": 0,
                        "tokens_out": 0, "failed_degraded": 0}
@@ -137,6 +158,7 @@ class ServeFrontend:
             if self.degraded is not None:
                 self._stop.wait(0.1)
                 continue
+            self._drain_control()
             if not self.engine.has_work():
                 self._stop.wait(0.005)
                 continue
@@ -158,6 +180,35 @@ class ServeFrontend:
                         self._results[resp.request_id] = resp
                 if ev is not None:
                     ev.set()
+
+    def _drain_control(self):
+        """Run the queued control calls on the engine-loop thread."""
+        with self._lock:
+            if not self._control:
+                return
+            batch, self._control = self._control, []
+        for fn, ev, box in batch:
+            try:
+                box["result"] = fn(self.engine)
+            except Exception as e:          # raised in the caller's thread
+                box["error"] = e
+            ev.set()
+
+    def call_engine(self, fn, timeout: float = 30.0):
+        """Run ``fn(engine)`` on the engine-loop thread, between steps: the
+        KV-block endpoints' seam (handler threads never touch the
+        allocator or the pool mid-step).  Raises TimeoutError when the
+        loop does not get to it in time (wedged or degraded)."""
+        ev = threading.Event()
+        box: Dict[str, Any] = {}
+        with self._lock:
+            self._control.append((fn, ev, box))
+        if not ev.wait(timeout):
+            raise TimeoutError("engine loop did not service the call "
+                               f"within {timeout:g}s")
+        if "error" in box:
+            raise box["error"]
+        return box.get("result")
 
     def _admit(self, rid, ev, prompt_tokens, max_tokens, temperature,
                eos_token, stream_queue=None, top_p=1.0, top_k=0,
@@ -293,10 +344,23 @@ class ServeFrontend:
 
         class Handler(JsonHandler):
             def _load_headers(self):
-                """Continuous-batching feedback for the gateway."""
+                """Continuous-batching feedback for the gateway: the queue
+                depth and active slots; a paged engine's free and total
+                blocks; a tiered engine's advert cursor and host tier."""
                 st = frontend.engine.stats
-                return {"X-TPU-Queue-Depth": str(st["queue_depth"]),
-                        "X-TPU-Active-Slots": str(st["active_slots"])}
+                h = {"X-TPU-Queue-Depth": str(st["queue_depth"]),
+                     "X-TPU-Active-Slots": str(st["active_slots"])}
+                if "num_blocks" in st:
+                    h["X-TPU-KV-Free-Blocks"] = str(st["free_blocks"])
+                    h["X-TPU-KV-Total-Blocks"] = str(st["num_blocks"])
+                if "advert_seq" in st:
+                    # The gateway pulls /v1/kv/advert when the cursor moves.
+                    h["X-TPU-KV-Advert-Seq"] = str(st["advert_seq"])
+                    h["X-TPU-KV-Host-Free-Blocks"] = str(
+                        st["host_blocks_total"] - st["host_blocks_used"])
+                    h["X-TPU-KV-Host-Total-Blocks"] = str(
+                        st["host_blocks_total"])
+                return h
 
             def do_GET(self):
                 if self.path == "/healthz":
@@ -307,6 +371,8 @@ class ServeFrontend:
                     return self._send(200, {"status": "ok"})
                 if self.path == "/stats":
                     return self._send(200, frontend.stats())
+                if self.path.split("?", 1)[0] == "/v1/kv/advert":
+                    return self._kv_advert()
                 if self.path == "/metrics":
                     text = render_stats(frontend.stats())
                     reg = frontend.engine.metrics
@@ -316,7 +382,89 @@ class ServeFrontend:
                                            "text/plain; version=0.0.4")
                 return self._send(404, {"message": "unknown path"})
 
+            def _kv_advert(self):
+                """Residency advert delta for the gateway's fleet index:
+                ?since=N gives the membership changes after N, or a full
+                snapshot once N fell out of the bounded advert log."""
+                if not hasattr(frontend.engine, "kv_advert"):
+                    return self._send(501, {
+                        "message": "KV adverts require a paged engine "
+                                   "(--paged)"})
+                since = 0
+                for part in self.path.partition("?")[2].split("&"):
+                    if part.startswith("since="):
+                        try:
+                            since = int(part[6:])
+                        except ValueError:
+                            return self._send(400, {
+                                "message": "since must be an int"})
+                try:
+                    doc = frontend.call_engine(lambda e: e.kv_advert(since))
+                except TimeoutError as e:
+                    return self._send(503, {"message": str(e)})
+                return self._send(200, doc, headers=self._load_headers())
+
+            def _kv_endpoint(self):
+                """The KV-block handoff (disaggregated serving):
+                ``resident`` probes the delta, ``export`` reads a prompt's
+                registered blocks off a prefill replica, ``import`` adopts
+                them on a decode replica; each through call_engine."""
+                if not hasattr(frontend.engine, "import_kv_blocks"):
+                    return self._send(501, {
+                        "message": "KV-block transfer requires a paged "
+                                   "engine (--paged)"})
+                if frontend.degraded is not None:
+                    return self._send(503, {"message": "degraded"})
+                try:
+                    body = self._body()
+                except ValueError as e:
+                    return self._send(400, {"message": f"bad body: {e}"})
+                prompt = body.get("prompt_tokens") \
+                    if isinstance(body, dict) else None
+                if not isinstance(prompt, list) or not prompt or \
+                        not all(isinstance(t, int) for t in prompt):
+                    return self._send(400, {
+                        "message": "prompt_tokens must be a non-empty "
+                                   "list of token ids"})
+                try:
+                    if self.path == "/v1/kv/resident":
+                        n = frontend.call_engine(
+                            lambda e: e.resident_prefix_blocks(prompt))
+                        return self._send(200, {"resident_blocks": n},
+                                          headers=self._load_headers())
+                    if self.path == "/v1/kv/export":
+                        try:
+                            skip = int(body.get("skip_blocks", 0))
+                            cap = int(body.get("max_blocks", 0))
+                        except (TypeError, ValueError):
+                            return self._send(400, {
+                                "message": "skip_blocks/max_blocks must "
+                                           "be ints"})
+                        blocks = frontend.call_engine(
+                            lambda e: e.export_kv_blocks(
+                                prompt, skip_blocks=max(0, skip),
+                                max_blocks=max(0, cap)))
+                        return self._send(
+                            200, {"blocks": blocks,
+                                  "block_size": frontend.engine.block_size},
+                            headers=self._load_headers())
+                    blocks = body.get("blocks")
+                    if not isinstance(blocks, list):
+                        return self._send(400, {
+                            "message": "blocks must be a list"})
+                    counts = frontend.call_engine(
+                        lambda e: e.import_kv_blocks(prompt, blocks))
+                    return self._send(200, counts,
+                                      headers=self._load_headers())
+                except NotImplementedError as e:
+                    return self._send(501, {"message": str(e)})
+                except TimeoutError as e:
+                    return self._send(503, {"message": str(e)})
+
             def do_POST(self):
+                if self.path in ("/v1/kv/resident", "/v1/kv/export",
+                                 "/v1/kv/import"):
+                    return self._kv_endpoint()
                 if self.path != "/v1/completions":
                     return self._send(404, {"message": "unknown path"})
                 try:
@@ -503,8 +651,6 @@ def _unported(key: str, val) -> Optional[str]:
         return "tensor-parallel serving is not ported yet (ROADMAP A9)"
     if key.startswith("group_"):
         return "multi-host serve groups are not ported yet (ROADMAP A9)"
-    if key in ("host_blocks", "spill_blocks") and val > 0:
-        return "the paged pool's KV tiers are not ported yet (ROADMAP A7)"
     if key == "decode_impl" and val != "auto":
         return ("the port has one decode path, its CUDA kernels (auto); "
                 "it has no XLA or Pallas path to choose")
@@ -583,6 +729,12 @@ def main(argv=None):
                     help="paged KV block size (tokens)")
     ap.add_argument("--num-blocks", type=int, default=0,
                     help="paged pool blocks (0 = the dense cache's footprint)")
+    ap.add_argument("--host-blocks", type=int, default=0,
+                    help="host-memory KV tier capacity in blocks (0 = "
+                         "tiering off; paged engines only)")
+    ap.add_argument("--spill-blocks", type=int, default=0,
+                    help="bounded spill KV tier behind the host tier "
+                         "(blocks; 0 = off)")
     ap.add_argument("--kv-quant", default="none", choices=["none", "int8"],
                     help="KV cache storage: bf16 (none) or int8 with "
                          "per-position scales")
@@ -653,7 +805,9 @@ def main(argv=None):
                      metrics=MetricsRegistry())
     if args.paged:
         engine = PagedServeEngine(cfg, params, num_blocks=args.num_blocks,
-                                  block_size=args.block_size, **engine_kw)
+                                  block_size=args.block_size,
+                                  host_blocks=args.host_blocks,
+                                  spill_blocks=args.spill_blocks, **engine_kw)
     else:
         engine = ServeEngine(cfg, params, **engine_kw)
     del params

@@ -1,6 +1,7 @@
-"""Prometheus text exposition, no client library (a copy of the gauge and
-histogram parts of ``kuberay_tpu/utils/metrics.py``: the serving engine
-observes the request-phase histogram, the training launcher sets its
+"""Prometheus text exposition, no client library (a copy of the counter,
+gauge and histogram parts of ``kuberay_tpu/utils/metrics.py``: the serving
+engine observes the request-phase histogram and its KV tier store counts
+demotions, promotions and hits, the training launcher sets its
 ``tpu_train_*`` gauges, and their HTTP servers render them)."""
 
 from __future__ import annotations
@@ -44,6 +45,7 @@ class Histogram:
 class MetricsRegistry:
     def __init__(self):
         self._lock = threading.Lock()
+        self._counters: Dict[Tuple[str, Tuple], float] = {}
         self._gauges: Dict[Tuple[str, Tuple], float] = {}
         self._hists: Dict[Tuple[str, Tuple], Histogram] = {}
         self._help: Dict[str, str] = {}
@@ -54,6 +56,12 @@ class MetricsRegistry:
 
     def describe(self, name: str, help_text: str):
         self._help[name] = help_text
+
+    def inc(self, name: str, labels: Optional[Dict[str, str]] = None,
+            value: float = 1.0):
+        with self._lock:
+            key = (name, self._labels_key(labels))
+            self._counters[key] = self._counters.get(key, 0.0) + value
 
     def set_gauge(self, name: str, value: float,
                   labels: Optional[Dict[str, str]] = None):
@@ -111,6 +119,9 @@ class MetricsRegistry:
                             f"{self._escape_help(self._help[name])}")
                     lines.append(f"# TYPE {name} {mtype}")
 
+            for (name, labels), v in sorted(self._counters.items()):
+                header(name, "counter")
+                lines.append(f"{name}{self._fmt_labels(labels)} {v}")
             for (name, labels), v in sorted(self._gauges.items()):
                 header(name, "gauge")
                 lines.append(f"{name}{self._fmt_labels(labels)} {v}")

@@ -131,3 +131,32 @@ def test_wrappers_refuse_devices_other_than_cpu_and_cuda():
     lse = torch.empty(1, 2, 64, device="meta")
     with pytest.raises(ValueError):
         fa.flash_bwd(q, k, k, q, lse, q)
+
+
+def test_scan_covers_the_tier_and_mixtral_modules():
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    assert {"kuberay_tpu_torch/serve/kv_tiers.py",
+            "kuberay_tpu_torch/models/mixtral.py",
+            "kuberay_tpu_torch/ops/moe_matmul.py",
+            "kuberay_tpu_torch/serve/paged_engine.py"} <= names
+
+
+def test_mixtral_and_tiered_engines_raise_without_a_card(monkeypatch):
+    from kuberay_tpu_torch.models import mixtral
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = mixtral.CONFIGS["mixtral_tiny"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mixtral.init_params(cfg)
+    params = mixtral.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        engine.ServeEngine(cfg, params, max_slots=1, max_len=16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        paged_engine.PagedServeEngine(cfg, params, max_slots=1, max_len=16,
+                                      block_size=8, host_blocks=4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        server.main(["--model", "llama_tiny", "--port", "0", "--paged",
+                     "--host-blocks", "8"])
+    eng = paged_engine.PagedServeEngine(cfg, params, max_slots=1,
+                                        max_len=16, block_size=8,
+                                        device="cpu", host_blocks=4)
+    assert eng.tiers is not None and eng.cache["k"].device.type == "cpu"

@@ -294,7 +294,6 @@ def test_wait_and_missing_coordinator_give_the_jax_text(coordinator):
     ("group_miss_timeout", 10.0, "A9"), ("group_step_timeout", 60.0, "A9"),
     ("group_compile_timeout", 900.0, "A9"),
     ("group_budget_multiplier", 20.0, "A9"),
-    ("host_blocks", 64, "A7"), ("spill_blocks", 1, "A7"),
     ("decode_impl", "xla", "one decode path"),
     ("decode_impl", "pallas", "one decode path"),
     ("decode_impl", "pallas_interpret", "one decode path"),
@@ -310,6 +309,34 @@ def test_unported_keys_are_refused_naming_their_item(key, value, item,
     ref = _apply(jserver._apply_coordinator_config, coordinator, app,
                  {key: value})
     assert ref[key] == value
+
+
+@pytest.mark.parametrize("key,value", [("host_blocks", 64),
+                                       ("spill_blocks", 1)])
+def test_tier_keys_are_honoured_as_the_jax_server_does(key, value,
+                                                       coordinator):
+    """A kvTiers service's host_blocks / spill_blocks reach the port's
+    args as they reach the JAX server's."""
+    app = f"tiers-{key}-{value}"
+    ours = _apply(server._apply_coordinator_config, coordinator, app,
+                  {key: value})
+    ref = _apply(jserver._apply_coordinator_config, coordinator, app,
+                 {key: value})
+    assert ours == ref and ours[key] == value
+
+
+@pytest.mark.parametrize("raw,want", [("false", True), ("", False),
+                                      (0, False), ("0", True)])
+def test_paged_is_coerced_with_bool_as_the_jax_server_does(raw, want,
+                                                           coordinator):
+    """Both servers coerce the config's ``paged`` with ``bool(...)``, so
+    the string "false" turns paging on: reference behaviour, pinned."""
+    app = f"paged-{raw!r}"
+    ours = _apply(server._apply_coordinator_config, coordinator, app,
+                  {"paged": raw})
+    ref = _apply(jserver._apply_coordinator_config, coordinator, app,
+                 {"paged": raw})
+    assert ours["paged"] is ref["paged"] is want
 
 
 def test_keys_the_port_honours_are_applied(coordinator):
