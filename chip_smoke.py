@@ -208,7 +208,41 @@
    with a write in flight against the launcher's steady step, restore and
    ``load_params_for_serving`` seconds, the server's start to its first
    token and the heartbeats, beside the card's name and power limit.
-6. Prints the kernels' JSON line, and as the last line
+6. The entry points, the bench and the profiler hook:
+   ``profile`` (after the serve phases, on the same llama3_8b weights):
+   ``ProfileHook.start_profile(duration_s=120)`` around eight dense bf16
+   decode steps of 8 slots (the serve prompts, prefilled before the
+   capture), stopped after them; the Chrome trace must hold CUDA kernels
+   named after the decode kernel and RMSNorm, exactly 65 RMSNorms and 32
+   decode attentions a step launched; prints the ten longest device
+   operations, the longest gaps between device operations and the
+   device's idle share over the capture.  ``bench`` (after ``train``):
+   ``python -m kuberay_tpu_torch.bench`` as a process; its JSON line has
+   the JAX bench's keys and its median step (CUDA events) lies within 10%
+   of the ``train`` phase's steady launcher step at the same shape.
+   ``entry``: ``entry()``'s llama_1b forward at 1 x 512 on its all-zero
+   tokens against the plain forward (attn_impl="xla") on the same params,
+   element by element (``local_err``), 33 RMSNorms and 16 flash forwards
+   a call; on seeded random tokens, no further from the float32 plain
+   forward than ENTRY_F32_FACTOR times the bf16 plain forward is.
+7. ``mesh_train``: the launcher over a real process group on this card,
+   llama_1b's full width at 4 of its 16 layers, B 4 x S 2048, float32
+   masters and bf16 compute, 2 steps at lr 2e-5 without warm-up: one
+   process (the reference), a one-rank NCCL group (``--dist-backend
+   nccl``: NCCL's initialisation and a barrier, then the sharded step
+   over a mesh of ones), then fsdp=2, tp=2 and dp=2 (two slices of one
+   worker), each two ranks on gloo with the collectives staged through
+   pinned host buffers (``HostStagedGloo``, named in rank 0's output).
+   Each run's losses (its lead's ``train_step`` events at a coordinator
+   recorder) are held to the reference's within MESH_LOSS_ATOL, and
+   each param leaf's change over the run (its sharded checkpoint, read
+   back whole by ``load_params_for_serving``, less the seed's params)
+   to the reference's change within MESH_DELTA_RTOL of its norm; every
+   rank launches 8 flash forwards, 4 dK/dV, 4 dQ and 17 RMSNorms a
+   step.  Prints each rank's peak memory, the step times, the launches
+   and the readings.
+8. Prints each phase's wall seconds and the total, then the kernels'
+   JSON line, and as the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Details go to chiprun_out/chip_smoke.json beside this script.  Any failure
@@ -243,6 +277,7 @@ import torch
 import torch.nn.functional as F
 from torch.nn.attention import SDPBackend, sdpa_kernel
 
+from kuberay_tpu_torch import entry as entry_mod
 from kuberay_tpu_torch.models import llama, mixtral
 from kuberay_tpu_torch.ops import _build
 from kuberay_tpu_torch.ops import attention as fa
@@ -254,6 +289,8 @@ from kuberay_tpu_torch.ops import rmsnorm as rn
 from kuberay_tpu_torch.ops import xent
 from kuberay_tpu_torch.parallel.mesh import LocalRing
 from kuberay_tpu_torch.parallel.ring import ring_attention
+from kuberay_tpu_torch.runtime import profiler as profiler_mod
+from kuberay_tpu_torch.runtime.profiler import ProfileHook
 from kuberay_tpu_torch.train import checkpoint as ckpt
 from kuberay_tpu_torch.train import launcher
 from kuberay_tpu_torch.train import train_step as ts
@@ -445,10 +482,13 @@ def within_local(rec: dict) -> bool:
 
 def check_rmsnorm(gen: torch.Generator) -> dict:
     """RMSNorm at decode (8 rows), ragged and prefill row counts of the 8B
-    serving path, and llama_1b's training shape (4 x 2048 rows of 2048)."""
+    serving path, llama_1b's at entry() (512 rows) and at mesh_train's
+    halved batch (4096 rows), and llama_1b's training shape (4 x 2048
+    rows of 2048)."""
     shapes = []
     for rows, d in ((1, D_MODEL), (8, D_MODEL), (300, D_MODEL),
-                    (2048, D_MODEL), (8192, 2048)):
+                    (2048, D_MODEL), (512, 2048), (4096, 2048),
+                    (8192, 2048)):
         # Uniform inputs keep |y| < 4, where one bf16 ulp is <= 1/64.
         x = (torch.rand(rows, d, generator=gen, device="cuda") * 2 - 1
              ).bfloat16()
@@ -890,9 +930,11 @@ def check_paged(gen: torch.Generator) -> dict:
 
 
 # (name, B, Sq, Skv, Hq, Hkv, D, causal); the first is the training path's
-# shape, the last two the ring's blocks (long-context training calls the
-# backward pair on each: causal on the diagonal, not causal on past
-# blocks).
+# shape; "entry" is entry()'s forward; "mesh_rows" and "mesh_tp2" are
+# mesh_train's local shapes (dp=2 or fsdp=2: half the rows; tp=2: half
+# the heads); the last two are the ring's blocks (long-context training
+# calls the backward pair on each: causal on the diagonal, not causal on
+# past blocks).
 FLASH_SHAPES = (("llama_1b", 4, 2048, 2048, 16, 8, 128, True),
                 ("llama3_8b_heads", 1, 1024, 1024, 32, 8, 128, True),
                 ("ragged", 2, 1000, 1000, 16, 8, 128, True),
@@ -902,6 +944,9 @@ FLASH_SHAPES = (("llama_1b", 4, 2048, 2048, 16, 8, 128, True),
                 # backward's 64-row q steps do.
                 ("tile64", 1, 960, 960, 16, 8, 128, True),
                 ("d64_group8", 1, 512, 512, 16, 2, 64, True),
+                ("entry", 1, 512, 512, 16, 8, 128, True),
+                ("mesh_rows", 2, 2048, 2048, 16, 8, 128, True),
+                ("mesh_tp2", 4, 2048, 2048, 8, 4, 128, True),
                 ("ring_diag", 2, 1024, 1024, 16, 8, 128, True),
                 ("ring_past", 2, 1024, 1024, 16, 8, 128, False))
 
@@ -3059,6 +3104,405 @@ def train_to_serve(smi: str, steady_ms: float, seed: int = 0) -> dict:
     return out
 
 
+
+# ---------------------------------------------------------------------------
+# The entry points, the bench, the profiler hook, and the launcher
+# over a process group on this card.
+# ---------------------------------------------------------------------------
+
+# The JAX bench's line (bench.py:320-339): the port's bench prints the same
+# keys.
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "detail"}
+BENCH_DETAIL_KEYS = {"model", "params", "batch", "seq", "steps",
+                     "achieved_tflops", "mfu_note", "loss", "device"}
+BENCH_TOLERANCE = 0.10
+
+
+def bench(train_step_ms: float, smi: str) -> dict:
+    """``python -m kuberay_tpu_torch.bench`` as a process: its JSON line
+    (the JAX bench's keys), and its median step (CUDA events) within 10% of
+    the ``train`` phase's steady launcher step at the same shape."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "kuberay_tpu_torch.bench"],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=600)
+    wall_s = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"bench: rc {out.returncode}\n{out.stdout}\n"
+                             f"{out.stderr[-4000:]}")
+    line = json.loads(out.stdout.strip().splitlines()[-1])
+    print(f"bench: {json.dumps(line)}", flush=True)
+    d = line["detail"]
+    if set(line) != BENCH_KEYS or set(d) != BENCH_DETAIL_KEYS:
+        raise AssertionError(f"bench keys {sorted(line)} / {sorted(d)}")
+    step_ms = d["batch"] * d["seq"] / line["value"] * 1e3
+    rel = step_ms / train_step_ms - 1
+    run = {"line": line, "step_ms": step_ms,
+           "train_phase_step_ms": train_step_ms, "relative": rel,
+           "wall_s": wall_s, "card": smi}
+    print(f"bench step {step_ms:.2f} ms (CUDA events) against the train "
+          f"phase's steady {train_step_ms:.2f} ms (host clock): {rel:+.3f}; "
+          f"{smi}", flush=True)
+    if (d["model"], d["batch"], d["seq"]) != ("llama_1b", TRAIN_BATCH,
+                                               TRAIN_SEQ) or \
+            not math.isfinite(d["loss"]) or abs(rel) > BENCH_TOLERANCE:
+        raise AssertionError(f"bench disagrees with the train phase: {run}")
+    return run
+
+
+# entry()'s forward on random tokens is held to a float32 plain forward,
+# no further than the bf16 plain forward is (by this factor): through 16
+# layers bf16 rounding moves the logits by ~3% of their norm on either
+# path, past local_err's limits for one kernel.
+ENTRY_F32_FACTOR = 1.5
+
+
+def entry_phase(smi: str, seed: int = 8) -> dict:
+    """``entry()`` on the card: its forward (llama_1b, 1 x 512, seed-0
+    params) on its own all-zero tokens, with 33 RMSNorms and 16 flash
+    forwards a call, held against the plain forward (attn_impl="xla") on
+    the same params element by element (``local_err``); and on seeded
+    random tokens of the same shape (on all-zero tokens every V row is the
+    same, so the attention weights cannot show), held to the float32
+    plain forward: its norm-relative and worst row-relative distances at
+    most ENTRY_F32_FACTOR times the bf16 plain forward's."""
+    cfg = llama.CONFIGS["llama_1b"]
+    plain_cfg = dataclasses.replace(cfg, attn_impl="xla")
+    fn, (params, tokens) = entry_mod.entry()
+    reset_counts()
+    logits = fn(params, tokens)
+    torch.cuda.synchronize()
+    launches = train_counts()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rand = torch.randint(0, cfg.vocab_size, tuple(tokens.shape),
+                         generator=gen, device="cuda", dtype=tokens.dtype)
+    with torch.no_grad():
+        plain = llama.forward(plain_cfg, params, tokens)
+        rec = local_err(logits, plain)
+        del plain
+        got = fn(params, rand)
+        plain = llama.forward(plain_cfg, params, rand)
+        exact = llama.forward(
+            dataclasses.replace(plain_cfg, dtype=torch.float32),
+            ts.tree_map(lambda t: t.float(), params), rand)
+        rand_rec = {"kernel_vs_f32": local_err(got, exact),
+                    "plain_vs_f32": local_err(plain, exact),
+                    "kernel_vs_plain": local_err(got, plain)}
+        del plain, exact
+    ms = cuda_ms(lambda: fn(params, tokens), 5, warmup=1)
+    want = {"flash_fwd": cfg.n_layers, "flash_bwd_dkv": 0,
+            "flash_bwd_dq": 0, "rmsnorm": 2 * cfg.n_layers + 1,
+            "ring_attention_fwd": 0}
+    run = {"shape": list(logits.shape), "dtype": str(logits.dtype),
+           "vs_plain": rec, "random_tokens": rand_rec,
+           "launches": launches, "forward_ms": ms, "card": smi}
+    print(f"entry: {json.dumps(run)}", flush=True)
+    k, p = rand_rec["kernel_vs_f32"], rand_rec["plain_vs_f32"]
+    if logits.shape != (1, 512, cfg.vocab_size) or \
+            logits.dtype != torch.float32 or got.shape != logits.shape or \
+            not bool(torch.isfinite(logits).all()) or \
+            not bool(torch.isfinite(got).all()) or \
+            not within_local(rec) or launches != want or \
+            not all(k[m] <= ENTRY_F32_FACTOR * p[m]
+                    for m in ("norm_rel", "max_row_rel")):
+        raise AssertionError(f"entry: {run} (launches expected {want})")
+    del params, logits, got
+    torch.cuda.empty_cache()
+    return run
+
+
+PROFILE_STEPS = 8
+DECODE_KERNEL = "dense_decode_kernel"
+RMSNORM_KERNEL = "_rmsnorm_kernel_body"
+
+
+def profile_phase(cfg, params, smi: str, seed: int = 7) -> dict:
+    """``ProfileHook.start_profile(duration_s=...)`` around eight llama3_8b
+    dense decode steps (8 slots of the serve prompts, prefilled before the
+    capture): the Chrome trace must hold CUDA kernels named after the
+    decode kernel and RMSNorm; prints the ten longest device operations
+    and the longest gaps between device operations (where the device waits
+    for the host) with the device's idle share over the capture."""
+    engine = ServeEngine(cfg, params, max_slots=SLOTS, max_len=MAX_LEN,
+                         device="cuda")
+    rng = np.random.default_rng(seed)
+    for i, n in enumerate(PROMPT_LENS):
+        engine.add_request(Request(f"p{i}", rng.integers(
+            0, cfg.vocab_size, n).tolist(), max_new_tokens=64))
+    engine.step()                         # every prefill, one decode
+    engine.step()
+    torch.cuda.synchronize()
+    hook = ProfileHook(tempfile.mkdtemp(prefix="profiles-"))
+    before = engine.stats["decode_steps"]
+    reset_counts()
+    started = hook.start_profile(duration_s=120.0)
+    if "trace_dir" not in started:
+        raise AssertionError(f"profile start: {started}")
+    t0 = time.perf_counter()
+    for _ in range(PROFILE_STEPS):
+        engine.step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    stopped = hook.stop_profile()
+    counts = {"rmsnorm": rn.launches, "decode_attention": da.launches}
+    steps = engine.stats["decode_steps"] - before
+    del engine
+    torch.cuda.empty_cache()
+    if stopped.get("trace_dir") != started["trace_dir"]:
+        raise AssertionError(f"profile stop: {stopped}")
+    trace = json.loads((Path(stopped["trace_dir"]) /
+                        profiler_mod.TRACE_FILE).read_text())
+    kernels = sorted((e for e in trace["traceEvents"]
+                      if e.get("cat") == "kernel"), key=lambda e: e["ts"])
+    names = [e["name"] for e in kernels]
+    top = sorted(kernels, key=lambda e: -e["dur"])[:10]
+    # Gaps between device operations: (ms, the kernel before, the kernel
+    # after), the time the device waited for the host's next launch.
+    gaps, busy, end, last = [], 0.0, None, ""
+    for e in kernels:
+        a, b = e["ts"], e["ts"] + e["dur"]
+        if end is not None and a > end:
+            gaps.append(((a - end) / 1e3, last[:60], e["name"][:60]))
+        busy += max(0.0, b - max(a, end if end is not None else a))
+        if end is None or b >= end:
+            end, last = b, e["name"]
+    span = (end - kernels[0]["ts"]) if kernels else 0.0
+    run = {"decode_steps": steps, "wall_ms": wall_ms,
+           "kernel_events": len(kernels),
+           "decode_kernels": sum(DECODE_KERNEL in n for n in names),
+           "rmsnorm_kernels": sum(RMSNORM_KERNEL in n for n in names),
+           "top_device_ops_ms": [(e["name"][:80], e["dur"] / 1e3)
+                                 for e in top],
+           "longest_gaps_ms": sorted(gaps, reverse=True)[:10],
+           "device_span_ms": span / 1e3, "device_busy_ms": busy / 1e3,
+           "idle_share": 1 - busy / span if span else None,
+           "launches": counts, "trace_dir": stopped["trace_dir"],
+           "card": smi}
+    print(f"profile: {json.dumps(run)}", flush=True)
+    want = {"rmsnorm": (2 * cfg.n_layers + 1) * PROFILE_STEPS,
+            "decode_attention": cfg.n_layers * PROFILE_STEPS}
+    if steps != PROFILE_STEPS or counts != want or \
+            not run["decode_kernels"] or not run["rmsnorm_kernels"]:
+        raise AssertionError(f"profile: {run} (launches expected {want})")
+    return run
+
+
+# mesh_train: llama_1b's full width at MESH_LAYERS of its 16 layers (two
+# ranks' states and activations share the card), B 4 x S 2048, float32
+# masters with bf16 compute, MESH_STEPS steps at MESH_LR with no warm-up.
+# The losses are held absolutely: at this init the loss sits near
+# ln(vocab) whatever a layout computes, so a limit relative to it would
+# hold nothing.  Each param leaf's change from the seed's params is held
+# to the reference's change as ||d - d_ref|| / ||d_ref||: Adam's first
+# steps move an element by about lr in the sign of its summed gradient,
+# so the change is that sign pattern.  An element whose gradient lies
+# within bf16 noise of zero may flip between two sound layouts; a
+# gradient not summed over dp or fsdp, or not reduced over tp in the
+# backward, flips a large share of them.  The limits stand well above
+# the sound runs' readings and below a planted fault's (PERF.md).
+MESH_LAYERS, MESH_STEPS, MESH_LR = 4, 2, "2e-5"
+MESH_LOSS_ATOL, MESH_DELTA_RTOL = 2e-3, 0.25
+# The reference's own change is Adam's size, at most MESH_ADAM_MAX lr an
+# element a step: seed params that differed from the launcher's would be
+# off by the params' own scale.
+MESH_ADAM_MAX = 4.0
+MESH_RANK = (
+    "import dataclasses, json, sys, torch\n"
+    "from kuberay_tpu_torch.models import llama\n"
+    "from kuberay_tpu_torch.ops import attention as fa\n"
+    "from kuberay_tpu_torch.ops import rmsnorm as rn\n"
+    "from kuberay_tpu_torch.train import launcher\n"
+    "llama.CONFIGS['llama_1b_cut'] = dataclasses.replace(\n"
+    "    llama.CONFIGS['llama_1b'], n_layers=int(sys.argv[1]))\n"
+    "rc = launcher.main(sys.argv[2:])\n"
+    "print('rank result ' + json.dumps({'rc': rc,\n"
+    "    'peak_gb': torch.cuda.max_memory_allocated() / 1e9,\n"
+    "    'flash_fwd': fa.fwd_launches, 'flash_bwd_dkv': fa.bwd_dkv_launches,\n"
+    "    'flash_bwd_dq': fa.bwd_dq_launches, 'rmsnorm': rn.launches}),\n"
+    "    flush=True)\n")
+# (name, launcher flags, per-rank env): fsdp and tp on one slice of two
+# workers (fsdp absorbs what --tp leaves), dp as two slices of one worker.
+MESH_LAYOUTS = (
+    ("fsdp2", ["--tp", "1"], "slice"),
+    ("tp2", ["--tp", "2"], "slice"),
+    ("dp2", ["--tp", "1"], "slices"),
+)
+
+
+def _rank_env(kind: str, rank: int, name: str) -> dict:
+    env = {"TPU_COORDINATOR_ADDRESS": "127.0.0.1",
+           "TPU_TRAIN_METRICS_PORT": "0", "TPU_JOB_ID": f"mesh-{name}",
+           "PYTHONPATH": str(ROOT)}
+    if kind == "slice":
+        env.update({"TPU_WORKER_HOSTNAMES": "127.0.0.1,127.0.0.1",
+                    "TPU_NUM_PROCESSES": "2", "TPU_WORKER_ID": str(rank)})
+    elif kind == "slices":
+        env.update({"TPU_WORKER_HOSTNAMES": "127.0.0.1",
+                    "TPU_NUM_PROCESSES": "1", "TPU_WORKER_ID": "0",
+                    "MEGASCALE_NUM_SLICES": "2",
+                    "MEGASCALE_SLICE_ID": str(rank)})
+    return env
+
+
+def _run_ranks(argv: list, envs: list, timeout: float = 600.0) -> list:
+    """One launcher process a rank (``MESH_RANK``); their outputs and
+    each rank's result line (exit code, peak memory, kernel launches)."""
+    clean = {k: v for k, v in os.environ.items()
+             if not k.startswith(("TPU_", "MEGASCALE_"))}
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", MESH_RANK, str(MESH_LAYERS), *argv],
+        cwd=ROOT, env={**clean, **env}, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for env in envs]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            p.kill()
+    results = []
+    for p, out in zip(procs, outs):
+        lines = [ln for ln in out.splitlines()
+                 if ln.startswith("rank result ")]
+        if p.returncode != 0 or not lines:
+            raise AssertionError(f"mesh rank rc {p.returncode}:\n"
+                                 f"{out[-6000:]}")
+        results.append({"stdout": out, **json.loads(
+            lines[-1][len("rank result "):])})
+    return results
+
+
+def _losses(recorder, job: str) -> list:
+    return [e["args"]["loss"] for e in recorder.events
+            if e.get("name") == "train_step" and e.get("job_id") == job]
+
+
+def _seed_params(cfg) -> dict:
+    """The launcher's seeded float32 masters (``--seed 0``), flat."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    state = ts.init_train_state(cfg, ts.make_optimizer(ts.TrainConfig()),
+                                gen, "float32", "cuda")
+    return dict(tree_items(state["params"]))
+
+
+def _delta_rel(delta: dict, ref: dict) -> dict:
+    """Each leaf's ||d - d_ref|| / ||d_ref||."""
+    return {k: ((d - ref[k]).norm() / ref[k].norm()).item()
+            for k, d in delta.items()}
+
+
+def mesh_train(smi: str) -> dict:
+    """The launcher over a real process group on this card: fsdp=2, tp=2
+    and dp=2 (two slices), two ranks each on gloo (NCCL refuses two ranks
+    on one device; the collectives go through pinned host buffers,
+    ``HostStagedGloo``, which rank 0 names), and a one-rank NCCL group
+    through the same sharded step.  Each run's losses (full precision,
+    from its lead's train_step events) are held to one process's on the
+    same seed and batches within MESH_LOSS_ATOL, and each param leaf's
+    change over the run (its sharded checkpoint, read back whole, less
+    the seed's params) to one process's within MESH_DELTA_RTOL; every
+    rank launches the flash kernels and RMSNorm a step as the train phase
+    does at this depth.  Every run is read before any failure is raised.
+    Prints each rank's peak memory, the step times, the launches and the
+    readings."""
+    base = ["--model", "llama_1b_cut", "--batch", str(TRAIN_BATCH),
+            "--seq-len", str(TRAIN_SEQ), "--steps", str(MESH_STEPS),
+            "--warmup", "0", "--lr", MESH_LR, "--log-every", "1",
+            "--param-dtype", "float32", "--seed", "0"]
+    per_step = train_per_step(MESH_LAYERS)
+    want = {k: n * MESH_STEPS for k, n in per_step.items()
+            if k != "ring_attention_fwd"}
+    cfg = dataclasses.replace(llama.CONFIGS["llama_1b"],
+                              n_layers=MESH_LAYERS)
+    seed = _seed_params(cfg)
+    adam_max = MESH_ADAM_MAX * float(MESH_LR) * MESH_STEPS
+    root = Path(tempfile.mkdtemp(prefix="mesh-train-"))
+    recorder = CoordinatorRecorder()
+    runs, failures, ref = {}, [], None
+    try:
+        plan = [("one_process", [], [_rank_env("none", 0, "one_process")]),
+                ("nccl_one_rank", ["--dist-backend", "nccl"],
+                 [_rank_env("none", 0, "nccl_one_rank")])]
+        plan += [(name, flags + ["--dist-backend", "gloo"],
+                  [_rank_env(kind, r, name) for r in range(2)])
+                 for name, flags, kind in MESH_LAYOUTS]
+        for name, flags, envs in plan:
+            t0 = time.perf_counter()
+            ranks = _run_ranks(base + flags + [
+                "--checkpoint-dir", str(root / name),
+                "--dist-port", str(free_port())], envs)
+            wall_s = time.perf_counter() - t0
+            steps = [re.fullmatch(r"step (\d+) loss (\S+) tok/s (\d+)", ln)
+                     for ln in ranks[0]["stdout"].splitlines()
+                     if ln.startswith("step ")]
+            staged = [ln for ln in ranks[0]["stdout"].splitlines()
+                      if ln.startswith("collectives: ")]
+            params = ckpt.load_params_for_serving(str(root / name),
+                                                  device="cuda")
+            shutil.rmtree(root / name)
+            delta = {k: v - seed[k] for k, v in tree_items(params)
+                     if v.dtype == torch.float32}
+            del params
+            run = {"ranks": len(ranks), "wall_s": wall_s,
+                   "losses": _losses(recorder, f"mesh-{name}"),
+                   "step_ms": [TRAIN_BATCH * TRAIN_SEQ / float(m.group(3))
+                               * 1e3 for m in steps if m],
+                   "peak_gb": [r["peak_gb"] for r in ranks],
+                   "launches": [{k: r[k] for k in want} for r in ranks],
+                   "collectives": staged}
+            bad = []
+            if len(delta) != len(seed):
+                bad.append(f"{len(seed) - len(delta)} leaves not float32")
+            if ref is None:
+                ref = {"losses": run["losses"], "delta": delta}
+                run["delta_max_abs"] = max(d.abs().max().item()
+                                           for d in delta.values())
+                run["delta_rms"] = {k: d.square().mean().sqrt().item()
+                                    for k, d in delta.items()}
+                if not run["delta_max_abs"] <= adam_max or \
+                        not all(x > 0 for x in run["delta_rms"].values()):
+                    bad.append(f"the reference's change is not Adam's size "
+                               f"({adam_max} at most, every leaf moved)")
+            else:
+                run["loss_abs_err"] = [abs(a - b) for a, b in
+                                       zip(run["losses"], ref["losses"])]
+                run["delta_rel"] = _delta_rel(delta, ref["delta"])
+                run["delta_rel_worst"] = max(run["delta_rel"].values())
+                if not all(e <= MESH_LOSS_ATOL
+                           for e in run["loss_abs_err"]):
+                    bad.append(f"losses beyond {MESH_LOSS_ATOL}")
+                if not run["delta_rel_worst"] <= MESH_DELTA_RTOL:
+                    bad.append(f"param changes beyond {MESH_DELTA_RTOL}: " +
+                               str(sorted(k for k, x in
+                                          run["delta_rel"].items()
+                                          if x > MESH_DELTA_RTOL)))
+                del delta
+            torch.cuda.empty_cache()
+            runs[name] = run
+            print(f"mesh_train {name}: {json.dumps(run)}; {smi}",
+                  flush=True)
+            gloo = "gloo" in flags
+            if len(run["losses"]) != MESH_STEPS or \
+                    not all(math.isfinite(x) for x in run["losses"]):
+                bad.append(f"{len(run['losses'])} finite losses")
+            if any(l != want for l in run["launches"]):
+                bad.append(f"launches expected {want}")
+            if gloo and not any("HostStagedGloo" in ln for ln in staged):
+                bad.append("HostStagedGloo not named")
+            if bad:
+                failures.append(f"{name}: {bad}")
+    finally:
+        recorder.close()
+        shutil.rmtree(root, ignore_errors=True)
+    if failures:
+        raise AssertionError(f"mesh_train: {failures}")
+    return {"layers": MESH_LAYERS, "steps": MESH_STEPS, "lr": MESH_LR,
+            "loss_atol": MESH_LOSS_ATOL, "delta_rtol": MESH_DELTA_RTOL,
+            "launches_per_rank_per_step": {k: per_step[k] for k in want},
+            "runs": runs}
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -3078,9 +3522,20 @@ def main(argv=None) -> None:
     print(f"device: {kind}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
 
+    smoke_t0 = time.perf_counter()
+    walls = {}
+
+    def timed(name, fn, *args, **kwargs):
+        t = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            walls[name] = time.perf_counter() - t
+
     t0 = time.perf_counter()
     libs = _build.build_all()
     build_s = time.perf_counter() - t0
+    walls["build"] = build_s
     print(f"built {[p.name for p in libs]} in {build_s:.2f} s", flush=True)
     hopper = hopper_resources(libs)
     print(f"hopper attention kernels (ptxas): {json.dumps(hopper)}",
@@ -3089,10 +3544,10 @@ def main(argv=None) -> None:
     print(f"decode kernels (ptxas): {json.dumps(decode_res)}", flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rms = check_rmsnorm(gen)
-    dec = check_decode(gen)
-    decq = check_decode_quant(gen)
-    paged = check_paged(gen)
+    rms = timed("check_rmsnorm", check_rmsnorm, gen)
+    dec = timed("check_decode", check_decode, gen)
+    decq = timed("check_decode_quant", check_decode_quant, gen)
+    paged = timed("check_paged", check_paged, gen)
     decode_smem(decode_res)
     for name, res in (("decode_attention", dec),
                       ("decode_attention_quant", decq),
@@ -3104,9 +3559,9 @@ def main(argv=None) -> None:
               f"splits, workspace {t['workspace_bytes']} bytes, merge "
               f"{t['merge_graph_ms']:.5f} ms; resources "
               f"{json.dumps(decode_res[name]['D128G4'])}", flush=True)
-    flash = check_flash(gen)
-    xe = check_xent(gen)
-    ring = check_ring(gen)
+    flash = timed("check_flash", check_flash, gen)
+    xe = timed("check_xent", check_xent, gen)
+    ring = timed("check_ring", check_ring, gen)
     hopper_smem(hopper)
     rbwd = flash["ring_past_bwd"]
     for name, t, kernel in (
@@ -3136,32 +3591,46 @@ def main(argv=None) -> None:
     cfg = llama.CONFIGS["llama3_8b"]
     params = llama.init_params(
         cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
-    srv = serve(cfg, params)
-    cached = {"serve_paged": serve_cached(cfg, params, "none", paged=True),
-              "serve_int8_paged": serve_cached(cfg, params, "int8",
-                                               paged=True),
-              "serve_int8_dense": serve_cached(cfg, params, "int8",
-                                               paged=False)}
+    srv = timed("serve", serve, cfg, params)
+    cached = {"serve_paged": timed("serve_paged", serve_cached, cfg, params,
+                                   "none", paged=True),
+              "serve_int8_paged": timed("serve_int8_paged", serve_cached,
+                                        cfg, params, "int8", paged=True),
+              "serve_int8_dense": timed("serve_int8_dense", serve_cached,
+                                        cfg, params, "int8", paged=False)}
     for name, run in {"serve": srv, **cached}.items():
         print(f"{name}: " + json.dumps(
             {k: v for k, v in run.items()
              if k not in ("engine", "engine_after_batch", "tokens")}),
             flush=True)
-    options = serve_options(cfg, params, smi)
-    options["serve_surface"] = serve_surface(cfg, params, smi)
-    options["serve_tiers"] = serve_tiers(cfg, params, smi)
-    options["serve_disagg"] = serve_disagg(cfg, params, smi)
+    options = timed("serve_options", serve_options, cfg, params, smi)
+    options["serve_surface"] = timed("serve_surface", serve_surface, cfg,
+                                     params, smi)
+    options["serve_tiers"] = timed("serve_tiers", serve_tiers, cfg, params,
+                                   smi)
+    options["serve_disagg"] = timed("serve_disagg", serve_disagg, cfg,
+                                    params, smi)
+    prof = timed("profile", profile_phase, cfg, params, smi)
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    moe_serve = mixtral_serve(smi)
+    moe_serve = timed("mixtral_serve", mixtral_serve, smi)
     options.update({k: v for k, v in moe_serve.items()
                     if k.startswith("mixtral_")})
-    moe_train = mixtral_train(smi)
-    trn = train(profile=args.profile)
+    moe_train = timed("mixtral_train", mixtral_train, smi)
+    trn = timed("train", train, profile=args.profile)
     print(f"train: {json.dumps(trn)}", flush=True)
-    trn_ring = train_ring(profile=args.profile)
-    handoff = train_to_serve(smi, trn["launcher"]["step_ms_median_steady"])
+    steady_ms = trn["launcher"]["step_ms_median_steady"]
+    bnch = timed("bench", bench, steady_ms, smi)
+    trn_ring = timed("train_ring", train_ring, profile=args.profile)
+    handoff = timed("train_to_serve", train_to_serve, smi, steady_ms)
+    ent = timed("entry", entry_phase, smi)
+    mesh = timed("mesh_train", mesh_train, smi)
+    mesh_launches = {}
+    for run in mesh["runs"].values():
+        for rank in run["launches"]:
+            for k, n in rank.items():
+                mesh_launches[k] = mesh_launches.get(k, 0) + n
     by_path = {"serve": srv["launches"],
                **{name: run["launches"] for name, run in cached.items()},
                **{name: run["launches"] for name, run in options.items()},
@@ -3169,7 +3638,9 @@ def main(argv=None) -> None:
                "train": trn["launcher"]["launches"],
                "train_ring": trn_ring["launches"],
                "train_ckpt": handoff["launcher"]["launches"],
-               "serve_ckpt": handoff["server"]["launches"]}
+               "serve_ckpt": handoff["server"]["launches"],
+               "profile": prof["launches"], "entry": ent["launches"],
+               "mesh_train": mesh_launches}
 
     def entry(name, route, source, replaces, res):
         m = res["main"]
@@ -3229,7 +3700,12 @@ def main(argv=None) -> None:
             k: v for k, v in moe_serve.items() if not k.startswith(
                 "mixtral_")}, "mixtral_train": moe_train,
         "train": trn, "train_ring": trn_ring,
-        "train_to_serve": handoff, **kernels}, indent=1))
+        "train_to_serve": handoff, "bench": bnch, "entry": ent,
+        "mesh_train": mesh, "profile": prof, "walls_s": walls,
+        **kernels}, indent=1))
+    walls["total"] = time.perf_counter() - smoke_t0
+    print("wall seconds: " + json.dumps(
+        {k: round(v, 2) for k, v in walls.items()}), flush=True)
     print(smi, flush=True)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {

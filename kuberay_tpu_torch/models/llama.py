@@ -24,6 +24,17 @@ rank; tensors carry the whole sequence) or a ``DeviceMesh`` (each process
 passes its own sequence shard and gets its shard's outputs back, with RoPE
 at the shard's global positions).  The loss divides each rank's sum by
 the global token count; the sum of the ranks' losses is the JAX loss.
+
+On a ``DeviceMesh`` with any other axis larger than 1 (the multi-process
+layouts of ``train_step.make_sharded_train_fns``), ``params`` holds this
+rank's shard of every leaf as ``param_axes`` and ``DEFAULT_RULES`` place
+it, and ``tokens`` its rows (and sequence shard) of the batch.  The
+collectives GSPMD inserts in the JAX package are called here
+(``parallel/spmd.py``): each layer gathers its fsdp-split leaves,
+attention runs the flash kernels (or the ring) on this rank's tp heads,
+RMSNorm on the replicated activations, the row-parallel products are
+summed over tp, the embedding and the cross entropy are vocab-parallel.
+``forward`` then returns this rank's vocabulary columns of the logits.
 """
 
 from __future__ import annotations
@@ -45,8 +56,10 @@ from kuberay_tpu_torch.ops.attention import attention_ref, flash_attention
 from kuberay_tpu_torch.ops.rmsnorm import rmsnorm
 from kuberay_tpu_torch.ops.rope import apply_rope, rope_frequencies
 from kuberay_tpu_torch.ops.xent import chunked_xent, logits_f32
-from kuberay_tpu_torch.parallel.mesh import LocalRing, ring_of
+from kuberay_tpu_torch.parallel import spmd
+from kuberay_tpu_torch.parallel.mesh import ring_of
 from kuberay_tpu_torch.parallel.ring import ring_attention
+from kuberay_tpu_torch.parallel.spmd import copy_to, reduce_over
 from kuberay_tpu_torch.utils.device import resolve_device
 
 
@@ -106,6 +119,28 @@ CONFIGS: Dict[str, LlamaConfig] = {
         d_model=8192, n_layers=80, n_heads=64, n_kv_heads=8, d_ff=28672,
         xent_chunk=16384),
 }
+
+
+def param_axes(cfg: LlamaConfig) -> Dict[str, Any]:
+    """Logical sharding axes per leaf, the params' tree (copied)."""
+    axes = {
+        "embed": ("vocab", "embed"),
+        "layers": {
+            "attn_norm": ("layers", "norm"),
+            "wq": ("layers", "embed", "heads"),
+            "wk": ("layers", "embed", "kv_heads"),
+            "wv": ("layers", "embed", "kv_heads"),
+            "wo": ("layers", "heads", "embed"),
+            "mlp_norm": ("layers", "norm"),
+            "w_gate": ("layers", "embed", "mlp"),
+            "w_up": ("layers", "embed", "mlp"),
+            "w_down": ("layers", "mlp", "embed"),
+        },
+        "final_norm": ("norm",),
+    }
+    if not cfg.tie_embeddings:
+        axes["lm_head"] = ("embed", "vocab")
+    return axes
 
 
 def init_params(cfg: LlamaConfig, generator: Optional[torch.Generator] = None,
@@ -175,22 +210,48 @@ def _attention(cfg: LlamaConfig, q, k, v, mesh):
     raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
 
 
-def _layer(cfg: LlamaConfig, x: torch.Tensor, lp: Dict[str, torch.Tensor],
-           cos: torch.Tensor, sin: torch.Tensor, mesh=None) -> torch.Tensor:
-    """One transformer block.  x: [B, S, d]."""
+def use_layer(lp: Dict[str, torch.Tensor], layout,
+              layer_axes: Dict[str, Tuple]) -> Dict[str, torch.Tensor]:
+    """One layer's leaves as the layer uses them: fsdp-split ones
+    gathered (``Layout.use``); without a layout, as they are."""
+    if layout is None:
+        return lp
+    return {n: layout.use(w, layer_axes[n]) for n, w in lp.items()}
+
+
+def layer_axes(axes: Dict[str, Any]) -> Dict[str, Tuple]:
+    """Logical axes of one layer's leaves (the stacked axis dropped)."""
+    return {n: a[1:] for n, a in axes["layers"].items()}
+
+
+def attention_block(cfg, x: torch.Tensor, lp: Dict[str, torch.Tensor],
+                    cos: torch.Tensor, sin: torch.Tensor, mesh=None,
+                    layout=None) -> torch.Tensor:
+    """x + attention(RMSNorm(x)): the first half of a Llama or Mixtral
+    block.  Under tp the projections hold this rank's heads and the output
+    projection's partial sums are added over tp."""
     B, S, d = x.shape
-    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    h = rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
-    q = (h @ lp["wq"]).reshape(B, S, hq, hd)
-    kk = (h @ lp["wk"]).reshape(B, S, hkv, hd)
-    vv = (h @ lp["wv"]).reshape(B, S, hkv, hd)
+    hd = cfg.head_dim
+    h = copy_to(rmsnorm(x, lp["attn_norm"], cfg.norm_eps), layout, "tp")
+    q = (h @ lp["wq"]).reshape(B, S, -1, hd)
+    kk = (h @ lp["wk"]).reshape(B, S, -1, hd)
+    vv = (h @ lp["wv"]).reshape(B, S, -1, hd)
     q = apply_rope(q, cos, sin)
     kk = apply_rope(kk, cos, sin)
     attn = _attention(cfg, q, kk, vv, mesh)
-    x = x + (attn.reshape(B, S, hq * hd) @ lp["wo"]).to(x.dtype)
-    h = rmsnorm(x, lp["mlp_norm"], cfg.norm_eps)
+    return x + reduce_over(attn.reshape(B, S, -1) @ lp["wo"], layout,
+                           "tp").to(x.dtype)
+
+
+def _layer(cfg: LlamaConfig, x: torch.Tensor, lp: Dict[str, torch.Tensor],
+           cos: torch.Tensor, sin: torch.Tensor, mesh=None,
+           layout=None) -> torch.Tensor:
+    """One transformer block.  x: [B, S, d]."""
+    lp = use_layer(lp, layout, layer_axes(param_axes(cfg)))
+    x = attention_block(cfg, x, lp, cos, sin, mesh, layout)
+    h = copy_to(rmsnorm(x, lp["mlp_norm"], cfg.norm_eps), layout, "tp")
     gated = F.silu(h @ lp["w_gate"]) * (h @ lp["w_up"])
-    return x + (gated @ lp["w_down"]).to(x.dtype)
+    return x + reduce_over(gated @ lp["w_down"], layout, "tp").to(x.dtype)
 
 
 def _save_matmuls(ctx, op, *args, **kwargs):
@@ -200,20 +261,48 @@ def _save_matmuls(ctx, op, *args, **kwargs):
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
+def mesh_prologue(cfg, tokens: torch.Tensor, mesh):
+    """(layout, the sequence offset of ``tokens``) for a forward over
+    ``mesh``: the ``Layout`` of a ``DeviceMesh`` (its dims checked against
+    the config), and RoPE's offset of this rank's sequence shard."""
+    layout = spmd.layout_of(mesh)
+    if layout is None:
+        return None, 0
+    spmd.check_divisible(cfg, layout)
+    if layout.size("sp") > 1 and cfg.attn_impl not in _RING:
+        raise ValueError(f"a DeviceMesh with sp > 1 shards the sequence: "
+                         f"attn_impl must be one of {_RING}, not "
+                         f"{cfg.attn_impl!r}")
+    return layout, ring_of(mesh).seq_offset(tokens.shape[1])
+
+
+def embed_and_head(cfg, params: Dict[str, Any], tokens: torch.Tensor,
+                   layout) -> Tuple[torch.Tensor, Any]:
+    """(the token embeddings [B, S, d], a function giving the head [d, V]
+    or this rank's [d, V / tp] columns of it)."""
+    if layout is None:
+        x = params["embed"][tokens]
+        return x, lambda: (params["embed"].t() if cfg.tie_embeddings
+                           else params["lm_head"])
+    table = layout.use(params["embed"], ("vocab", "embed"))
+    x = spmd.embed_lookup(table, tokens, layout)
+
+    def head():
+        if cfg.tie_embeddings:
+            return table.t()
+        return layout.use(params["lm_head"], ("embed", "vocab"))
+    return x, head
+
+
 def forward_hidden(cfg: LlamaConfig, params: Dict[str, Any],
                    tokens: torch.Tensor, mesh=None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens: [B, S] -> (final hidden [B, S, d], head [d, V]).  On a
-    ``DeviceMesh`` ``tokens`` is this rank's sequence shard."""
+    ``DeviceMesh`` ``tokens`` is this rank's rows and sequence shard, and
+    the head this rank's vocabulary columns."""
     B, S = tokens.shape
-    off = 0
-    if mesh is not None and not isinstance(mesh, LocalRing):
-        if cfg.attn_impl not in _RING:
-            raise ValueError(f"a DeviceMesh shards the sequence: attn_impl "
-                             f"must be one of {_RING}, not "
-                             f"{cfg.attn_impl!r}")
-        off = ring_of(mesh).seq_offset(S)
-    x = params["embed"][tokens]                            # [B, S, d]
+    layout, off = mesh_prologue(cfg, tokens, mesh)
+    x, head = embed_and_head(cfg, params, tokens, layout)  # [B, S, d]
     # RoPE at global positions: the table's rows [off, off + S).
     cos, sin = rope_frequencies(cfg.head_dim, off + S, float(cfg.rope_theta),
                                 device=tokens.device)
@@ -226,28 +315,62 @@ def forward_hidden(cfg: LlamaConfig, params: Dict[str, Any],
     for leaves in per_layer:
         lp = dict(zip(names, leaves))
         if not cfg.remat:
-            x = _layer(cfg, x, lp, cos, sin, mesh)
+            x = _layer(cfg, x, lp, cos, sin, mesh, layout)
         elif cfg.remat_policy == "full":
-            x = checkpoint(_layer, cfg, x, lp, cos, sin, mesh,
+            x = checkpoint(_layer, cfg, x, lp, cos, sin, mesh, layout,
                            use_reentrant=False)
         else:
-            x = checkpoint(_layer, cfg, x, lp, cos, sin, mesh,
+            x = checkpoint(_layer, cfg, x, lp, cos, sin, mesh, layout,
                            use_reentrant=False,
                            context_fn=functools.partial(
                                create_selective_checkpoint_contexts,
                                _save_matmuls))
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    head = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
-    return x, head
+    return x, head()
 
 
 def forward(cfg: LlamaConfig, params: Dict[str, Any],
             tokens: torch.Tensor, mesh=None) -> torch.Tensor:
-    """tokens: [B, S] -> logits [B, S, vocab] float32.  ``mesh`` is
-    required for attn_impl "ring" / "ring_rdma"."""
+    """tokens: [B, S] -> logits [B, S, vocab] float32 (on a mesh with tp >
+    1, this rank's vocab / tp columns).  ``mesh`` is required for
+    attn_impl "ring" / "ring_rdma"."""
     x, head = forward_hidden(cfg, params, tokens, mesh)
     B, S, d = x.shape
+    x = copy_to(x, spmd.layout_of(mesh), "tp")
     return logits_f32(x.reshape(B * S, d), head).reshape(B, S, -1)
+
+
+def token_xent(cfg, x: torch.Tensor, head: torch.Tensor,
+               targets: torch.Tensor, layout
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(nll, logz, pred), each [B, S], from the final hidden states and
+    the head: chunked over the vocabulary with ``cfg.xent_chunk``, and
+    vocab-parallel over tp (every tp rank gets the whole vocabulary's)."""
+    B, S, d = x.shape
+    tp = layout is not None and layout.size("tp") > 1
+    x = copy_to(x, layout, "tp").reshape(B * S, d)
+    if cfg.xent_chunk:
+        out = chunked_xent(x, head, targets.reshape(-1), cfg.xent_chunk,
+                           layout if tp else None)
+        return tuple(t.reshape(B, S) for t in out)
+    logits = logits_f32(x, head).reshape(B, S, -1)
+    if tp:
+        return spmd.vocab_xent(logits, targets, layout)
+    logz = torch.logsumexp(logits, dim=-1)
+    nll = logz - logits.gather(-1, targets.long()[..., None])[..., 0]
+    return nll, logz, logits.argmax(-1)
+
+
+def batch_count(mask: torch.Tensor, mesh) -> torch.Tensor:
+    """The mask's sum over the global batch (no gradient): summed over the
+    axes that split the batch on a ``DeviceMesh``, over sp on a ring."""
+    count = mask.sum()
+    layout = spmd.layout_of(mesh)
+    if layout is not None:
+        return layout.sum_batch(count)
+    if mesh is not None:
+        return ring_of(mesh).sum(count.detach())
+    return count
 
 
 def loss_fn(cfg: LlamaConfig, params: Dict[str, Any], tokens: torch.Tensor,
@@ -257,25 +380,15 @@ def loss_fn(cfg: LlamaConfig, params: Dict[str, Any], tokens: torch.Tensor,
     """Next-token cross entropy with z-loss.  tokens/targets: [B, S];
     mask: [B, S] (1 = counts).  With ``cfg.xent_chunk`` the [B, S, V]
     logits are never formed (``ops/xent.py``, the same math).  With a
-    ``mesh`` every sum is divided by the token count summed over sp (no
-    gradient), so on a ``DeviceMesh`` each rank returns its share and the
-    sum over sp is the global loss and metrics."""
-    if cfg.xent_chunk:
-        x, head = forward_hidden(cfg, params, tokens, mesh)
-        nll, logz, pred = (t.reshape(tokens.shape) for t in chunked_xent(
-            x.reshape(-1, x.shape[-1]), head, targets.reshape(-1),
-            cfg.xent_chunk))
-    else:
-        logits = forward(cfg, params, tokens, mesh)        # [B, S, V] f32
-        logz = torch.logsumexp(logits, dim=-1)
-        nll = logz - logits.gather(-1, targets.long()[..., None])[..., 0]
-        pred = logits.argmax(-1)
+    ``mesh`` every sum is divided by the token count summed over the
+    ranks that split the batch (dp, fsdp, sp; no gradient), so on a
+    ``DeviceMesh`` each rank returns its share and the sum over those
+    ranks is the global loss and metrics."""
+    x, head = forward_hidden(cfg, params, tokens, mesh)
+    nll, logz, pred = token_xent(cfg, x, head, targets, spmd.layout_of(mesh))
     zl = z_loss * torch.square(logz)
     mask = torch.ones_like(nll) if mask is None else mask.float()
-    count = mask.sum()
-    if mesh is not None:
-        count = ring_of(mesh).sum(count.detach())
-    denom = torch.clamp(count, min=1.0)
+    denom = torch.clamp(batch_count(mask, mesh), min=1.0)
     loss = ((nll + zl) * mask).sum() / denom
     metrics = {
         "loss": (nll * mask).sum() / denom,

@@ -26,7 +26,19 @@ and ``ce`` counts top-1 picks over every token, masked ones included.
 Neither JAX entry point takes a Mixtral config (the server reads
 ``llama.CONFIGS``, the train step calls ``llama.loss_fn``), so this model
 is reached at library level: ``loss_fn`` for training, the two serving
-engines by config type.
+engines by config type; the port's ``train_step.make_sharded_train_fns``
+takes it too.
+
+Over a ``DeviceMesh`` (``forward_hidden(..., mesh=)``, each rank holding
+its shard of every leaf and its rows of the batch; ``parallel/spmd.py``)
+the capacity dispatch becomes ``moe_ffn_sharded``: the router logits are
+gathered over ep before top-k (ties still go to the lower expert), each
+(token, k)'s place in its expert's buffer counts the earlier batch ranks'
+rows (the JAX program's global cumsum, with the global capacity), the
+rows within capacity run through ``grouped_moe_ffn`` on this rank's
+experts, and the outputs are summed over ep (and tp).  The aux losses are
+the global batch's.  Tokens are the same on every ep rank: the batch
+splits over dp and fsdp only.
 """
 
 from __future__ import annotations
@@ -39,14 +51,24 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from kuberay_tpu_torch.models.llama import _attention
+from kuberay_tpu_torch.models.llama import (
+    attention_block,
+    batch_count,
+    embed_and_head,
+    layer_axes,
+    mesh_prologue,
+    token_xent,
+    use_layer,
+)
 from kuberay_tpu_torch.ops.moe_matmul import (
     dropless_reference,
     grouped_moe_ffn,
 )
 from kuberay_tpu_torch.ops.rmsnorm import rmsnorm
-from kuberay_tpu_torch.ops.rope import apply_rope, rope_frequencies
-from kuberay_tpu_torch.ops.xent import chunked_softmax_xent_loss, logits_f32
+from kuberay_tpu_torch.ops.rope import rope_frequencies
+from kuberay_tpu_torch.ops.xent import logits_f32
+from kuberay_tpu_torch.parallel import spmd
+from kuberay_tpu_torch.parallel.spmd import copy_to, gather_over, reduce_over
 from kuberay_tpu_torch.utils.device import resolve_device
 
 
@@ -257,32 +279,95 @@ def moe_ffn(cfg: MixtralConfig, x: torch.Tensor, lp: Dict[str, torch.Tensor],
     return out.reshape(B, S, d).to(x.dtype), aux
 
 
-def _layer(cfg: MixtralConfig, x, lp, cos, sin):
+def _positions(flat: torch.Tensor, layout) -> torch.Tensor:
+    """Each (token, k) row's 1-based place in its expert's buffer, counted
+    over the global batch: this rank's cumsum plus the rows the earlier
+    batch ranks (dp-major) sent to each expert."""
+    pos = torch.cumsum(flat, 0)
+    if layout.batch_shards > 1:
+        counts = flat.sum(0)[None]                                 # [1, E]
+        counts = layout.all_gather(counts, "fsdp", 0)
+        counts = layout.all_gather(counts[None], "dp", 0).reshape(
+            -1, flat.shape[1])                                     # [n, E]
+        pos = pos + counts[:layout.batch_index].sum(0)
+    return pos
+
+
+def moe_ffn_sharded(cfg: MixtralConfig, x: torch.Tensor,
+                    lp: Dict[str, torch.Tensor], layout,
+                    token_mask: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """``moe_ffn`` over a mesh: x [B, S, d] is this rank's rows; the
+    expert leaves are this rank's ep (and tp) shards.  The same outputs
+    and aux losses as ``moe_ffn`` on the global batch: capacity from the
+    global token count, positions from the global cumsum, the aux means
+    over every token of the batch."""
     B, S, d = x.shape
-    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    h = rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
-    q = (h @ lp["wq"]).reshape(B, S, hq, hd)
-    kk = (h @ lp["wk"]).reshape(B, S, hkv, hd)
-    vv = (h @ lp["wv"]).reshape(B, S, hkv, hd)
-    q = apply_rope(q, cos, sin)
-    kk = apply_rope(kk, cos, sin)
-    attn = _attention(cfg, q, kk, vv, None)
-    x = x + (attn.reshape(B, S, hq * hd) @ lp["wo"]).to(x.dtype)
+    E, K = cfg.n_experts, cfg.top_k
+    T = B * S
+    T_all = T * layout.batch_shards
+    C = max(1, int(math.ceil(T_all * K / E * cfg.capacity_factor)))
+    xt = x.reshape(T, d)
+    # The router's columns are this rank's experts: gather them over ep.
+    logits = gather_over(copy_to(xt, layout, "ep") @ lp["router"], layout,
+                         "ep", 1).float()
+    probs = torch.softmax(logits, dim=-1)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    topw, topi = vals[:, :K], idx[:, :K]
+    topw = topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9)
+    if token_mask is not None:
+        topw = topw * token_mask.reshape(T, 1).to(topw.dtype)
+
+    # Aux losses over the global batch (masked tokens included).
+    me = reduce_over(probs.sum(0), layout, "dp", "fsdp") / T_all
+    top1 = torch.zeros(E, device=x.device).index_add_(
+        0, topi[:, 0], torch.ones(T, device=x.device))
+    ce = layout.all_reduce(top1, ("dp", "fsdp")) / T_all
+    z = reduce_over(torch.sum(torch.logsumexp(logits, -1) ** 2), layout,
+                    "dp", "fsdp") / T_all
+    aux = {"load_balance": E * torch.sum(me * ce) * cfg.router_aux_weight,
+           "router_z": z * cfg.router_z_weight}
+
+    flat = F.one_hot(topi, E).to(torch.int32)                   # [T, K, E]
+    if token_mask is not None:
+        flat = flat * token_mask.reshape(T, 1, 1).to(torch.int32)
+    flat = flat.reshape(T * K, E)
+    pos = _positions(flat, layout).gather(1, topi.reshape(T * K, 1))
+    routed = flat.gather(1, topi.reshape(T * K, 1)) > 0
+    keep = (routed & (pos <= C)).reshape(T, K)
+    topw = copy_to(topw * keep, layout, "ep", "tp")
+    e0 = layout.index("ep") * lp["w_gate"].shape[0]
+    out = grouped_moe_ffn(copy_to(xt, layout, "ep", "tp"), lp["w_gate"],
+                          lp["w_up"], lp["w_down"], topi, topw, e0)
+    out = reduce_over(out, layout, "ep", "tp")
+    return out.reshape(B, S, d).to(x.dtype), aux
+
+
+def _layer(cfg: MixtralConfig, x, lp, cos, sin, layout=None):
+    lp = use_layer(lp, layout, layer_axes(param_axes(cfg)))
+    x = attention_block(cfg, x, lp, cos, sin, None, layout)
     h = rmsnorm(x, lp["mlp_norm"], cfg.norm_eps)
-    moe_out, aux = moe_ffn(cfg, h, lp)
+    if layout is None:
+        moe_out, aux = moe_ffn(cfg, h, lp)
+    else:
+        moe_out, aux = moe_ffn_sharded(cfg, h, lp, layout)
     return x + moe_out, aux["load_balance"], aux["router_z"]
 
 
 def forward_hidden(cfg: MixtralConfig, params: Dict[str, Any],
-                   tokens: torch.Tensor
+                   tokens: torch.Tensor, mesh=None
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """tokens [B, S] -> (final hidden [B, S, d], aux losses summed over
     the layers).  With ``cfg.remat`` each layer runs under
     ``torch.utils.checkpoint`` (the JAX layer's ``jax.checkpoint``), so
     the capacity path's [T, K, E, C] one-hots are recomputed in the
-    backward rather than kept."""
+    backward rather than kept.  ``mesh``: a ``DeviceMesh`` whose sp is 1
+    (``tokens`` this rank's rows)."""
     B, S = tokens.shape
-    x = params["embed"][tokens]
+    layout, _ = mesh_prologue(cfg, tokens, mesh)
+    if mesh is not None and (layout is None or layout.size("sp") > 1):
+        raise ValueError("Mixtral runs over a DeviceMesh without sp")
+    x, _ = embed_and_head(cfg, params, tokens, layout)
     cos, sin = rope_frequencies(cfg.head_dim, S, float(cfg.rope_theta),
                                 device=tokens.device)
     names = sorted(params["layers"])
@@ -291,54 +376,58 @@ def forward_hidden(cfg: MixtralConfig, params: Dict[str, Any],
                         for n in names)):
         lp = dict(zip(names, leaves))
         if cfg.remat:
-            x, a, z = checkpoint(_layer, cfg, x, lp, cos, sin,
+            x, a, z = checkpoint(_layer, cfg, x, lp, cos, sin, layout,
                                  use_reentrant=False)
         else:
-            x, a, z = _layer(cfg, x, lp, cos, sin)
+            x, a, z = _layer(cfg, x, lp, cos, sin, layout)
         lb, rz = lb + a, rz + z
     aux = {"load_balance": lb, "router_z": rz}
     return rmsnorm(x, params["final_norm"], cfg.norm_eps), aux
 
 
-def forward(cfg: MixtralConfig, params: Dict[str, Any], tokens: torch.Tensor
-            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """tokens [B, S] -> (float32 logits [B, S, V], aux losses)."""
-    x, aux = forward_hidden(cfg, params, tokens)
+def forward(cfg: MixtralConfig, params: Dict[str, Any], tokens: torch.Tensor,
+            mesh=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """tokens [B, S] -> (float32 logits [B, S, V], aux losses); on a mesh
+    with tp > 1, this rank's vocab / tp columns."""
+    x, aux = forward_hidden(cfg, params, tokens, mesh)
     B, S, d = x.shape
-    logits = logits_f32(x.reshape(B * S, d), params["lm_head"])
+    layout = spmd.layout_of(mesh)
+    head = params["lm_head"] if layout is None else layout.use(
+        params["lm_head"], ("embed", "vocab"))
+    logits = logits_f32(copy_to(x, layout, "tp").reshape(B * S, d), head)
     return logits.reshape(B, S, -1), aux
+
+
+def _share(a: torch.Tensor, n: int) -> torch.Tensor:
+    """A value every batch rank holds whole, as one rank's share of it: the
+    value a / n (so the ranks' shares sum to it) with a's whole gradient
+    (each rank's backward reaches its own tokens only)."""
+    return a / n + (a - a.detach()) * (1 - 1 / n)
 
 
 def loss_fn(cfg: MixtralConfig, params: Dict[str, Any], tokens: torch.Tensor,
             targets: torch.Tensor, mask: Optional[torch.Tensor] = None,
-            z_loss: float = 1e-4
+            z_loss: float = 1e-4, mesh=None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross entropy with z-loss plus the router aux losses.
     With ``cfg.xent_chunk`` the [B, S, V] logits are never formed
     (``ops/xent.py``).  Returns (total loss, metrics: loss, total_loss,
-    aux_load_balance, aux_router_z, accuracy)."""
-    if cfg.xent_chunk:
-        B, S = tokens.shape
-        x, aux = forward_hidden(cfg, params, tokens)
-        ce_total, m = chunked_softmax_xent_loss(
-            x.reshape(B * S, -1), params["lm_head"], targets.reshape(-1),
-            mask=None if mask is None else mask.reshape(-1).float(),
-            z_loss=z_loss, chunk=cfg.xent_chunk)
-        total = ce_total + aux["load_balance"] + aux["router_z"]
-        return total, {"loss": m["loss"], "total_loss": total,
-                       "aux_load_balance": aux["load_balance"],
-                       "aux_router_z": aux["router_z"],
-                       "accuracy": m["accuracy"]}
-    logits, aux = forward(cfg, params, tokens)
-    logz = torch.logsumexp(logits, dim=-1)
-    true_logit = logits.gather(-1, targets.long()[..., None])[..., 0]
-    nll = logz - true_logit
+    aux_load_balance, aux_router_z, accuracy).  On a ``DeviceMesh`` the
+    loss and every metric are this rank's share: their sums over dp and
+    fsdp are the global values."""
+    layout = spmd.layout_of(mesh)
+    x, aux = forward_hidden(cfg, params, tokens, mesh)
+    head = params["lm_head"] if layout is None else layout.use(
+        params["lm_head"], ("embed", "vocab"))
+    nll, logz, pred = token_xent(cfg, x, head, targets, layout)
     mask = torch.ones_like(nll) if mask is None else mask.float()
-    denom = torch.clamp(mask.sum(), min=1.0)
+    denom = torch.clamp(batch_count(mask, mesh), min=1.0)
     ce = (nll * mask).sum() / denom
     zl = z_loss * ((logz ** 2) * mask).sum() / denom
-    total = ce + zl + aux["load_balance"] + aux["router_z"]
-    accuracy = ((logits.argmax(-1) == targets) * mask).sum() / denom
+    n = 1 if layout is None else layout.batch_shards
+    lb, rz = _share(aux["load_balance"], n), _share(aux["router_z"], n)
+    total = ce + zl + lb + rz
+    accuracy = ((pred == targets) * mask).sum() / denom
     return total, {"loss": ce, "total_loss": total,
-                   "aux_load_balance": aux["load_balance"],
-                   "aux_router_z": aux["router_z"], "accuracy": accuracy}
+                   "aux_load_balance": lb.detach(),
+                   "aux_router_z": rz.detach(), "accuracy": accuracy}

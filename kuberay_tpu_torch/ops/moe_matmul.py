@@ -16,6 +16,11 @@ XLA op (no Pallas kernel stands behind it).  Here it is a ``torch.matmul``
 per non-empty group, which needs the group sizes on the host: one
 device-to-host sync per call (a layer), counted in ``host_syncs``.  A
 hand-written grouped GEMM is later speed work.
+
+Under expert parallelism a rank holds experts [expert_offset,
+expert_offset + E_local) only (``w_*`` are its shards): rows routed
+elsewhere are sorted past the local groups, never run, and add zero, so
+the caller sums the ranks' outputs over ep.
 """
 
 from __future__ import annotations
@@ -31,25 +36,30 @@ host_syncs = 0
 
 def grouped_moe_ffn(xt: torch.Tensor, w_gate: torch.Tensor,
                     w_up: torch.Tensor, w_down: torch.Tensor,
-                    topi: torch.Tensor, topw: torch.Tensor) -> torch.Tensor:
+                    topi: torch.Tensor, topw: torch.Tensor,
+                    expert_offset: int = 0) -> torch.Tensor:
     """SwiGLU expert FFN over the tokens' top-k experts only.
 
     xt: [T, d] tokens (the products keep xt's dtype); w_gate, w_up: [E, d,
-    f]; w_down: [E, f, d]; topi: [T, K] chosen expert ids; topw: [T, K]
-    combine weights (already normalised and masked).  Returns [T, d].
+    f]; w_down: [E, f, d] (E local experts, the first of them expert
+    ``expert_offset``); topi: [T, K] chosen expert ids; topw: [T, K]
+    combine weights (already normalised and masked).  Returns [T, d]: the
+    sum over the chosen experts held here.
     """
     global host_syncs
     T, d = xt.shape
     E = w_gate.shape[0]
     K = topi.shape[1]
-    flat_expert = topi.reshape(T * K)                # row r -> expert id
+    local = topi.reshape(T * K) - expert_offset
+    # row r -> local expert id; rows for other ranks' experts -> E (last).
+    flat_expert = torch.where((local >= 0) & (local < E), local, E)
     order = torch.argsort(flat_expert, stable=True)
     x_sorted = xt[order // K]                        # row r is token r // K
-    sizes = torch.bincount(flat_expert, minlength=E).tolist()
+    sizes = torch.bincount(flat_expert, minlength=E + 1).tolist()
     host_syncs += 1
-    out_sorted = torch.empty_like(x_sorted)
+    out_sorted = torch.zeros_like(x_sorted)
     lo = 0
-    for e, n in enumerate(sizes):
+    for e, n in enumerate(sizes[:E]):
         if n:
             xs = x_sorted[lo:lo + n]
             gated = F.silu(xs @ w_gate[e]) * (xs @ w_up[e])

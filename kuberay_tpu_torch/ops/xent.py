@@ -12,6 +12,13 @@ Plain torch: the JAX package has no Pallas kernel here.  The products take
 the working dtype's operands with f32 output (on the card
 ``torch.mm(..., out_dtype=torch.float32)``; on the CPU through f32, which
 holds every bf16 product exactly), as ``preferred_element_type=f32`` does.
+
+Over a vocabulary split over tp (``layout``: ``parallel/spmd.py``), each
+rank runs the chunks of its own columns; the forward then reduces the
+running max, the sum of exponentials and the target logit over tp and
+takes the argmax across ranks, so every tp rank holds the whole
+vocabulary's (nll, logz, pred).  The backward is each rank's own columns'
+(dhead, and its share of dx, which the caller sums over tp).
 """
 
 from __future__ import annotations
@@ -19,6 +26,9 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
+
+from kuberay_tpu_torch.parallel.spmd import global_argmax
 
 _NEG = -1e30
 
@@ -65,8 +75,9 @@ def _chunks(V: int, chunk: int):
 class _ChunkedXent(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, x, head, targets, chunk):
+    def forward(ctx, x, head, targets, chunk, layout):
         T = x.shape[0]
+        v0 = 0 if layout is None else layout.index("tp") * head.shape[1]
         f32 = dict(dtype=torch.float32, device=x.device)
         m = torch.full((T,), _NEG, **f32)
         l = torch.zeros(T, **f32)
@@ -81,7 +92,7 @@ class _ChunkedXent(torch.autograd.Function):
             l = l * torch.exp(m - m_new) + torch.exp(
                 logits - m_new[:, None]).sum(-1)
             m = m_new
-            idx = tgt - c0
+            idx = tgt - v0 - c0
             inside = (idx >= 0) & (idx < n)
             tl = tl + torch.where(
                 inside, logits.gather(1, idx.clamp(0, n - 1)[:, None])[:, 0],
@@ -89,9 +100,16 @@ class _ChunkedXent(torch.autograd.Function):
             take = cv > bv                        # ties keep the first index
             bv = torch.where(take, cv, bv)
             bi = torch.where(take, ca + c0, bi)
+        if layout is not None:
+            m_all = layout.all_reduce(m.clone(), ("tp",),
+                                      op=dist.ReduceOp.MAX)
+            l = layout.all_reduce(l * torch.exp(m - m_all), ("tp",))
+            tl = layout.all_reduce(tl, ("tp",))
+            bi = global_argmax(bv, bi + v0, layout)
+            m = m_all
         logz = m + torch.log(l)
         ctx.save_for_backward(x, head, targets, logz)
-        ctx.chunk = chunk
+        ctx.chunk, ctx.v0 = chunk, v0
         pred = bi.to(torch.int32)
         ctx.mark_non_differentiable(pred)
         return logz - tl, logz, pred
@@ -109,23 +127,24 @@ class _ChunkedXent(torch.autograd.Function):
             hc = head[:, c0:c0 + n]
             p = torch.exp(dot_f32(x, hc) - logz[:, None])
             dlog = gp[:, None] * p
-            idx = tgt - c0
+            idx = tgt - ctx.v0 - c0
             inside = (idx >= 0) & (idx < n)
             dlog.scatter_add_(1, idx.clamp(0, n - 1)[:, None],
                               -torch.where(inside, g_nll, 0.0)[:, None])
             dlog = dlog.to(x.dtype)               # working-dtype operands
             dx += dot_f32(dlog, hc.t())
             dhead[:, c0:c0 + n] = dot_f32(x.t(), dlog).to(head.dtype)
-        return dx.to(x.dtype), dhead, None, None
+        return dx.to(x.dtype), dhead, None, None, None
 
 
 def chunked_xent(x: torch.Tensor, head: torch.Tensor, targets: torch.Tensor,
-                 chunk: int = 8192
+                 chunk: int = 8192, layout=None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """x: [T, d] hidden states; head: [d, V]; targets: [T] integer.
+    """x: [T, d] hidden states; head: [d, V] (with ``layout``, this tp
+    rank's [d, V / tp] columns); targets: [T] integer (global ids).
     Returns (nll [T], logz [T], pred [T] int32); pred is the argmax and
     carries no gradient."""
-    return _ChunkedXent.apply(x, head, targets, chunk)
+    return _ChunkedXent.apply(x, head, targets, chunk, layout)
 
 
 def chunked_softmax_xent_loss(x: torch.Tensor, head: torch.Tensor,

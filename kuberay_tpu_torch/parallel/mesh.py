@@ -1,10 +1,20 @@
-"""Device meshes for sequence parallelism, and the ring they give.
+"""Device meshes, the logical-axis rules, and the sp ring they give.
 
-Port of ``kuberay_tpu/parallel/mesh.py``'s ``MeshSpec`` (axis names and
-``resolve``, copied).  ``MeshSpec.build`` maps onto
-``torch.distributed.device_mesh.init_device_mesh`` over the default process
-group; only the ``sp`` axis may be larger than 1 here (FSDP and tensor
-parallel placements are ROADMAP A8).
+Port of ``kuberay_tpu/parallel/mesh.py``: ``MeshSpec`` (axis names and
+``resolve``, copied), ``build`` over the default process group (one
+process a device, ranks in row-major order over ``AXES``, as the JAX mesh
+lays its devices out), ``build_multislice`` (the cross-slice ``dcn_axes``
+outermost, every other axis within a slice; ranks follow
+``WorkerIdentity.global_process_id``, which is contiguous per slice), and
+``DEFAULT_RULES`` with ``logical_to_sharding``, which here maps a leaf's
+logical axes to DTensor placements, one per mesh dimension.  What the
+placements mean for the forward and the gradients (the collectives GSPMD
+inserts in the JAX package) is ``parallel/spmd.py``.
+
+Axis names as in the JAX package: ``dp`` (data parallel), ``pp``
+(pipeline, A11), ``fsdp`` (parameters sharded along ``embed``, gathered
+before use), ``tp`` (tensor parallel: heads, mlp and vocabulary), ``sp``
+(the sequence ring below) and ``ep`` (experts).
 
 Two kinds of mesh carry the ``sp`` ring:
 
@@ -27,11 +37,12 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
-from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import Replicate, Shard
 
 from kuberay_tpu_torch.utils.device import resolve_device
 
@@ -69,20 +80,88 @@ class MeshSpec:
         """The mesh over every process of the default process group (one
         device each), with the axes named as in the JAX package."""
         sizes = self.resolve(dist.get_world_size())
-        _only_sp(sizes)
-        if device_type == "cuda":
-            resolve_device("cuda")
-        return init_device_mesh(device_type,
-                                tuple(sizes[a] for a in self.AXES),
-                                mesh_dim_names=self.AXES)
+        ranks = torch.arange(dist.get_world_size())
+        return _device_mesh(device_type, ranks.reshape(
+            [sizes[a] for a in self.AXES]), self.AXES)
+
+    def build_multislice(self, num_slices: int,
+                         dcn_axes: Sequence[str] = ("dp",),
+                         device_type: str = "cuda") -> DeviceMesh:
+        """The hybrid mesh of a multi-slice job: the ``dcn_axes`` (default:
+        pure data parallelism) vary across slices, every other axis within
+        one.  Slice i holds the ranks [i * per, (i + 1) * per), the order
+        of ``WorkerIdentity.global_process_id``.  The dcn axes' sizes must
+        multiply to ``num_slices``."""
+        n = dist.get_world_size()
+        sizes = self.resolve(n)
+        for a in dcn_axes:
+            if a not in self.AXES:
+                raise ValueError(f"unknown dcn axis {a!r}")
+        if num_slices < 1 or n % num_slices:
+            raise ValueError(f"{n} processes do not divide into "
+                             f"{num_slices} slices")
+        dcn_size = math.prod(sizes[a] for a in dcn_axes)
+        if dcn_size != num_slices:
+            raise ValueError(
+                f"dcn axes {tuple(dcn_axes)} have total size {dcn_size}, "
+                f"but there are {num_slices} slices — the cross-slice "
+                f"axes must exactly cover the slices")
+        dcn = [a for a in self.AXES if a in dcn_axes]
+        ici = [a for a in self.AXES if a not in dcn_axes]
+        ranks = torch.arange(n).reshape([sizes[a] for a in dcn + ici])
+        perm = [(dcn + ici).index(a) for a in self.AXES]
+        return _device_mesh(device_type, ranks.permute(perm).contiguous(),
+                            self.AXES)
 
 
-def _only_sp(sizes: Dict[str, int]) -> None:
-    big = {a: s for a, s in sizes.items() if a != "sp" and s > 1}
-    if big:
-        raise NotImplementedError(
-            f"mesh axes {big}: only the sp axis may be larger than 1 here; "
-            f"FSDP, tensor, data and expert parallel layouts are ROADMAP A8")
+def _device_mesh(device_type: str, ranks: torch.Tensor,
+                 names: Tuple[str, ...]) -> DeviceMesh:
+    if device_type == "cuda":
+        resolve_device("cuda")
+    return DeviceMesh(device_type, ranks, mesh_dim_names=names)
+
+
+def mesh_sizes(mesh: DeviceMesh) -> Dict[str, int]:
+    """{axis name: size} of a mesh built by ``MeshSpec``."""
+    return {a: mesh.size(mesh_dim=i)
+            for i, a in enumerate(mesh.mesh_dim_names or ())}
+
+
+def logical_to_sharding(rules: Dict[str, object], mesh: DeviceMesh,
+                        logical_axes) -> Tuple:
+    """A leaf's logical axes -> its DTensor placements on ``mesh``, one per
+    mesh dimension.  ``rules`` maps a logical axis to a mesh axis, a tuple
+    of mesh axes (the tensor dimension split over them in mesh order, as a
+    JAX ``PartitionSpec`` entry of several axes) or None; unknown logical
+    names and mesh axes of size 1 replicate."""
+    names = tuple(mesh.mesh_dim_names or ())
+    placements = [Replicate()] * len(names)
+    for dim, logical in enumerate(logical_axes):
+        spec = rules.get(logical)
+        for axis in ((spec,) if isinstance(spec, str) else spec or ()):
+            i = names.index(axis)
+            if mesh.size(mesh_dim=i) > 1:
+                placements[i] = Shard(dim)
+    return tuple(placements)
+
+
+# Default logical->mesh rules for transformer params/activations (copied).
+# Conventions: "embed" = d_model, "heads" = attention heads, "mlp" = d_ff,
+# "vocab" = vocabulary, "layers" = stacked layer dim, "batch" = batch,
+# "seq" = sequence.
+DEFAULT_RULES: Dict[str, object] = {
+    "batch": ("dp", "fsdp"),
+    "seq": "sp",
+    "embed": "fsdp",      # ZeRO-3: shard params along d_model over fsdp
+    "heads": "tp",
+    "kv_heads": "tp",
+    "mlp": "tp",
+    "vocab": "tp",
+    "layers": None,
+    "expert": "ep",
+    "head_dim": None,
+    "norm": None,
+}
 
 
 class LocalRing:
@@ -136,8 +215,9 @@ class LocalRing:
 
 
 class DeviceRing:
-    """The sp axis of a ``DeviceMesh``: this process is one rank and holds
-    one shard."""
+    """The sp axis of a ``DeviceMesh`` (whose other axes may be larger
+    than 1): this process is one rank of its sp group and holds one
+    shard."""
 
     def __init__(self, mesh: DeviceMesh, axis_name: str = "sp"):
         names = mesh.mesh_dim_names or ()
@@ -145,8 +225,6 @@ class DeviceRing:
             raise ValueError(f"mesh axes {names} have no {axis_name!r}")
         dim = names.index(axis_name)
         self.n = mesh.size(mesh_dim=dim)
-        _only_sp({**{a: mesh.size(mesh_dim=i) for i, a in enumerate(names)
-                     if a != axis_name}, "sp": self.n})
         self.group = mesh.get_group(axis_name)
         self.rank = mesh.get_local_rank(axis_name)
         self.ranks: Tuple[int, ...] = (self.rank,)

@@ -19,6 +19,18 @@ nothing a later step does to the device tensors, in place or not, reaches
 the checkpoint.  One save is in flight at a time.  ``dcp.async_save``
 would need a process group, which a single process lacks, so the writer
 thread calls ``dcp.save`` on the host copy.
+
+A sharded state (the multi-process layouts of
+``train_step.make_sharded_train_fns``: every rank holds its shard of each
+leaf) is saved and restored with its ``shardings`` (``state_shardings``:
+each leaf's chunk of the global tensor).  Each rank hands DCP its chunks
+(``_Chunk``), DCP writes every chunk once (replicated chunks from one
+rank) and records the global shapes, and a restore reads whatever chunks
+the target layout needs: a save from 8 ranks restores into one process
+(no ``shardings``: whole leaves) or another layout, as Orbax restores
+into target shardings in the JAX package.  The ranks' saves and commits
+run over a gloo group of their own, so a writer thread's collectives
+never interleave with the training step's.
 """
 
 from __future__ import annotations
@@ -29,7 +41,22 @@ import threading
 from typing import Any, Dict, Optional
 
 import torch
+import torch.distributed as dist
 import torch.distributed.checkpoint as dcp
+from torch.distributed.checkpoint.default_planner import (
+    DefaultLoadPlanner,
+    DefaultSavePlanner,
+)
+from torch.distributed.checkpoint.metadata import (
+    ChunkStorageMetadata,
+    MetadataIndex,
+    TensorProperties,
+)
+from torch.distributed.checkpoint.planner import (
+    TensorWriteData,
+    WriteItem,
+    WriteItemType,
+)
 
 from kuberay_tpu_torch.utils.device import resolve_device
 
@@ -57,29 +84,145 @@ def _fsync_dir(path: str) -> None:
         os.close(fd)
 
 
+class _Chunk:
+    """One rank's chunk of a global tensor, in DCP's checkpointable
+    protocol: ``local`` is the data, at ``offsets`` in a tensor of
+    ``global_shape``."""
+
+    def __init__(self, local: torch.Tensor, global_shape, offsets):
+        self.local = local
+        self.global_shape = torch.Size(global_shape)
+        self.offsets = torch.Size(offsets)
+
+    def size(self) -> torch.Size:
+        return self.global_shape
+
+    def __create_write_items__(self, fqn: str, obj) -> list:
+        return [WriteItem(
+            index=MetadataIndex(fqn, self.offsets), type=WriteItemType.SHARD,
+            tensor_data=TensorWriteData(
+                chunk=ChunkStorageMetadata(offsets=self.offsets,
+                                           sizes=self.local.shape),
+                properties=TensorProperties.create_from_tensor(self.local),
+                size=self.global_shape))]
+
+    def __create_chunk_list__(self) -> list:
+        return [ChunkStorageMetadata(offsets=self.offsets,
+                                     sizes=self.local.shape)]
+
+    def __get_tensor_shard__(self, index) -> torch.Tensor:
+        return self.local
+
+
+class _SavePlanner(DefaultSavePlanner):
+    def lookup_object(self, index):
+        obj = self.state_dict[index.fqn]
+        return obj.local if isinstance(obj, _Chunk) else \
+            super().lookup_object(index)
+
+
+class _LoadPlanner(DefaultLoadPlanner):
+    def set_up_planner(self, state_dict, metadata=None,
+                       is_coordinator: bool = False) -> None:
+        # The default set-up's meta-tensor pass replaces every object it
+        # does not know (a _Chunk) by None, in place: put the chunks back
+        # into the flat dict the plan reads.
+        chunks = dict(_flat_chunks(state_dict))
+        super().set_up_planner(state_dict, metadata, is_coordinator)
+        self.state_dict.update(chunks)
+
+    def lookup_tensor(self, index):
+        obj = self.state_dict[index.fqn]
+        return obj.local if isinstance(obj, _Chunk) else \
+            super().lookup_tensor(index)
+
+
+def _chunked(tree, shardings):
+    """``tree`` with every tensor leaf that ``shardings`` places wrapped as
+    its ``_Chunk`` (other leaves as they are)."""
+    if isinstance(tree, dict):
+        return {k: _chunked(v, shardings[k]) for k, v in tree.items()}
+    if not isinstance(tree, torch.Tensor):
+        return tree
+    gshape = shardings.global_shape(tree.shape)
+    return _Chunk(tree, gshape, shardings.chunk(gshape)[0])
+
+
+def _flat_chunks(tree, prefix: str = ""):
+    """(DCP's flat key, chunk) of every ``_Chunk`` in a nested dict."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat_chunks(v, f"{prefix}{k}.")
+        elif isinstance(v, _Chunk):
+            yield f"{prefix}{k}", v
+
+
+def _loaded(state, target):
+    """``state`` (whose tensors the load filled in place, through the
+    chunks' views) with the other leaves DCP loaded into ``target``."""
+    if isinstance(state, dict):
+        return {k: _loaded(v, target[k]) for k, v in state.items()}
+    return state if isinstance(state, torch.Tensor) else target
+
+
+def _has_chunks(tree) -> bool:
+    if isinstance(tree, dict):
+        return any(_has_chunks(v) for v in tree.values())
+    return isinstance(tree, _Chunk)
+
+
+_GROUP = None
+
+
+def _group():
+    """The checkpoints' gloo group (made once, by every rank), or None in
+    a single process."""
+    global _GROUP
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return None
+    if _GROUP is None:
+        _GROUP = dist.new_group(backend="gloo")
+    return _GROUP
+
+
 def _commit(directory: str, state: Dict[str, Any], step: int,
-            keep: int) -> None:
+            keep: int, group=None) -> None:
     """Write ``state`` under a temporary name, rename it to its step, then
-    drop all but the newest ``keep`` committed steps."""
-    os.makedirs(directory, exist_ok=True)
+    drop all but the newest ``keep`` committed steps.  With a ``group``
+    every rank writes its chunks and rank 0 prepares and commits."""
+    lead = group is None or dist.get_rank() == 0
     final = _step_dir(directory, step)
     tmp = final + _TMP_SUFFIX
-    if os.path.isdir(tmp):
-        shutil.rmtree(tmp)             # a write cut off by a crash
-    dcp.save(state, storage_writer=dcp.FileSystemWriter(
-        tmp, thread_count=_WRITE_THREADS), no_dist=True)
-    if os.path.isdir(final):
-        shutil.rmtree(final)
-    os.rename(tmp, final)
-    _fsync_dir(directory)
-    for old in _committed_steps(directory)[:-keep]:
-        shutil.rmtree(_step_dir(directory, old))
+    if lead:
+        os.makedirs(directory, exist_ok=True)
+        if os.path.isdir(tmp):
+            shutil.rmtree(tmp)         # a write cut off by a crash
+    writer = dcp.FileSystemWriter(tmp, thread_count=_WRITE_THREADS)
+    if group is not None:
+        dist.barrier(group=group)
+    if group is None and not _has_chunks(state):
+        dcp.save(state, storage_writer=writer, no_dist=True)
+    else:
+        dcp.save(state, storage_writer=writer, planner=_SavePlanner(),
+                 process_group=group, no_dist=group is None)
+    if lead:
+        if os.path.isdir(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)
+        _fsync_dir(directory)
+        for old in _committed_steps(directory)[:-keep]:
+            shutil.rmtree(_step_dir(directory, old))
+    if group is not None:
+        dist.barrier(group=group)
 
 
 def save(directory: str, state: Dict[str, Any], step: int,
-         keep: int = 3) -> None:
-    """Write and commit ``state`` as ``step``; returns once it is on disk."""
-    _commit(directory, state, step, keep)
+         keep: int = 3, shardings=None) -> None:
+    """Write and commit ``state`` as ``step``; returns once it is on disk.
+    ``shardings``: a sharded state's (``train_step.state_shardings``)."""
+    if shardings is None:
+        return _commit(directory, state, step, keep)
+    _commit(directory, _chunked(state, shardings), step, keep, _group())
 
 
 def _tensors(tree):
@@ -116,18 +259,25 @@ class CheckpointWriter:
     to host memory and returns; a writer thread writes and commits it.
     Background failures are sticky: the first one is re-raised by
     ``wait()``, ``close()`` (which still drains the writer) and every
-    later ``save_async``."""
+    later ``save_async``.  A sharded state's writer takes its
+    ``shardings``; every rank makes one (in the same order), saves at the
+    same steps and writes its own chunks."""
 
-    def __init__(self, directory: str, keep: int = 3):
+    def __init__(self, directory: str, keep: int = 3, shardings=None):
         self.directory = directory
         self.keep = keep
+        self.shardings = shardings
+        self._group = None if shardings is None else _group()
         self._buffers: Dict[str, torch.Tensor] = {}
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
 
     def _write(self, host: Dict[str, Any], step: int) -> None:
         try:
-            _commit(self.directory, host, step, self.keep)
+            if self._group is None:
+                _commit(self.directory, host, step, self.keep)
+            else:
+                _commit(self.directory, host, step, self.keep, self._group)
         except BaseException as e:        # re-raised on the caller's thread
             self._error = e
 
@@ -141,6 +291,8 @@ class CheckpointWriter:
         host = _host_copy(state, self._buffers)
         if any(t.is_cuda for t in _tensors(state)):
             torch.cuda.synchronize()   # the copies into pinned memory
+        if self.shardings is not None:
+            host = _chunked(host, self.shardings)
         self._thread = threading.Thread(
             target=self._write, args=(host, step),
             name=f"checkpoint-{step}")
@@ -169,46 +321,55 @@ def latest_step(directory: str) -> Optional[int]:
 
 
 def _check_template(directory: str, step: int, template) -> None:
-    """Every tensor of the template must be saved with its shape and dtype:
-    a restore casts nothing."""
+    """Every tensor of the template must be saved with its (global) shape
+    and dtype: a restore casts nothing."""
     meta = dcp.FileSystemReader(_step_dir(directory, step)).read_metadata()
 
     def walk(tree, prefix):
         if isinstance(tree, dict):
             for k, v in tree.items():
                 walk(v, f"{prefix}{k}.")
-        elif isinstance(tree, torch.Tensor):
+        elif isinstance(tree, (torch.Tensor, _Chunk)):
             fqn = prefix[:-1]
+            local = tree.local if isinstance(tree, _Chunk) else tree
             saved = meta.state_dict_metadata.get(fqn)
             if not hasattr(saved, "properties"):
                 raise ValueError(f"checkpoint step {step} has no tensor {fqn}")
-            if (saved.size, saved.properties.dtype) != (tree.shape,
-                                                        tree.dtype):
+            if (saved.size, saved.properties.dtype) != (tree.size(),
+                                                        local.dtype):
                 raise ValueError(
                     f"checkpoint step {step}: {fqn} is {saved.properties.dtype}"
-                    f" {list(saved.size)}, the template's {tree.dtype} "
-                    f"{list(tree.shape)}")
+                    f" {list(saved.size)}, the template's {local.dtype} "
+                    f"{list(tree.size())}")
     walk(template, "")
 
 
-def restore(directory: str, step: int, state: Dict[str, Any]
-            ) -> Dict[str, Any]:
+def restore(directory: str, step: int, state: Dict[str, Any],
+            shardings=None) -> Dict[str, Any]:
     """Load step ``step`` into ``state`` (a template: the freshly
     initialised state, whose dtypes and devices the result keeps) and
-    return it."""
-    _check_template(directory, step, state)
-    dcp.load(state, storage_reader=dcp.FileSystemReader(
-        _step_dir(directory, step)), no_dist=True)
-    return state
+    return it.  ``shardings``: the template's layout when it is a sharded
+    state (whatever layout the save had)."""
+    reader = dcp.FileSystemReader(_step_dir(directory, step))
+    if shardings is None:
+        _check_template(directory, step, state)
+        dcp.load(state, storage_reader=reader, no_dist=True)
+        return state
+    target = _chunked(state, shardings)
+    _check_template(directory, step, target)
+    group = _group()
+    dcp.load(target, storage_reader=reader, planner=_LoadPlanner(),
+             process_group=group, no_dist=group is None)
+    return _loaded(state, target)
 
 
-def restore_latest(directory: str, state: Dict[str, Any]
+def restore_latest(directory: str, state: Dict[str, Any], shardings=None
                    ) -> Optional[Dict[str, Any]]:
     """``restore`` of the newest committed step; None when there is none."""
     step = latest_step(directory)
     if step is None:
         return None
-    return restore(directory, step, state)
+    return restore(directory, step, state, shardings)
 
 
 def load_params_for_serving(directory: str, step: Optional[int] = None,

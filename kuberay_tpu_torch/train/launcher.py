@@ -1,6 +1,6 @@
-"""Training launcher: what a training pod runs, on one CUDA device.
+"""Training launcher: what a training pod runs, one process a CUDA device.
 
-Port of ``kuberay_tpu/train/launcher.py`` for one process:
+Port of ``kuberay_tpu/train/launcher.py``:
 
     python -m kuberay_tpu_torch.train.launcher --model llama_1b --steps 1000 \\
         --data /data/shard.bin --checkpoint-dir /ckpt
@@ -27,18 +27,29 @@ run.  Worker 0 serves the ``tpu_train_*`` gauges as Prometheus text on
 ``TPU_TRAIN_METRICS_PORT`` (default ``PORT_METRICS``; 0 turns it off).
 MFU needs ``TPU_PEAK_TFLOPS``, the card's peak.
 
-The card is the default; ``--device cpu`` runs the plain paths.  Not
-ported yet, and refused rather than ignored: ``--tp``/``--sp`` > 1 and a
-slice of more than one process (ROADMAP A8: the multi-process layouts on
-``init_process_group``).  The sp ring runs through
-``train_step.make_sharded_train_fns`` (over a ``LocalRing`` on one card,
-or a ``DeviceMesh`` of processes the caller starts).
+The card is the default; ``--device cpu`` runs the plain paths.
+
+A slice of more than one process (``TPU_WORKER_HOSTNAMES`` /
+``TPU_NUM_PROCESSES``, and ``MEGASCALE_*`` for several slices) joins one
+``torch.distributed`` group (``initialize_distributed``: ``tcp://`` to
+worker 0 on the coordinator port, one process a card) and trains over
+``build_mesh``'s mesh: ``--tp`` (default: the cards of one host), ``--sp``
+(the model's attention then runs the kernel ring, ``ring_rdma``) and
+``--ep``, fsdp absorbing the rest, dp across slices
+(``make_sharded_train_fns``).  Every rank reads the same global batch
+and sends its own rows to its card; worker 0 alone prints, serves
+``/metrics`` and posts the lead's events; every rank saves its own
+chunks of the checkpoint.  ``--dist-backend gloo`` puts the collectives
+on gloo (two ranks sharing one card: NCCL refuses that); on CUDA tensors
+they are then staged through pinned host buffers
+(``spmd.HostStagedGloo``, printed at start).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import os
 import sys
 import tempfile
@@ -48,7 +59,11 @@ from typing import Optional
 
 import torch
 
+import torch.distributed as dist
+
 from kuberay_tpu_torch.models import llama
+from kuberay_tpu_torch.parallel import spmd
+from kuberay_tpu_torch.parallel.mesh import MeshSpec
 from kuberay_tpu_torch.runtime import coordinator_client
 from kuberay_tpu_torch.train import checkpoint as ckpt
 from kuberay_tpu_torch.train.data import TokenShardLoader, synthetic_shard
@@ -56,7 +71,9 @@ from kuberay_tpu_torch.train.train_step import (
     TrainConfig,
     init_train_state,
     make_optimizer,
+    make_sharded_train_fns,
     make_train_step,
+    model_of,
     torch_dtype,
 )
 from kuberay_tpu_torch.utils import constants as C
@@ -110,17 +127,52 @@ class WorkerIdentity:
         return self.num_slices * self.num_workers
 
 
-def initialize_distributed(ident: Optional[WorkerIdentity] = None
-                           ) -> WorkerIdentity:
-    """The env's identity; a no-op on a single host.  A slice of more than
-    one process is refused until its layouts are ported."""
+def initialize_distributed(ident: Optional[WorkerIdentity] = None,
+                           backend: str = "", device="cuda",
+                           port: int = 0) -> WorkerIdentity:
+    """``init_process_group`` from the env's identity, then a barrier (every
+    rank has joined): ``tcp://`` to worker 0 at the coordinator address
+    (``port``, if given, replaces its port), ``global_process_count``
+    ranks, this one ``global_process_id``; backend NCCL on the card and
+    gloo on the CPU unless ``backend`` says.  On the card, one process a
+    card: the device is ``LOCAL_RANK`` (default: the global rank) modulo
+    the host's cards.  A single host is a no-op unless ``backend`` is
+    given (a group of one, on 127.0.0.1)."""
     ident = ident or WorkerIdentity.from_env()
-    if ident.is_distributed:
-        raise NotImplementedError(
-            f"a slice of {ident.global_process_count} processes: the "
-            f"launcher's multi-process layouts (init_process_group from this "
-            f"env) are not ported yet (ROADMAP A8)")
+    if not ident.is_distributed and not backend:
+        return ident
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        local = int(os.environ.get("LOCAL_RANK", ident.global_process_id))
+        torch.cuda.set_device(local % torch.cuda.device_count())
+    host, _, coord_port = ident.coordinator.rpartition(":")
+    addr = f"tcp://{host or '127.0.0.1'}:{port or coord_port or C.PORT_MXLA}"
+    dist.init_process_group(
+        backend or ("nccl" if dev.type == "cuda" else "gloo"),
+        init_method=addr, world_size=ident.global_process_count,
+        rank=ident.global_process_id)
+    dist.barrier()
     return ident
+
+
+def build_mesh(tp: Optional[int] = None, sp: int = 1, ep: int = 1,
+               num_slices: Optional[int] = None, device_type: str = "cuda"):
+    """One mesh over every process of the group (as the JAX launcher's):
+    fsdp absorbs what tp, sp and ep leave; under multi-slice dp crosses
+    the slices and everything else stays within one
+    (``MeshSpec.build_multislice``).  ``tp`` defaults to the cards of one
+    host (the chips of one TPU host in the JAX package), 1 on the CPU."""
+    n = dist.get_world_size()
+    if tp is None:
+        tp = min(n, torch.cuda.device_count()) if device_type == "cuda" \
+            else 1
+    if num_slices is None:
+        num_slices = WorkerIdentity.from_env().num_slices
+    if num_slices > 1:
+        return MeshSpec(dp=num_slices, fsdp=-1, tp=tp, sp=sp,
+                        ep=ep).build_multislice(num_slices,
+                                                device_type=device_type)
+    return MeshSpec(dp=1, fsdp=-1, tp=tp, sp=sp, ep=ep).build(device_type)
 
 
 TRAIN_GAUGES = (
@@ -158,38 +210,64 @@ def _start_metrics_server(port: int):
 class _Telemetry:
     """What the loop reports to, and about: the coordinator's event
     client (None when off or gone), the Prometheus registry (worker 0),
-    the job's name, the model's size and the card's peak.  One process
-    trains on one card, so the device count is 1."""
+    the job's name, the model's global size, the card's peak and the
+    number of cards (one a process)."""
 
     events: Optional[coordinator_client.CoordinatorClient]
     prom: Optional[MetricsRegistry]
     job_id: str
     n_params: int
     peak_tflops: float
+    device_count: int = 1
 
 
 def train(args) -> int:
-    if (args.tp or 1) > 1 or args.sp > 1:
-        raise NotImplementedError(
-            "--tp/--sp > 1: the launcher's multi-process layouts are not "
-            "ported yet (ROADMAP A8); the sp ring runs through "
-            "train_step.make_sharded_train_fns")
-    ident = initialize_distributed()
     device = resolve_device(args.device)
+    ident = initialize_distributed(None, args.dist_backend, device,
+                                   args.dist_port)
+    try:
+        return _train(args, ident, device)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _train(args, ident: WorkerIdentity, device: torch.device) -> int:
     cfg = llama.CONFIGS[args.model]
+    if args.sp > 1 and cfg.attn_impl not in ("ring", "ring_rdma"):
+        # The sequence split over sp attends through the ring (JAX's GSPMD
+        # gathers the sequence for its flash kernel instead; same math).
+        cfg = dataclasses.replace(cfg, attn_impl="ring_rdma")
     tc = TrainConfig(learning_rate=args.lr,
                      warmup_steps=min(args.warmup, max(1, args.steps // 10)),
                      decay_steps=args.steps,
                      param_dtype=args.param_dtype, mu_dtype=args.mu_dtype,
                      grad_accum=args.grad_accum)
-    optimizer = make_optimizer(tc)
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    state = init_train_state(cfg, optimizer, gen, tc.param_dtype, device)
+    layout, shardings = None, None
+    if dist.is_initialized():
+        mesh = build_mesh(args.tp, args.sp, args.ep, ident.num_slices,
+                          device.type)
+        layout = spmd.layout_of(mesh)
+        if layout.host_staged and ident.global_process_id == 0:
+            print(f"collectives: {spmd.HostStagedGloo.name} (gloo on CUDA "
+                  f"tensors, staged through pinned host buffers)",
+                  flush=True)
+        init, step_fn, shardings = make_sharded_train_fns(cfg, tc, mesh)
+        # The loop sends each rank its own rows (device_batch).
+        step_fn = functools.partial(step_fn, rows_local=True)
+        state = init(gen)
+    else:
+        # One process: refused (the mesh's own error) unless every axis is 1.
+        MeshSpec(dp=1, fsdp=-1, tp=args.tp or 1, sp=args.sp,
+                 ep=args.ep).resolve(1)
+        optimizer = make_optimizer(tc)
+        state = init_train_state(cfg, optimizer, gen, tc.param_dtype, device)
+        step_fn = make_train_step(cfg, tc, optimizer)
     if args.checkpoint_dir:
-        restored = ckpt.restore_latest(args.checkpoint_dir, state)
+        restored = ckpt.restore_latest(args.checkpoint_dir, state, shardings)
         if restored is not None:
             state = restored
-    step_fn = make_train_step(cfg, tc, optimizer)
 
     events = None
     if os.environ.get(C.ENV_COORDINATOR_ADDRESS):
@@ -211,12 +289,17 @@ def train(args) -> int:
             tel = _Telemetry(
                 events=events, prom=prom,
                 job_id=os.environ.get("TPU_JOB_ID", "train"),
-                n_params=sum(p.numel() for p in _leaves(state["params"])),
-                peak_tflops=float(os.environ.get("TPU_PEAK_TFLOPS", "0")))
+                n_params=spmd.global_numel(
+                    state["params"], model_of(cfg).param_axes(cfg), layout),
+                peak_tflops=float(os.environ.get("TPU_PEAK_TFLOPS", "0")),
+                device_count=dist.get_world_size()
+                if dist.is_initialized() else 1)
             if args.checkpoint_dir:
-                writer = ckpt.CheckpointWriter(args.checkpoint_dir)
+                writer = ckpt.CheckpointWriter(args.checkpoint_dir,
+                                               shardings=shardings)
+            rows = (lambda t: t) if layout is None else layout.local_rows
             return _train_loop(args, ident, state, step_fn, loader, writer,
-                               tel, device)
+                               tel, device, rows)
         finally:
             loader.close()
             if prom_srv is not None:
@@ -228,24 +311,17 @@ def train(args) -> int:
                 writer.close()
 
 
-def device_batch(raw, device: torch.device) -> dict:
-    """A loader batch on ``device``: on the card from pinned memory and
-    without waiting, so the copy queues behind the step that is running."""
+def device_batch(raw, device: torch.device, rows=lambda t: t) -> dict:
+    """A loader batch on ``device`` (``rows``: this rank's rows of it): on
+    the card from pinned memory and without waiting, so the copy queues
+    behind the step that is running."""
     out = {}
     for k in ("tokens", "targets"):
-        t = torch.from_numpy(raw[k])
+        t = rows(torch.from_numpy(raw[k])).contiguous()
         if device.type == "cuda":
             t = t.pin_memory().to(device, non_blocking=True)
         out[k] = t
     return out
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree
 
 
 def _sync(device: torch.device) -> None:
@@ -261,7 +337,7 @@ def _post(tel: _Telemetry, events: list) -> None:
 
 
 def _train_loop(args, ident, state, step_fn, loader, writer, tel,
-                device) -> int:
+                device, rows) -> int:
     last_saved = -1
     is_lead = ident.worker_id == 0 and ident.slice_id == 0
     # "s<slice>w<worker>" names the host fleet-wide; step durations buffer
@@ -273,14 +349,14 @@ def _train_loop(args, ident, state, step_fn, loader, writer, tel,
     start_step = int(state["step"])
     t0 = time.time()
     step_t0 = t0
-    next_batch = (device_batch(loader.next(), device)
+    next_batch = (device_batch(loader.next(), device, rows)
                   if start_step < args.steps else None)
     for i in range(start_step, args.steps):
         batch = next_batch
         state, metrics = step_fn(state, batch)
         if i + 1 < args.steps:
             # Read and sent while the step runs on the device.
-            next_batch = device_batch(loader.next(), device)
+            next_batch = device_batch(loader.next(), device, rows)
         if tel.events is not None:
             now = time.time()
             hb_buf.append((i + 1, now - step_t0))
@@ -301,7 +377,7 @@ def _train_loop(args, ident, state, step_fn, loader, writer, tel,
                 } for s, d in hb_buf]
                 beats[-1]["args"]["collective_wait_s"] = round(wait, 6)
                 beats[-1]["args"]["n_params"] = tel.n_params
-                beats[-1]["args"]["device_count"] = 1
+                beats[-1]["args"]["device_count"] = tel.device_count
                 if tel.peak_tflops > 0:
                     beats[-1]["args"]["peak_tflops"] = tel.peak_tflops
                 _post(tel, beats)
@@ -320,8 +396,9 @@ def _train_loop(args, ident, state, step_fn, loader, writer, tel,
                 tel.prom.set_gauge("tpu_train_step_seconds",
                                    dt / args.log_every)
                 if tel.peak_tflops > 0:
-                    # 6 N flops a token (forward and backward), one card.
-                    achieved = 6.0 * tel.n_params * tok_s / 1e12
+                    # 6 N flops a token (forward and backward), per card.
+                    achieved = 6.0 * tel.n_params * tok_s / 1e12 / max(
+                        1, tel.device_count)
                     tel.prom.set_gauge("tpu_train_mfu",
                                        achieved / tel.peak_tflops)
             if is_lead and tel.events is not None:
@@ -363,8 +440,24 @@ def main(argv=None) -> int:
     ap.add_argument("--mu-dtype", default="",
                     help="Adam first-moment dtype (bfloat16 halves that "
                          "optimizer slice)")
-    ap.add_argument("--tp", type=int, default=None)
-    ap.add_argument("--sp", type=int, default=1)
+    ap.add_argument("--tp", type=int, default=None,
+                    help="tensor parallel ranks (default: the cards of one "
+                         "host)")
+    ap.add_argument("--sp", type=int, default=1,
+                    help="sequence parallel ranks (the model's attn_impl "
+                         "must be a ring)")
+    ap.add_argument("--ep", type=int, default=1,
+                    help="expert parallel ranks")
+    ap.add_argument("--dist-backend", default="", choices=("", "nccl",
+                                                           "gloo"),
+                    help="torch.distributed backend of a multi-process "
+                         "slice (default: nccl on the card, gloo on the "
+                         "cpu; given on a single host, a group of one); "
+                         "gloo on the card stages collectives through "
+                         "pinned host buffers")
+    ap.add_argument("--dist-port", type=int, default=0,
+                    help="port of the process group's rendezvous on "
+                         "worker 0 (default: the coordinator port)")
     ap.add_argument("--data", default="", help="token shard path")
     ap.add_argument("--checkpoint-dir", default="",
                     help="resume from, and save to, this directory "

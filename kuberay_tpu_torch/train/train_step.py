@@ -16,14 +16,22 @@ JAX package builds it (``make_optimizer``):
   has learning rate 0): linear warmup over ``min(warmup, decay - 1)``
   steps, then cosine decay to 0.1 x peak at ``max(decay, warmup + 1)``.
 
-``make_sharded_train_fns`` is the sequence-parallel step (the
-long-context path, ``attn_impl="ring"`` / ``"ring_rdma"``) over a mesh
-whose only axis larger than 1 is ``sp``: a ``LocalRing`` (every sp rank on
-one device) or a ``DeviceMesh`` (one process per rank).  Parameters and
-optimizer state are replicated over sp; each rank takes its S shard of the
-global batch, divides its loss sum by the global token count, and the
-gradients are summed over sp before clipping and AdamW.  FSDP and tensor
-parallel placements wait for ROADMAP A8.
+``make_sharded_train_fns`` is the step over a mesh, for Llama and Mixtral
+configs:
+
+- a ``DeviceMesh`` from ``MeshSpec.build`` / ``build_multislice``, one
+  process a rank, any of dp, fsdp, tp, sp and ep larger than 1 (pp is
+  A11).  Every rank holds its shard of each leaf as ``param_axes`` and
+  ``DEFAULT_RULES`` place it (Adam's mu and nu follow the params, the
+  counts are replicated: ``_shard_opt_like_params`` in the JAX package),
+  takes its rows of the global batch (over the flattened dp x fsdp index)
+  and its sequence shard (over sp), divides its loss sum by the global
+  token count, and sums its gradients over the batch's axes
+  (``parallel/spmd.py``) before clipping by the global norm (a leaf
+  replicated over tp or ep counted once) and the elementwise AdamW on its
+  shards;
+- a ``LocalRing``: every sp rank on one device (the long-context path on
+  one card), parameters replicated.
 """
 
 from __future__ import annotations
@@ -34,7 +42,8 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-from kuberay_tpu_torch.models import llama
+from kuberay_tpu_torch.models import llama, mixtral
+from kuberay_tpu_torch.parallel import spmd
 from kuberay_tpu_torch.parallel.mesh import ring_of
 
 
@@ -119,11 +128,13 @@ class AdamW:
                     p, dtype=self.mu_dtype or p.dtype), params),
                 "nu": tree_map(torch.zeros_like, params)}
 
-    def update(self, grads, state, params
+    def update(self, grads, state, params, norm=None
                ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
-        """(updates, new state); ``params + updates`` is the new params."""
+        """(updates, new state); ``params + updates`` is the new params.
+        ``norm``: the gradients' global norm (default: over ``grads``,
+        which must then be whole leaves)."""
         tc = self.tc
-        norm = global_norm(grads)
+        norm = global_norm(grads) if norm is None else norm
         keep = norm < tc.grad_clip
         count = state["count"] + 1
         # 1 - b**count in f32, as optax computes it, then rounded to each
@@ -168,13 +179,24 @@ def _cast_floating(tree, dtype: torch.dtype):
                     tree)
 
 
+def model_of(cfg):
+    """The model module of a config: ``mixtral`` or ``llama``."""
+    return mixtral if isinstance(cfg, mixtral.MixtralConfig) else llama
+
+
+def _init_params(cfg, generator, param_dtype: str, device):
+    params = model_of(cfg).init_params(cfg, generator, device)
+    if param_dtype:
+        params = _cast_floating(params, torch_dtype(param_dtype))
+    return params
+
+
 def init_train_state(cfg: llama.LlamaConfig, optimizer: AdamW,
                      generator=None, param_dtype: str = "",
                      device="cuda") -> Dict[str, Any]:
-    """Seeded init (``llama.init_params``), cast to ``param_dtype``."""
-    params = llama.init_params(cfg, generator, device)
-    if param_dtype:
-        params = _cast_floating(params, torch_dtype(param_dtype))
+    """Seeded init (the model's ``init_params``), cast to
+    ``param_dtype``."""
+    params = _init_params(cfg, generator, param_dtype, device)
     return {"step": 0, "params": params,
             "opt_state": optimizer.init(params)}
 
@@ -233,27 +255,32 @@ def _value_and_grad_accum(loss_fn: Callable, params, batch, accum: int,
 
 def _make_step(cfg: llama.LlamaConfig, tc: TrainConfig, optimizer: AdamW,
                mesh=None) -> Callable:
-    ring = None if mesh is None else ring_of(mesh)
+    model = model_of(cfg)
+    layout = spmd.layout_of(mesh)
+    axes = model.param_axes(cfg)
 
-    def step(state, batch):
+    def step(state, batch, rows_local=False):
         def loss(params, b):
-            return llama.loss_fn(cfg, _compute_cast(cfg, tc, params),
+            return model.loss_fn(cfg, _compute_cast(cfg, tc, params),
                                  b["tokens"], b["targets"], b.get("mask"),
                                  tc.z_loss, mesh=mesh)
 
-        if ring is not None:
-            batch = {k: ring.local_seq(t) for k, t in batch.items()}
+        if layout is not None:
+            batch = layout.local_batch(batch, rows=not rows_local)
         (l, metrics), grads = _value_and_grad_accum(
             loss, state["params"], batch, tc.grad_accum,
-            None if ring is None else ring.sum)
-        if ring is not None:
-            grads = tree_map(ring.sum, grads)
-            l = ring.sum(l)
-            metrics = {k: ring.sum(v) for k, v in metrics.items()}
+            None if layout is None else layout.sum_batch)
+        if layout is None:
+            norm = global_norm(grads)
+        else:
+            grads = layout.grad_sync(grads, axes)
+            l = layout.sum_batch(l)
+            metrics = {k: layout.sum_batch(v) for k, v in metrics.items()}
+            norm = layout.global_norm(grads, axes)
         updates, new_opt = optimizer.update(grads, state["opt_state"],
-                                            state["params"])
+                                            state["params"], norm)
         new_params = apply_updates(state["params"], updates)
-        metrics["grad_norm"] = global_norm(grads)
+        metrics["grad_norm"] = norm
         metrics["total_loss"] = l
         return {"step": state["step"] + 1, "params": new_params,
                 "opt_state": new_opt}, metrics
@@ -270,25 +297,62 @@ def make_train_step(cfg: llama.LlamaConfig, tc: TrainConfig,
     return _make_step(cfg, tc, optimizer)
 
 
-def make_sharded_train_fns(cfg: llama.LlamaConfig, tc: TrainConfig, mesh
-                           ) -> Tuple[Callable, Callable, Dict[str, str]]:
-    """(init, step, shardings) for sequence parallelism over ``mesh`` (a
-    ``LocalRing`` or a ``DeviceMesh`` whose only axis larger than 1 is sp).
+def param_shardings(cfg, layout: "spmd.Layout") -> Dict[str, Any]:
+    """Each param leaf's ``spmd.LeafSpec`` on ``layout``, by its logical
+    axes and ``DEFAULT_RULES``."""
+    return tree_map(lambda a: spmd.LeafSpec(layout, a),
+                    model_of(cfg).param_axes(cfg))
 
-    ``init(generator=None)`` builds the seeded state on the mesh's device
-    (default generator: seed 0 there), replicated over sp.  ``step(state,
-    batch)`` takes the global [B, S] batch (S divisible by sp), uses this
-    process's S shard and returns (new state, metrics) as
-    ``make_train_step``'s, with the loss, metrics and gradients summed over
-    sp (every rank gets the same).  ``shardings`` describes the layout."""
-    ring = ring_of(mesh)
+
+def state_shardings(cfg, layout: "spmd.Layout") -> Dict[str, Any]:
+    """Each state leaf's ``spmd.LeafSpec``: the params', Adam's mu and nu
+    like the params (``_shard_opt_like_params`` in the JAX package), the
+    step and count replicated."""
+    p = param_shardings(cfg, layout)
+    rep = spmd.LeafSpec(layout, ())
+    return {"step": rep, "params": p,
+            "opt_state": {"count": rep, "mu": p, "nu": p}}
+
+
+def make_sharded_train_fns(cfg: llama.LlamaConfig, tc: TrainConfig, mesh
+                           ) -> Tuple[Callable, Callable, Dict[str, Any]]:
+    """(init, step, shardings) over ``mesh``: a ``DeviceMesh`` built by
+    ``MeshSpec`` (one process a rank; every axis but pp) or a
+    ``LocalRing`` (the sp ranks on one device).
+
+    ``init(generator=None)`` builds the seeded state (default generator:
+    seed 0 on the mesh's device; every rank draws the same global leaves)
+    already laid out: this rank's shard of each leaf.  ``step(state,
+    batch)`` takes the global [B, S] batch (B divisible by dp x fsdp and
+    by ``grad_accum``, S by sp; with ``rows_local=True``, this rank's rows
+    of it), uses this rank's part, and returns (new
+    state, metrics) as ``make_train_step``'s; the loss and metrics are the
+    global batch's on every rank.  ``shardings``: on a ``DeviceMesh``
+    ``state_shardings`` (each leaf's placements and its chunk), on a
+    ``LocalRing`` a description."""
     optimizer = make_optimizer(tc)
+    layout = spmd.layout_of(mesh)
+    if layout is None:
+        ring = ring_of(mesh)
+
+        def init(generator=None):
+            return init_train_state(cfg, optimizer, generator,
+                                    tc.param_dtype, ring.device)
+
+        shardings = {"params": "replicated over sp",
+                     "opt_state": "replicated over sp",
+                     "batch": "[B, S]: S split into sp equal shards"}
+        return init, _make_step(cfg, tc, optimizer, mesh), shardings
+
+    spmd.check_divisible(cfg, layout)
+    shardings = state_shardings(cfg, layout)
 
     def init(generator=None):
-        return init_train_state(cfg, optimizer, generator, tc.param_dtype,
-                                ring.device)
+        full = _init_params(cfg, generator, tc.param_dtype, layout.device)
+        params = tree_map(lambda t, spec: spec.shard(t), full,
+                          shardings["params"])
+        del full
+        return {"step": 0, "params": params,
+                "opt_state": optimizer.init(params)}
 
-    shardings = {"params": "replicated over sp",
-                 "opt_state": "replicated over sp",
-                 "batch": "[B, S]: S split into sp equal shards"}
     return init, _make_step(cfg, tc, optimizer, mesh), shardings

@@ -160,3 +160,32 @@ def test_mixtral_and_tiered_engines_raise_without_a_card(monkeypatch):
                                         max_len=16, block_size=8,
                                         device="cpu", host_blocks=4)
     assert eng.tiers is not None and eng.cache["k"].device.type == "cpu"
+
+
+LAYOUT_MODULES = ("kuberay_tpu_torch/bench.py", "kuberay_tpu_torch/entry.py",
+                  "kuberay_tpu_torch/runtime/profiler.py",
+                  "kuberay_tpu_torch/parallel/spmd.py")
+TEST_WORKERS = ("tests/torch_sp_worker.py", "tests/torch_mesh_worker.py")
+
+
+def test_scan_covers_the_layout_modules_and_test_workers():
+    """The multi-process layouts' modules are in the scan, and the test
+    workers (processes that import torch and the port only) import nothing
+    of JAX or the JAX package either."""
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    assert set(LAYOUT_MODULES) <= names
+    bad = [(name, m) for name in TEST_WORKERS
+           for m in _imported_modules(ast.parse((ROOT / name).read_text()))
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad
+
+
+def test_layout_modules_catch_nothing():
+    """No ``except`` in the layouts, the entry points or the bench: a
+    collective or a launch that fails raises (the profiler hook answers
+    {"error": ...} as the coordinator's does, and is left out)."""
+    for name in LAYOUT_MODULES[:2] + ("kuberay_tpu_torch/parallel/spmd.py",
+                                      "kuberay_tpu_torch/parallel/mesh.py"):
+        tree = ast.parse((ROOT / name).read_text())
+        assert not [n for n in ast.walk(tree)
+                    if isinstance(n, ast.Try) and n.handlers], name

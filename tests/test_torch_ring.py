@@ -236,9 +236,9 @@ def gloo_ring(qkvw, tmp_path_factory):
     """Each of 4 gloo ranks' outputs and gradients, gathered along S."""
     outs = torch_sp_worker.spawn({"kind": "ring"}, qkvw,
                                  tmp_path_factory.mktemp("sp_ring"))
-    keys = [k for k in outs[0] if k != "non_sp_refused"]
+    keys = [k for k in outs[0] if k != "non_sp_mesh_ring"]
     gathered = {k: np.concatenate([o[k] for o in outs], axis=1) for k in keys}
-    return gathered, [int(o["non_sp_refused"]) for o in outs]
+    return gathered, [o["non_sp_mesh_ring"].tolist() for o in outs]
 
 
 @pytest.mark.timeout(120)
@@ -252,7 +252,10 @@ def test_gloo_ring_matches_jax(gloo_ring, jax_ring, impl, causal):
 
 @pytest.mark.timeout(120)
 def test_gloo_mesh_refuses_non_sp_axes(gloo_ring):
-    assert gloo_ring[1] == [1, 1, 1, 1]
+    """Axes other than sp are no longer refused (the multi-process layouts
+    are ported): MeshSpec(fsdp=2, sp=2) builds over the 4 ranks and its
+    ring is the sp sub-mesh (rank r at sp coordinate r % 2)."""
+    assert gloo_ring[1] == [[2, r % 2, 2] for r in range(4)]
 
 
 # --------------------------------------------------------------------------

@@ -2,7 +2,8 @@
 
 - ``WorkerIdentity.from_env`` parses the operator's env as the JAX
   launcher's does; the port's constants are the JAX package's values; a
-  slice of more than one process is refused (ROADMAP A8).
+  slice of more than one process joins one process group (ROADMAP A8,
+  ported; ``test_torch_mesh_launcher.py`` trains over it).
 - Run → interrupt → resume → rerun, the JAX launcher (this file run as a
   script: its own process, on one CPU device, ``_jax_launcher_runs``)
   and the port's (here) under the same flags: the same tokens fed at every global step
@@ -85,11 +86,24 @@ def test_worker_identity_matches_jax(env, monkeypatch):
 
 
 def test_launcher_refuses_a_slice_of_many_processes(monkeypatch):
+    """No longer refused (ROADMAP A8 is ported): the launcher joins the
+    slice's process group at worker 0 on the coordinator port, as
+    ``jax.distributed.initialize`` does (the group's init is stubbed
+    here; two real ranks train in ``test_torch_mesh_launcher.py``)."""
     monkeypatch.setenv("TPU_WORKER_HOSTNAMES", "a,b")
     monkeypatch.setenv("TPU_WORKER_ID", "1")
-    with pytest.raises(NotImplementedError, match="A8"):
+    calls = []
+
+    def init(*a, **k):
+        calls.append((a, k))
+        raise RuntimeError("stop after the group's init")
+
+    monkeypatch.setattr(launcher.dist, "init_process_group", init)
+    with pytest.raises(RuntimeError, match="stop after"):
         launcher.main(["--model", "llama_tiny", "--steps", "1",
                        "--device", "cpu"])
+    assert calls == [(("gloo",), {"init_method": "tcp://a:8081",
+                                  "world_size": 2, "rank": 1})]
     ident = launcher.WorkerIdentity.from_env({"TPU_WORKER_HOSTNAMES": "a"})
     assert launcher.initialize_distributed(ident) is ident
 

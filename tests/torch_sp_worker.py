@@ -27,7 +27,7 @@ import torch.distributed as dist
 
 from kuberay_tpu_torch.models import llama
 from kuberay_tpu_torch.models.convert import params_from_jax
-from kuberay_tpu_torch.parallel.mesh import MeshSpec
+from kuberay_tpu_torch.parallel.mesh import MeshSpec, ring_of
 from kuberay_tpu_torch.parallel.ring import ring_attention
 from kuberay_tpu_torch.train import train_step as ts
 
@@ -74,12 +74,12 @@ def ring_task(mesh, rank, n, inp, out):
             out[f"{tag}_out"] = o.detach().numpy()
             for x, t in (("q", q), ("k", k), ("v", v)):
                 out[f"{tag}_d{x}"] = t.grad.numpy()
-    # Only the sp axis may be larger than 1.
-    try:
-        MeshSpec(dp=1, fsdp=2, tp=1, sp=2).build("cpu")
-        out["non_sp_refused"] = np.array(0)
-    except NotImplementedError:
-        out["non_sp_refused"] = np.array(1)
+    # A mesh whose other axes are larger than 1 builds, and its ring is
+    # the sp sub-mesh: 2 ranks, this one at its sp coordinate.
+    mesh2 = MeshSpec(dp=1, fsdp=2, tp=1, sp=2).build("cpu")
+    ring = ring_of(mesh2)
+    out["non_sp_mesh_ring"] = np.array(
+        [ring.n, ring.rank, mesh2.size(mesh_dim=2)])
 
 
 def train_task(mesh, rank, n, inp, out, task):
@@ -119,6 +119,15 @@ def spawn(task: dict, arrays: dict, root: Path, world: int = 4,
           timeout: float = 100.0) -> list:
     """Run ``task`` on ``world`` gloo ranks, each in its own process, and
     return every rank's outputs (a dict of arrays per rank)."""
+    return spawn_script(__file__, task, arrays, root, world, timeout)
+
+
+def spawn_script(script: str, task: dict, arrays: dict, root: Path,
+                 world: int, timeout: float, wait: bool = True):
+    """Start ``world`` ranks of ``script`` (``script RANK WORLD PORT
+    DIR``) on ``task``.  With ``wait``, return every rank's outputs;
+    else a function that waits for them and returns them (so the caller
+    can work meanwhile)."""
     root.mkdir(parents=True, exist_ok=True)
     (root / "task.json").write_text(json.dumps(task))
     np.savez(root / "inputs.npz", **arrays)
@@ -127,23 +136,28 @@ def spawn(task: dict, arrays: dict, root: Path, world: int = 4,
         port = s.getsockname()[1]
     env = {**os.environ, "OMP_NUM_THREADS": "1",
            "PYTHONPATH": os.pathsep.join(
-               [str(Path(__file__).resolve().parents[1]),
+               [str(Path(__file__).resolve().parent),
+                str(Path(__file__).resolve().parents[1]),
                 os.environ.get("PYTHONPATH", "")])}
     procs = [subprocess.Popen(
-        [sys.executable, __file__, str(r), str(world), str(port), str(root)],
+        [sys.executable, script, str(r), str(world), str(port), str(root)],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for r in range(world)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=timeout)[0])
-    finally:
-        for p in procs:
-            p.kill()
-    bad = [(r, p.returncode, log) for r, (p, log) in
-           enumerate(zip(procs, logs)) if p.returncode != 0]
-    assert not bad, bad
-    return [dict(np.load(root / f"out_{r}.npz")) for r in range(world)]
+
+    def collect() -> list:
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=timeout)[0])
+        finally:
+            for p in procs:
+                p.kill()
+        bad = [(r, p.returncode, log) for r, (p, log) in
+               enumerate(zip(procs, logs)) if p.returncode != 0]
+        assert not bad, bad
+        return [dict(np.load(root / f"out_{r}.npz")) for r in range(world)]
+
+    return collect() if wait else collect
 
 
 def main(argv):
