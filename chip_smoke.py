@@ -161,6 +161,32 @@
    optimizer) at the same widths, 4 layers, B 2 x S 2048, full remat,
    chunked CE 8192, three steps: finite loss and gradients, the aux
    losses, 8 flash forwards, 4 dK/dV, 4 dQ and 17 RMSNorms a step.
+   Tensor-parallel serving (``serve_tp``, on the llama3_8b weights
+   before they are freed): the bf16, int8 and paged decode kernels at a
+   tp rank's local head counts, 16 q / 4 kv heads (tp=2) and 2 / 1
+   (tp=16: tp=8 x tpr=2), S 8, M 2048, lens 0..2048, against their plain
+   versions (element-wise limits) and timed beside SDPA with their
+   bounds and split plans; ptxas' resources of the group-2
+   instantiations.  Then the server as a process group on this card
+   (``python -c`` + ``runpy`` of ``kuberay_tpu_torch.serve.server``,
+   each rank's launch counts, weight bytes and peak memory printed at
+   exit): two ranks at ``--tp 2 --dist-backend gloo`` (the worker env,
+   LOCAL_RANK 0, collectives staged through pinned host memory), seed 0's
+   weights drawn into each rank's shards, 8 slots x 2048, dense bf16,
+   paged bf16 (4 of 8 prompts share a 256-token prefix: 768 prefix-hit
+   tokens) and dense int8 KV, each on 8 concurrent greedy requests of
+   7-512 tokens with 32 new: every served token within the no-cache
+   recompute's margin of the whole tree, each rank's weights within 1%
+   of half the tree's bytes, each rank 65 RMSNorms a forward and 32
+   launches of the variant's decode kernel a decode step, the follower's
+   replay equal to rank 0's device calls, and both ranks exiting 0 after
+   SIGTERM, the drain and STOP; a one-rank NCCL group (``--tp 1
+   --dist-backend nccl``, the lockstep engine) on the serve phase's
+   prompts, its tokens bit for bit the serve phase's; a follower killed
+   (SIGKILL) mid-decode, after which rank 0's ``/healthz`` must answer
+   503 within TP_MISS + 5 s and the pending request 503 (every wait
+   bounded).  The ranks' launches go into ``launches_by_path`` as
+   ``serve_tp``.
 4. Train: runs the launcher (``kuberay_tpu_torch.train.launcher.main``)
    on llama_1b at full width and depth, batch 4 x 2048, 8 steps, bf16
    masters, on the synthetic shard; then 8 steps of make_train_step on
@@ -268,6 +294,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 from http.server import ThreadingHTTPServer
 from pathlib import Path
@@ -3503,6 +3530,426 @@ def mesh_train(smi: str) -> dict:
             "runs": runs}
 
 
+# Tensor-parallel serving (serve_tp): llama3_8b's local head counts at tp=2
+# (16 q / 4 kv heads a rank) and at tp=16 over its 8 kv heads (tp=8 x
+# tpr=2: 2 / 1); the gloo group's prompts stay at or under 512 tokens (a
+# prefill's 64 all-reduces go through pinned host memory); TP_MISS is
+# the killed group's --group-miss-timeout.
+TP_LOCAL_HEADS = ((16, 4), (2, 1))
+TP_LENS = [0, 1, 17, 100, 1023, 1025, 2047, 2048]
+TP_PROMPT_LENS = (7, 33, 64, 128, 200, 300, 400, 512)
+TP_SHARED, TP_SHARED_SUFFIXES, TP_OTHER_LENS = 256, (7, 33, 100, 200), \
+    (64, 200, 300, 512)
+TP_MISS = 5.0
+TP_WEIGHT_RTOL = 0.01
+# A serving rank as ``python -c``: the server's main, its kernel launch
+# counts, the bytes of the shards it drew and its peak memory printed at
+# exit.
+SERVE_TP_RANK = (
+    "import atexit, json, runpy, torch\n"
+    "from kuberay_tpu_torch.ops import decode_attention as da\n"
+    "from kuberay_tpu_torch.ops import paged_attention as pa\n"
+    "from kuberay_tpu_torch.ops import rmsnorm as rn\n"
+    "from kuberay_tpu_torch.serve import sharding\n"
+    "held = {}\n"
+    "def nbytes(t):\n"
+    "    if isinstance(t, dict):\n"
+    "        return sum(nbytes(v) for v in t.values())\n"
+    "    return t.numel() * t.element_size()\n"
+    "def init(cfg, seed, mesh, _real=sharding.init_sharded_params):\n"
+    "    params = _real(cfg, seed, mesh)\n"
+    "    held['weight_bytes'] = nbytes(params)\n"
+    "    return params\n"
+    "sharding.init_sharded_params = init\n"
+    "atexit.register(lambda: print('rank stats ' + json.dumps({\n"
+    "    'launches': {'rmsnorm': rn.launches,\n"
+    "                 'decode_attention': da.launches,\n"
+    "                 'decode_attention_quant': da.launches_quant,\n"
+    "                 'paged_decode_attention': pa.launches},\n"
+    "    'weight_bytes': held.get('weight_bytes'),\n"
+    "    'peak_memory_gb': torch.cuda.max_memory_allocated() / 1e9}),\n"
+    "    flush=True))\n"
+    "runpy.run_module('kuberay_tpu_torch.serve.server', run_name='__main__',\n"
+    "                 alter_sys=True)\n")
+
+
+def local_head_checks(gen: torch.Generator) -> dict:
+    """The bf16, int8 and paged decode kernels at a tp rank's local head
+    counts (TP_LOCAL_HEADS), S 8, M 2048, lens 0..2048: each against its
+    plain version (element-wise limits) and timed beside SDPA, with its
+    bound and split plan."""
+    out = {}
+    lens_t = torch.tensor(TP_LENS, dtype=torch.int32, device="cuda")
+    live, M = int(sum(TP_LENS)), MAX_LEN
+    mask = lens_mask(lens_t, M)
+    maxb = M // BLOCK_SIZE
+    nblk = SLOTS * maxb
+    tables = scrambled_tables(gen, SLOTS, maxb, nblk, shared=10)
+    pages = sum(-(-n // BLOCK_SIZE) for n in TP_LENS)
+    for hq, hkv in TP_LOCAL_HEADS:
+        q = torch.randn(SLOTS, hq, HD, generator=gen, device="cuda"
+                        ).bfloat16()
+        caches = [tuple(torch.randn(SLOTS, M, hkv, HD, generator=gen,
+                                    device="cuda").bfloat16()
+                        for _ in range(2)) for _ in range(4)]
+        quants = [int8_cache(gen, SLOTS, M, hkv, HD) for _ in range(4)]
+        deq = [(da.dequant_lanes(kq, ks, torch.bfloat16),
+                da.dequant_lanes(vq, vs, torch.bfloat16))
+               for kq, ks, vq, vs in quants]
+        pools = [tuple(torch.randn(hkv, nblk * BLOCK_SIZE, HD, generator=gen,
+                                   device="cuda").bfloat16()
+                       for _ in range(2)) for _ in range(4)]
+        views = [tuple(pa.gather_view(p, tables, BLOCK_SIZE).contiguous()
+                       for p in pool) for pool in pools]
+        it = iter(range(1 << 30))
+
+        def run(fn, inputs):
+            return lambda: fn(*inputs[next(it) % 4])
+
+        q_bytes = 2 * q.numel() * 2 + lens_t.numel() * 4
+        cases = {
+            "decode_attention": (
+                lambda k, v: da.decode_attention(q, k, v, lens_t),
+                lambda k, v: da.decode_attention_ref(q, k, v, lens_t),
+                caches, lambda k, v: sdpa_decode(q, k, v, mask), caches,
+                2 * live * hkv * HD * 2 + q_bytes),
+            "decode_attention_quant": (
+                lambda kq, ks, vq, vs: da.decode_attention_quant(
+                    q, kq, ks, vq, vs, lens_t),
+                lambda kq, ks, vq, vs: da.decode_attention_quant_ref(
+                    q, kq, ks, vq, vs, lens_t),
+                quants, lambda k, v: sdpa_decode(q, k, v, mask), deq,
+                2 * live * hkv * (HD + 4) + q_bytes),
+            "paged_decode_attention": (
+                lambda k, v: pa.paged_decode_attention(
+                    q, k, v, lens_t, tables, BLOCK_SIZE),
+                lambda k, v: pa.paged_decode_attention_ref(
+                    q, k, v, lens_t, tables, BLOCK_SIZE),
+                pools, lambda k, v: sdpa_decode(q, k, v, mask), views,
+                2 * live * hkv * HD * 2 + q_bytes + pages * 4)}
+        for name, (kernel, plain, inputs, lib, lib_inputs, nbytes) in \
+                cases.items():
+            loc = local_err(kernel(*inputs[0]), plain(*inputs[0]))
+            if not within_local(loc):
+                raise AssertionError(f"{name} at {hq}/{hkv} local heads: "
+                                     f"{loc}")
+            rec = {"Hq": hq, "Hkv": hkv, "lens": TP_LENS,
+                   "max_abs_err": loc["max_abs_err"], "local": loc,
+                   "chunk": da.CHUNK, "nsplit": da.split_plan(M),
+                   **timings(run(kernel, inputs), run(plain, inputs),
+                             run(lib, lib_inputs), 100, 20),
+                   **bound(nbytes, 4 * live * hq * HD)}
+            out.setdefault(name, []).append(rec)
+            print(f"{name} at {hq} q / {hkv} kv local heads: "
+                  f"{json.dumps(rec)}", flush=True)
+        del caches, quants, deq, pools, views
+    torch.cuda.empty_cache()
+    return out
+
+
+class ServeGroup:
+    """The server as a tp group of processes sharing this card (one
+    ``SERVE_TP_RANK`` process a rank, the worker env, LOCAL_RANK 0),
+    llama3_8b at 8 slots x 2048 with seed 0's weights drawn into each
+    rank's shards; each one's output read as it comes."""
+
+    def __init__(self, n: int, backend: str, *flags):
+        self.port = free_port()
+        self.url = f"http://127.0.0.1:{self.port}"
+        dist_port, hb_port = free_port(), free_port()
+        clean = {k: v for k, v in os.environ.items()
+                 if not k.startswith(("TPU_", "MEGASCALE_"))}
+        self.lines = [[] for _ in range(n)]
+        self.procs = []
+        for r in range(n):
+            env = dict(clean, LOCAL_RANK="0", PYTHONPATH=str(ROOT),
+                       TPU_GROUP_HEALTH_PORT=str(hb_port))
+            if n > 1:
+                env.update(TPU_WORKER_HOSTNAMES=",".join(["127.0.0.1"] * n),
+                           TPU_WORKER_ID=str(r))
+            self.procs.append(subprocess.Popen(
+                [sys.executable, "-c", SERVE_TP_RANK, "--model", "llama3_8b",
+                 "--device", "cuda", "--tp", str(n), "--dist-backend",
+                 backend, "--dist-port", str(dist_port), "--host",
+                 "127.0.0.1", "--port", str(self.port), "--max-slots",
+                 str(SLOTS), "--max-len", str(MAX_LEN), *flags],
+                cwd=str(ROOT), env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            threading.Thread(target=self._read, args=(r,),
+                             daemon=True).start()
+
+    def _read(self, r: int) -> None:
+        for ln in self.procs[r].stdout:
+            self.lines[r].append(ln.rstrip("\n"))
+
+    def has(self, r: int, prefix: str) -> bool:
+        return any(ln.startswith(prefix) for ln in self.lines[r])
+
+    def ready(self, timeout: float = 300.0) -> float:
+        """Seconds until rank 0 serves and every follower is ready."""
+        t0 = time.perf_counter()
+        want = [(0, "serving llama3_8b")] + [
+            (r, f"serve follower {r}/") for r in range(1, len(self.procs))]
+        while not all(self.has(r, p) for r, p in want):
+            if any(p.poll() is not None for p in self.procs) or \
+                    time.perf_counter() - t0 > timeout:
+                self.kill()
+                raise AssertionError(f"tp group did not come up: "
+                                     f"{self.tail()}")
+            time.sleep(0.1)
+        return time.perf_counter() - t0
+
+    def get(self, path: str, timeout: float = 30.0):
+        try:
+            with urllib.request.urlopen(self.url + path,
+                                        timeout=timeout) as r:
+                return r.status, json.load(r)
+        except urllib.error.HTTPError as e:
+            return e.code, json.load(e)
+
+    def stop(self, timeout: float = 180.0) -> list:
+        """SIGTERM to every rank (a pod roll); their exit codes."""
+        for p in self.procs:
+            p.send_signal(signal.SIGTERM)
+        try:
+            return [p.wait(timeout=timeout) for p in self.procs]
+        finally:
+            self.kill()
+
+    def kill(self) -> None:
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=60)
+
+    def tail(self) -> str:
+        return "\n".join(f"[rank {r}] {ln}" for r, lines in
+                         enumerate(self.lines) for ln in lines[-30:])
+
+    def rank_stats(self, r: int) -> dict:
+        got = [ln for ln in self.lines[r] if ln.startswith("rank stats ")]
+        if not got:
+            raise AssertionError(f"rank {r} printed no stats: {self.tail()}")
+        return json.loads(got[-1][len("rank stats "):])
+
+
+def post_all(url: str, prompts, max_tokens: int) -> list:
+    """Every prompt POSTed at once (greedy); the (status, body) pairs in
+    prompt order."""
+    results, errors = {}, []
+
+    def client(i):
+        try:
+            results[i] = post(url, {"prompt_tokens": prompts[i],
+                                    "max_tokens": max_tokens,
+                                    "temperature": 0.0})
+        except Exception as e:              # reported below, then raised
+            errors.append(f"request {i}: {e!r}")
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    if errors or len(results) != len(prompts):
+        raise AssertionError(f"requests failed: {errors}")
+    out = []
+    for i in range(len(prompts)):
+        status, _, body = results[i]
+        n = len(body["tokens"])
+        if status != 200 or not (n == max_tokens or (
+                body["finish_reason"] == "eos" and 0 < n <= max_tokens)):
+            raise AssertionError(f"request {i}: status {status}, {body}")
+        out.append(body)
+    return out
+
+
+def tp_variant(name: str, cfg, params, flags, prompts, margin: float,
+               kernel: str, half_bytes: float) -> dict:
+    """Two ranks at --tp 2 on gloo (host-staged collectives) serve the
+    prompts; every served token is held to the no-cache recompute of the
+    whole tree, each rank's weights to half the tree's bytes, every
+    follower's replay to rank 0's device calls and each rank's launches
+    to 65 RMSNorms a forward and 32 ``kernel`` launches a decode step;
+    both exit 0 after SIGTERM, the drain and STOP."""
+    g = ServeGroup(2, "gloo", *flags)
+    try:
+        start_s = g.ready()
+        t0 = time.perf_counter()
+        bodies = post_all(g.url, prompts, MAX_TOKENS)
+        batch_s = time.perf_counter() - t0
+        _, stats = g.get("/stats")
+        rcs = g.stop()
+    finally:
+        g.kill()
+    print(g.tail(), flush=True)
+    if rcs != [0, 0] or "serve: drained=True" not in g.lines[0]:
+        raise AssertionError(f"serve_tp {name}: exit codes {rcs}")
+    calls = stats["prefills"] + stats["decode_steps"] + stats["verify_steps"]
+    replayed = f"serve follower 1/2: STOP after {calls} device calls"
+    if replayed not in g.lines[1] or stats["decode_steps"] == 0:
+        raise AssertionError(f"serve_tp {name}: follower did not replay "
+                             f"{calls} calls: {g.tail()}")
+    ranks = [g.rank_stats(r) for r in range(2)]
+    want = {k: 0 for k in ("decode_attention", "decode_attention_quant",
+                           "paged_decode_attention")}
+    want.update(rmsnorm=(2 * cfg.n_layers + 1) * calls)
+    want[kernel] = cfg.n_layers * stats["decode_steps"]
+    for r, rs in enumerate(ranks):
+        if rs["launches"] != want:
+            raise AssertionError(f"serve_tp {name} rank {r}: launches "
+                                 f"{rs['launches']} != {want}")
+        if abs(rs["weight_bytes"] - half_bytes) > TP_WEIGHT_RTOL * half_bytes:
+            raise AssertionError(f"serve_tp {name} rank {r}: weights "
+                                 f"{rs['weight_bytes']} bytes, half the "
+                                 f"tree is {half_bytes}")
+    checks = [check_against_recompute(cfg, params, p, b["tokens"], margin)
+              for p, b in zip(prompts, bodies)]
+    out = {"flags": list(flags), "start_s": start_s, "batch_wall_s": batch_s,
+           "decode_step_ms": 1e3 * stats["decode_s"] / stats["decode_steps"],
+           "decode_tokens_per_s": stats["decode_tokens"] / stats["decode_s"],
+           "ttft_ms": [b["ttft_ms"] for b in bodies], "device_calls": calls,
+           "follower_replayed": calls, "engine": stats,
+           "weight_bytes": [rs["weight_bytes"] for rs in ranks],
+           "peak_memory_gb": [rs["peak_memory_gb"] for rs in ranks],
+           "launches": {k: sum(rs["launches"][k] for rs in ranks)
+                        for k in want},
+           "group": stats["group"], "recompute_check": checks}
+    if "--paged" in flags:
+        hits = stats["prefix_hit_tokens"]
+        if hits != 3 * TP_SHARED:
+            raise AssertionError(f"serve_tp {name}: prefix hits {hits} != "
+                                 f"{3 * TP_SHARED}")
+    print(f"serve_tp {name}: " + json.dumps(
+        {k: v for k, v in out.items() if k != "recompute_check"}),
+        flush=True)
+    return out
+
+
+def tp_one_rank_nccl(cfg, prompts, want_tokens) -> dict:
+    """A one-rank NCCL group through the lockstep engine at tp=1: the
+    serve phase's tokens bit for bit (the same weights, prompts and
+    kernels; its collectives and plans are a group of one's)."""
+    g = ServeGroup(1, "nccl")
+    try:
+        start_s = g.ready()
+        bodies = post_all(g.url, prompts, MAX_TOKENS)
+        _, stats = g.get("/stats")
+        rcs = g.stop()
+    finally:
+        g.kill()
+    got = [b["tokens"] for b in bodies]
+    if rcs != [0] or got != want_tokens:
+        raise AssertionError(f"serve_tp nccl: exit {rcs}, tokens {got} != "
+                             f"the serve phase's {want_tokens}: {g.tail()}")
+    rs = g.rank_stats(0)
+    print(f"serve_tp nccl tp=1: {json.dumps(rs)}", flush=True)
+    return {"start_s": start_s, "tokens_equal_serve": True,
+            "decode_step_ms": 1e3 * stats["decode_s"] / stats["decode_steps"],
+            "launches": rs["launches"], "weight_bytes": rs["weight_bytes"],
+            "peak_memory_gb": rs["peak_memory_gb"], "engine": stats}
+
+
+def tp_killed_follower(prompt) -> dict:
+    """SIGKILL the follower mid-decode: rank 0's /healthz answers 503
+    within --group-miss-timeout + 5 s, the pending request 503, and rank 0
+    leaves at SIGTERM (every wait bounded)."""
+    g = ServeGroup(2, "gloo", "--group-miss-timeout", str(TP_MISS))
+    box = {}
+
+    def client():
+        try:
+            box["status"] = post(g.url, {"prompt_tokens": prompt,
+                                         "max_tokens": MAX_LEN - len(prompt)
+                                         - 8, "temperature": 0.0},
+                                 timeout=TP_MISS + 60)[0]
+        except urllib.error.HTTPError as e:
+            box["status"] = e.code
+        except Exception as e:              # recorded, then raised below
+            box["error"] = repr(e)
+
+    try:
+        g.ready()
+        t = threading.Thread(target=client, daemon=True)
+        t.start()
+        deadline = time.perf_counter() + 120
+        while g.get("/stats")[1]["decode_steps"] < 4:
+            if time.perf_counter() > deadline or not t.is_alive():
+                raise AssertionError(f"no decoding to interrupt: {box}")
+            time.sleep(0.05)
+        steps_at_kill = g.get("/stats")[1]["decode_steps"]
+        g.procs[1].send_signal(signal.SIGKILL)
+        t0 = time.perf_counter()
+        while g.get("/healthz")[0] != 503:
+            if time.perf_counter() - t0 > TP_MISS + 5:
+                raise AssertionError(f"/healthz not 503 {TP_MISS + 5} s "
+                                     f"after the kill: {g.tail()}")
+            time.sleep(0.05)
+        healthz_s = time.perf_counter() - t0
+        t.join(timeout=TP_MISS + 60)
+        if box.get("status") != 503 or t.is_alive():
+            raise AssertionError(f"pending request: {box}, alive "
+                                 f"{t.is_alive()}")
+        _, health = g.get("/healthz")
+        g.procs[0].send_signal(signal.SIGTERM)
+        rc0 = g.procs[0].wait(timeout=60)
+    finally:
+        g.kill()
+    print(g.tail(), flush=True)
+    return {"decode_steps_at_kill": steps_at_kill, "healthz_503_s": healthz_s,
+            "reason": health.get("reason"), "rank0_exit": rc0,
+            "miss_timeout_s": TP_MISS}
+
+
+def serve_tp(cfg, params, smi: str, serve_run: dict, decode_res: dict,
+             seed: int = 9) -> dict:
+    """Tensor-parallel serving on this card: the decode kernels at local
+    head counts, the server at --tp 2 (two ranks on gloo, host-staged
+    collectives: dense bf16, paged bf16, dense int8 KV), a one-rank NCCL
+    group, a killed follower."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    kernels = local_head_checks(gen)
+    print("decode kernels at group 2 (ptxas): " + json.dumps(
+        {k: decode_res[k][f"D{HD}G2"] for k in
+         ("decode_attention", "decode_attention_quant",
+          "paged_decode_attention")}), flush=True)
+    half = tree_bytes(params) / 2
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in TP_PROMPT_LENS]
+    prefix = rng.integers(0, cfg.vocab_size, TP_SHARED).tolist()
+    shared = ([prefix + rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in TP_SHARED_SUFFIXES]
+              + [rng.integers(0, cfg.vocab_size, n).tolist()
+                 for n in TP_OTHER_LENS])
+    runs = {
+        "dense": tp_variant("dense", cfg, params, (), prompts,
+                            RECOMPUTE_MARGIN["bf16"], "decode_attention",
+                            half),
+        "paged": tp_variant("paged", cfg, params,
+                            ("--paged", "--block-size", str(BLOCK_SIZE)),
+                            shared, RECOMPUTE_MARGIN["bf16"],
+                            "paged_decode_attention", half),
+        "int8_kv": tp_variant("int8_kv", cfg, params, ("--kv-quant", "int8"),
+                              prompts, RECOMPUTE_MARGIN["int8"],
+                              "decode_attention_quant", half)}
+    rng0 = np.random.default_rng(0)       # serve()'s prompts
+    serve_prompts = [rng0.integers(0, cfg.vocab_size, n).tolist()
+                     for n in PROMPT_LENS]
+    nccl = tp_one_rank_nccl(cfg, serve_prompts, serve_run["tokens"])
+    killed = tp_killed_follower(prompts[2])
+    launches = {}
+    for run in (*runs.values(), nccl):
+        for k, n in run["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    print(f"serve_tp on {smi}: decode step ms " + json.dumps(
+        {k: r["decode_step_ms"] for k, r in runs.items()}) + "; killed "
+        f"follower: {json.dumps(killed)}", flush=True)
+    return {"kernels": kernels, **runs, "nccl_tp1": nccl,
+            "killed_follower": killed, "launches": launches}
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -3611,6 +4058,7 @@ def main(argv=None) -> None:
     options["serve_disagg"] = timed("serve_disagg", serve_disagg, cfg,
                                     params, smi)
     prof = timed("profile", profile_phase, cfg, params, smi)
+    stp = timed("serve_tp", serve_tp, cfg, params, smi, srv, decode_res)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -3640,7 +4088,7 @@ def main(argv=None) -> None:
                "train_ckpt": handoff["launcher"]["launches"],
                "serve_ckpt": handoff["server"]["launches"],
                "profile": prof["launches"], "entry": ent["launches"],
-               "mesh_train": mesh_launches}
+               "mesh_train": mesh_launches, "serve_tp": stp["launches"]}
 
     def entry(name, route, source, replaces, res):
         m = res["main"]
@@ -3701,7 +4149,8 @@ def main(argv=None) -> None:
                 "mixtral_")}, "mixtral_train": moe_train,
         "train": trn, "train_ring": trn_ring,
         "train_to_serve": handoff, "bench": bnch, "entry": ent,
-        "mesh_train": mesh, "profile": prof, "walls_s": walls,
+        "mesh_train": mesh, "profile": prof, "serve_tp": stp,
+        "walls_s": walls,
         **kernels}, indent=1))
     walls["total"] = time.perf_counter() - smoke_t0
     print("wall seconds: " + json.dumps(

@@ -11,9 +11,12 @@
   ``llama_tiny`` over the framework's (dp, fsdp, tp) factorisation of
   ``n``; the sp ring over all ``n``; Mixtral's MoE forward over ep = 2;
   and, when 4 divides ``n``, one step over a 2-slice multi-slice mesh.
-  Rank 0 prints each block's line.  The pipeline block waits for
-  ROADMAP A11 and the tensor-parallel serving block for A9; nothing is
-  printed for them.  NCCL needs a card a rank; ``backend="gloo"`` on the
+  Then tensor-parallel serving: the first 4 ranks (2 when 4 does not
+  divide ``n``) form a group of their own and serve ``llama_tiny`` (2 kv
+  heads, so tp=4 is tp=2 x tpr=2) through the lockstep engine
+  (``serve/multihost.py``), rank 0 generating 4 tokens.  Rank 0 prints
+  each block's line.  The pipeline block waits for ROADMAP A11; nothing is
+  printed for it.  NCCL needs a card a rank; ``backend="gloo"`` on the
   card stages the model's collectives through host memory
   (``spmd.HostStagedGloo``), but not the sp ring's exchange.
 
@@ -36,6 +39,16 @@ from kuberay_tpu_torch.models import llama, mixtral
 from kuberay_tpu_torch.parallel import spmd
 from kuberay_tpu_torch.parallel.mesh import MeshSpec
 from kuberay_tpu_torch.parallel.ring import ring_attention
+from kuberay_tpu_torch.serve.engine import Request, ServeEngine
+from kuberay_tpu_torch.serve.multihost import (
+    MultihostServeEngine,
+    follower_loop,
+)
+from kuberay_tpu_torch.serve.sharding import (
+    init_sharded_params,
+    serve_layout,
+    serve_mesh,
+)
 from kuberay_tpu_torch.train.train_step import (
     TrainConfig,
     make_sharded_train_fns,
@@ -83,13 +96,53 @@ def _step(cfg, mesh, batch_size: int, seed: int, device) -> float:
     return loss
 
 
-def _rank_main(rank: int, n: int, port: int, device: str, backend: str):
+def _serve_tp(n: int) -> int:
+    """The dry run's serving group: 4 ranks when 4 divides n, else 2."""
+    return 4 if n % 4 == 0 else 2
+
+
+def _rank_main(rank: int, n: int, port: int, device: str, backend: str,
+               serve_port: int = 0):
     dev = resolve_device(device)
     torch.set_num_threads(1)
     if dev.type == "cuda":
         torch.cuda.set_device(rank % torch.cuda.device_count())
         dev = torch.device("cuda", torch.cuda.current_device())
     backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
+    _blocks(rank, n, port, dev, backend)
+    if n >= 2 and rank < _serve_tp(n):
+        _serve_block(rank, _serve_tp(n), serve_port, dev, backend)
+
+
+def _serve_block(rank: int, tp: int, port: int, dev, backend: str) -> None:
+    """Tensor-parallel serving over a group of ``tp`` ranks: seeded shards
+    of ``llama_tiny``, rank 0's lockstep engine, the others following."""
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=tp)
+    try:
+        cfg = llama.CONFIGS["llama_tiny"]
+        layout = serve_layout(serve_mesh(tp, n_kv_heads=cfg.n_kv_heads,
+                                         device_type=dev.type))
+        params = init_sharded_params(cfg, 9, layout)
+        kw = dict(max_slots=2, max_len=64, device=dev, layout=layout)
+        if rank > 0:
+            follower_loop(ServeEngine(cfg, params, **kw))
+            return
+        eng = MultihostServeEngine(cfg, params, **kw)
+        eng.add_request(Request("dryrun", [1, 2, 3, 4], max_new_tokens=4))
+        resp = eng.run()
+        eng.stop()
+        if not resp or len(resp[0].tokens) != 4:
+            raise AssertionError(f"dry-run serving gave {resp}")
+        print(f"dryrun serve ok: tp={layout.size('tp')} x "
+              f"tpr={layout.size('tpr')} engine generated "
+              f"{len(resp[0].tokens)} tokens", flush=True)
+    finally:
+        dist.destroy_process_group()
+
+
+def _blocks(rank: int, n: int, port: int, dev, backend: str):
+    """Every block but serving, over one group of all ``n`` ranks."""
     dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
                             rank=rank, world_size=n)
 
@@ -139,7 +192,6 @@ def _rank_main(rank: int, n: int, port: int, device: str, backend: str):
             if not bool(torch.isfinite(logits).all()):
                 raise AssertionError("non-finite MoE logits")
             say(f"dryrun ep ok: MoE over ep={ep}")
-        # The tensor-parallel serving block waits for ROADMAP A9.
         if n % 4 == 0:
             ms_mesh = MeshSpec(dp=2, fsdp=-1, tp=2).build_multislice(
                 2, device_type=dev.type)
@@ -156,23 +208,33 @@ def _shard(tree, specs):
     return specs.shard(tree)
 
 
+def _free_ports(n: int) -> list:
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for s in socks:
+            s.bind(("localhost", 0))
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
+
+
 def dryrun_multichip(n_devices: int, device: str = "cuda",
                      backend: str = "", timeout: float = 600.0) -> None:
     """One sharded train step (and the other ported blocks) over
     ``n_devices`` ranks, each its own process; raises if any rank
     fails."""
     resolve_device(device)
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
+    port, serve_port = _free_ports(2)
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = {**os.environ, "OMP_NUM_THREADS": "1",
            "PYTHONPATH": os.pathsep.join(
                [root, os.environ.get("PYTHONPATH", "")])}
     procs = [subprocess.Popen(
         [sys.executable, "-m", "kuberay_tpu_torch.entry", "--rank", str(r),
-         str(n_devices), "--port", str(port), "--device", device,
-         "--backend", backend], env=env) for r in range(n_devices)]
+         str(n_devices), "--port", str(port), "--serve-port",
+         str(serve_port), "--device", device, "--backend", backend],
+        env=env) for r in range(n_devices)]
     try:
         codes = [p.wait(timeout=timeout) for p in procs]
     finally:
@@ -190,9 +252,12 @@ def main(argv=None) -> int:
     ap.add_argument("--rank", type=int, default=None,
                     help="run one rank (how dryrun_multichip starts them)")
     ap.add_argument("--port", type=int, default=0)
+    ap.add_argument("--serve-port", type=int, default=0,
+                    help="the serving group's rendezvous port")
     args = ap.parse_args(argv)
     if args.rank is not None:
-        _rank_main(args.rank, args.n, args.port, args.device, args.backend)
+        _rank_main(args.rank, args.n, args.port, args.device, args.backend,
+                   args.serve_port)
     else:
         dryrun_multichip(args.n, args.device, args.backend)
     return 0

@@ -144,47 +144,54 @@ def param_axes(cfg: LlamaConfig) -> Dict[str, Any]:
 
 
 def init_params(cfg: LlamaConfig, generator: Optional[torch.Generator] = None,
-                device="cuda") -> Dict[str, Any]:
+                device="cuda", keep=None) -> Dict[str, Any]:
     """Scaled-normal init (GPT-NeoX style residual scaling on out-projs),
     the reference's tree and scales.  Draws float32 normals from
     ``generator`` (which must live on ``device``; default: seed 0 there)
     and casts each leaf to ``cfg.dtype``.  ``device="meta"`` builds shapes
     only.  torch's generator draws other numbers than ``jax.random``: to
     hold the two packages to one tree, convert the JAX tree with
-    ``models/convert.py``."""
+    ``models/convert.py``.  ``keep(path, leaf)``, where given, replaces
+    each leaf as soon as it is made (``path``: its keys, e.g. ``("layers",
+    "wq")``), so that a rank can keep its shard and free the rest
+    (``serve/sharding.py::init_sharded_params``); the draws are the
+    same."""
     dev = resolve_device(device)
     if generator is None and dev.type != "meta":
         generator = torch.Generator(device=dev).manual_seed(0)
+    keep = keep or (lambda path, t: t)
     d, f, v, L = cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.n_layers
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     std = 1.0 / math.sqrt(d)
     out_std = std / math.sqrt(2 * L)
 
-    def norm_init(*shape):
-        return torch.ones(shape, dtype=cfg.dtype, device=dev)
+    def norm_init(path, *shape):
+        return keep(path, torch.ones(shape, dtype=cfg.dtype, device=dev))
 
-    def rnd(shape, scale):
+    def rnd(path, shape, scale):
         w = torch.randn(shape, generator=generator, dtype=torch.float32,
                         device=dev)
-        return w.mul_(scale).to(cfg.dtype)
+        w = w.mul_(scale).to(cfg.dtype)     # the float32 draw is freed here
+        return keep(path, w)
 
+    lay = ("layers",)
     params = {
-        "embed": rnd((v, d), std),
+        "embed": rnd(("embed",), (v, d), std),
         "layers": {
-            "attn_norm": norm_init(L, d),
-            "wq": rnd((L, d, hq * hd), std),
-            "wk": rnd((L, d, hkv * hd), std),
-            "wv": rnd((L, d, hkv * hd), std),
-            "wo": rnd((L, hq * hd, d), out_std),
-            "mlp_norm": norm_init(L, d),
-            "w_gate": rnd((L, d, f), std),
-            "w_up": rnd((L, d, f), std),
-            "w_down": rnd((L, f, d), out_std),
+            "attn_norm": norm_init(lay + ("attn_norm",), L, d),
+            "wq": rnd(lay + ("wq",), (L, d, hq * hd), std),
+            "wk": rnd(lay + ("wk",), (L, d, hkv * hd), std),
+            "wv": rnd(lay + ("wv",), (L, d, hkv * hd), std),
+            "wo": rnd(lay + ("wo",), (L, hq * hd, d), out_std),
+            "mlp_norm": norm_init(lay + ("mlp_norm",), L, d),
+            "w_gate": rnd(lay + ("w_gate",), (L, d, f), std),
+            "w_up": rnd(lay + ("w_up",), (L, d, f), std),
+            "w_down": rnd(lay + ("w_down",), (L, f, d), out_std),
         },
-        "final_norm": norm_init(d),
+        "final_norm": norm_init(("final_norm",), d),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = rnd((d, v), std)
+        params["lm_head"] = rnd(("lm_head",), (d, v), std)
     return params
 
 

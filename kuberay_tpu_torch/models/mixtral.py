@@ -142,15 +142,17 @@ def param_axes(cfg: MixtralConfig) -> Dict[str, Any]:
 
 def init_params(cfg: MixtralConfig,
                 generator: Optional[torch.Generator] = None,
-                device="cuda") -> Dict[str, Any]:
+                device="cuda", keep=None) -> Dict[str, Any]:
     """Scaled-normal init, the reference's tree and scales: float32
     normals from ``generator`` (on ``device``; default seed 0 there),
     each leaf cast to ``cfg.dtype``; ``device="meta"`` builds shapes only.
     To hold the two packages to one tree, convert the JAX tree with
-    ``models/convert.py`` (torch draws other numbers than jax.random)."""
+    ``models/convert.py`` (torch draws other numbers than jax.random).
+    ``keep(path, leaf)``: as in ``llama.init_params``."""
     dev = resolve_device(device)
     if generator is None and dev.type != "meta":
         generator = torch.Generator(device=dev).manual_seed(0)
+    keep = keep or (lambda path, t: t)
     d, f, v, L, E = (cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.n_layers,
                      cfg.n_experts)
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -174,22 +176,23 @@ def init_params(cfg: MixtralConfig,
                         device=dev)
         return w.mul_(scale).to(cfg.dtype)
 
+    lay = ("layers",)
     return {
-        "embed": rnd((v, d), std),
+        "embed": keep(("embed",), rnd((v, d), std)),
         "layers": {
-            "attn_norm": ones(L, d),
-            "wq": rnd((L, d, hq * hd), std),
-            "wk": rnd((L, d, hkv * hd), std),
-            "wv": rnd((L, d, hkv * hd), std),
-            "wo": rnd((L, hq * hd, d), out_std),
-            "mlp_norm": ones(L, d),
-            "router": rnd((L, d, E), std),
-            "w_gate": rnd((L, E, d, f), std),
-            "w_up": rnd((L, E, d, f), std),
-            "w_down": rnd((L, E, f, d), out_std),
+            "attn_norm": keep(lay + ("attn_norm",), ones(L, d)),
+            "wq": keep(lay + ("wq",), rnd((L, d, hq * hd), std)),
+            "wk": keep(lay + ("wk",), rnd((L, d, hkv * hd), std)),
+            "wv": keep(lay + ("wv",), rnd((L, d, hkv * hd), std)),
+            "wo": keep(lay + ("wo",), rnd((L, hq * hd, d), out_std)),
+            "mlp_norm": keep(lay + ("mlp_norm",), ones(L, d)),
+            "router": keep(lay + ("router",), rnd((L, d, E), std)),
+            "w_gate": keep(lay + ("w_gate",), rnd((L, E, d, f), std)),
+            "w_up": keep(lay + ("w_up",), rnd((L, E, d, f), std)),
+            "w_down": keep(lay + ("w_down",), rnd((L, E, f, d), out_std)),
         },
-        "final_norm": ones(d),
-        "lm_head": rnd((d, v), std),
+        "final_norm": keep(("final_norm",), ones(d)),
+        "lm_head": keep(("lm_head",), rnd((d, v), std)),
     }
 
 

@@ -50,7 +50,6 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from kuberay_tpu_torch.parallel.mesh import (
     DEFAULT_RULES,
-    MeshSpec,
     logical_to_sharding,
     mesh_sizes,
 )
@@ -71,13 +70,16 @@ class HostStagedGloo:
 
 
 class Layout:
-    """This process's place on a ``DeviceMesh`` built by ``MeshSpec``: the
-    axis sizes, its coordinate on each axis, each axis's process group and
-    the collectives over them."""
+    """This process's place on a named ``DeviceMesh`` (``MeshSpec``'s
+    training mesh, or ``serve/sharding.py::serve_mesh``'s ("tp", "tpr")):
+    the axis sizes, its coordinate on each axis, each axis's process group
+    and the collectives over them.  ``rules`` maps a leaf's logical axes to
+    mesh axes (``DEFAULT_RULES``, or the serving rules)."""
 
-    def __init__(self, mesh: DeviceMesh):
+    def __init__(self, mesh: DeviceMesh, rules: Optional[Dict] = None):
         self.mesh = mesh
-        self.rules = DEFAULT_RULES
+        self.rules = DEFAULT_RULES if rules is None else rules
+        self.names = tuple(mesh.mesh_dim_names or ())
         self.sizes = mesh_sizes(mesh)
         self.coord = {a: mesh.get_local_rank(a) for a in self.sizes}
         self.groups = {a: mesh.get_group(a)
@@ -201,7 +203,7 @@ class Layout:
     def leaf_dims(self, logical_axes) -> Dict[int, List[str]]:
         """{tensor dim: the mesh axes (size > 1, mesh order) it is split
         over} for a leaf with these logical axes."""
-        names = MeshSpec.AXES
+        names = self.names
         out = {}
         for dim, logical in enumerate(logical_axes):
             spec = self.rules.get(logical)
@@ -460,17 +462,19 @@ def vocab_xent(logits: torch.Tensor, targets: torch.Tensor,
 
 
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor,
-                 layout: Optional[Layout]) -> torch.Tensor:
-    """Rows of an embedding table whose vocabulary is split over tp: each
-    rank looks up the ids it holds (zeros elsewhere), summed over tp."""
-    if layout is None or layout.size("tp") == 1:
+                 layout: Optional[Layout], *axes: str) -> torch.Tensor:
+    """Rows of an embedding table whose vocabulary is split over ``axes``
+    (default tp; the first axis the most significant block): each rank
+    looks up the ids it holds (zeros elsewhere), summed over the axes."""
+    live = _live(layout, axes or ("tp",))
+    if not live:
         return table[tokens]
     Vl = table.shape[0]
-    local = tokens.long() - layout.index("tp") * Vl
+    local = tokens.long() - layout._block(live)[0] * Vl
     inside = (local >= 0) & (local < Vl)
     rows = table[local.clamp(0, Vl - 1)]
     return reduce_over(torch.where(inside[..., None], rows, 0.0).to(
-        table.dtype), layout, "tp")
+        table.dtype), layout, *live)
 
 
 # --------------------------------------------------------------------------

@@ -27,7 +27,13 @@ Options, as in the JAX engine:
   request-phase histogram ``tpu_serve_request_duration_seconds`` (queue,
   prefill, decode, and the TTFT);
 - ``tracer``: requests that carry a ``TraceContext`` get engine-queue,
-  prefill, kv-alloc and decode spans (the no-op tracer by default).
+  prefill, kv-alloc and decode spans (the no-op tracer by default);
+- ``layout``: tensor parallelism (the JAX engine's ``mesh=``), this
+  rank's serving layout (``serve/sharding.py``).  ``params`` are then the
+  rank's shards, the cache holds the rank's kv heads, int8 weights are
+  quantised after sharding, and every forward runs the group's
+  collectives; one process per card, kept in lockstep by
+  ``serve/multihost.py``.  The host loop does not change.
 
 Chunks and verify steps run T > 1 query tokens through the plain
 multi-token attention, as the JAX package runs them through XLA; only
@@ -51,6 +57,7 @@ not depend on the generator.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Any, Dict, List, Optional
 
@@ -65,6 +72,12 @@ from kuberay_tpu_torch.serve.kv_cache import (
     init_kv_cache,
     make_quantized_forward,
     tree_map,
+)
+from kuberay_tpu_torch.serve.sharding import (
+    check_local_params,
+    local_kv_heads,
+    param_axes_of,
+    validate_tp,
 )
 from kuberay_tpu_torch.serve.weight_quant import (
     make_weight_dequant_forward,
@@ -185,8 +198,12 @@ class ServeEngine:
                  rng_seed: int = 0, device="cuda", kv_quant: str = "none",
                  prefill_chunk: int = 0, speculative: int = 0,
                  weight_quant: str = "none", donate_params: bool = False,
-                 metrics=None, tracer=None):
+                 metrics=None, tracer=None, layout=None):
         self.device = resolve_device(device)
+        if layout is not None:
+            validate_tp(cfg, layout)
+            check_local_params(cfg, params, layout)
+        self.layout = layout
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params are on {params['embed'].device}, the "
                              f"engine on {self.device}")
@@ -222,7 +239,9 @@ class ServeEngine:
         if weight_quant == "int8":
             # ``donate_params``: the caller hands the tree over and each
             # bf16 leaf is freed once quantised.
-            params = quantize_weights(params, donate=donate_params)
+            params = quantize_weights(
+                params, donate=donate_params, layout=layout,
+                axes=param_axes_of(cfg) if layout is not None else None)
             self._forward = make_weight_dequant_forward(self._forward)
         self.params = params
         self.generator = torch.Generator(device=self.device)
@@ -255,16 +274,17 @@ class ServeEngine:
 
     def _init_cache(self):
         return init_kv_cache(self.cfg, self.max_slots, self.max_len,
-                             self.device, quant=self.kv_quant)
+                             self.device, quant=self.kv_quant,
+                             n_kv_heads=local_kv_heads(self.cfg, self.layout))
 
     def _base_forward(self):
         """The cache forward before the weight-dequantising wrapper: the
         config's model family (Llama, or Mixtral's dropless MoE FFN)
-        under the cache layout."""
-        base = base_forward_for(self.cfg)
+        under the cache layout, on the engine's tp layout."""
+        base = base_forward_for(self.cfg) or forward_with_cache
         if self.kv_quant == "int8":
-            return make_quantized_forward(base)
-        return base or forward_with_cache
+            return make_quantized_forward(base, layout=self.layout)
+        return functools.partial(base, layout=self.layout)
 
     def _prefill_forward(self, tokens: torch.Tensor, slot: int,
                          start: torch.Tensor, real_len: int,
@@ -287,17 +307,53 @@ class ServeEngine:
                                   lens, mask, token_mask=token_mask)
         return logits
 
+    # The three device funnels: every model call of the engine goes
+    # through one of them, from host arrays, and returns the logits.  A tp
+    # group's followers replay exactly these (``serve/multihost.py``).
+
+    @torch.no_grad()
+    def _prefill_logits(self, padded: np.ndarray, slot: int, real_len: int,
+                        start_pos: int = 0) -> torch.Tensor:
+        """The prefill's logits [1, 1, V] at its last real token."""
+        tokens = torch.from_numpy(padded).to(self.device, torch.long)[None]
+        start = torch.full((1,), start_pos, dtype=torch.long,
+                           device=self.device)
+        idx = torch.tensor([real_len - 1], device=self.device)
+        return self._prefill_forward(tokens, slot, start, real_len, idx)
+
+    @torch.no_grad()
+    def _decode_logits(self, last: np.ndarray, mask: np.ndarray
+                       ) -> torch.Tensor:
+        """A decode step's logits [B, 1, V] at ``self.lens``."""
+        dev = self.device
+        tokens = torch.from_numpy(last).to(dev, torch.long)[:, None]
+        return self._decode_forward(tokens,
+                                    torch.from_numpy(self.lens).to(dev),
+                                    torch.from_numpy(mask).to(dev))
+
+    @torch.no_grad()
+    def _verify_logits(self, toks: np.ndarray, ntok: np.ndarray,
+                       mask: np.ndarray) -> torch.Tensor:
+        """A verify step's logits [B, gamma+1, V] at ``self.lens``: only
+        each row's first ``ntok`` tokens are real and write K/V."""
+        dev = self.device
+        tokens = torch.from_numpy(toks).to(dev, torch.long)
+        T = tokens.shape[1]
+        mask_t = torch.from_numpy(mask).to(dev)
+        ntok_t = torch.from_numpy(ntok).to(dev)
+        token_mask = mask_t[:, None] * (
+            torch.arange(T, device=dev)[None, :] < ntok_t[:, None]).float()
+        return self._decode_forward(tokens,
+                                    torch.from_numpy(self.lens).to(dev),
+                                    mask_t, token_mask)
+
     @torch.no_grad()
     def _prefill(self, padded: np.ndarray, slot: int, real_len: int,
                  samp: np.ndarray, start_pos: int = 0) -> int:
         """Prefill ``real_len`` new tokens of one request into one slot at
         cache offset ``start_pos`` (past a prefix served from cache);
         returns its first generated token."""
-        tokens = torch.from_numpy(padded).to(self.device, torch.long)[None]
-        start = torch.full((1,), start_pos, dtype=torch.long,
-                           device=self.device)
-        idx = torch.tensor([real_len - 1], device=self.device)
-        logits = self._prefill_forward(tokens, slot, start, real_len, idx)
+        logits = self._prefill_logits(padded, slot, real_len, start_pos)
         sample = self._sample if self._filters_on(samp) else self._sample_plain
         samp_t = torch.from_numpy(samp).to(self.device)[None]
         noise = self._noise(logits[:, 0], samp[None])
@@ -310,10 +366,7 @@ class ServeEngine:
         """One decode step for every slot (inactive ones write nothing)."""
         t0 = time.perf_counter()
         dev = self.device
-        tokens = torch.from_numpy(last).to(dev, torch.long)[:, None]
-        logits = self._decode_forward(tokens,
-                                      torch.from_numpy(self.lens).to(dev),
-                                      torch.from_numpy(mask).to(dev))
+        logits = self._decode_logits(last, mask)
         sample = self._sample if self._filters_on(temps) else self._sample_plain
         noise = self._noise(logits[:, 0], temps)
         toks = sample(logits[:, 0], torch.from_numpy(temps).to(dev), noise)
@@ -334,15 +387,7 @@ class ServeEngine:
         sampled0 [B]: position 0 sampled, for sampling slots)."""
         t0 = time.perf_counter()
         dev = self.device
-        tokens = torch.from_numpy(toks).to(dev, torch.long)
-        T = tokens.shape[1]
-        mask_t = torch.from_numpy(mask).to(dev)
-        ntok_t = torch.from_numpy(ntok).to(dev)
-        token_mask = mask_t[:, None] * (
-            torch.arange(T, device=dev)[None, :] < ntok_t[:, None]).float()
-        logits = self._decode_forward(tokens,
-                                      torch.from_numpy(self.lens).to(dev),
-                                      mask_t, token_mask)
+        logits = self._verify_logits(toks, ntok, mask)
         greedy = logits.argmax(-1)
         sample = self._sample if self._filters_on(temps) else self._sample_plain
         noise = self._noise(logits[:, 0], temps)

@@ -14,6 +14,13 @@ in ``serve/paged_kv.py``), ``attention`` how attention reads it, and
 of ``forward_with_cache_mixtral`` for Mixtral configs, which
 ``base_forward_for`` picks by config type for both engines).
 
+Under a serving ``layout`` (``serve/sharding.py``) the forward runs on this
+rank's shards: head counts come from the shards' shapes, the embedding is
+a vocab-parallel lookup, ``wo``'s and the FFN's outputs are summed over
+``(tp, tpr)`` (one all-reduce each a layer) and the logits are gathered
+over ``(tp, tpr)``.  Every rank of the group issues the same collectives
+in the same order; the cache holds the rank's kv heads only.
+
 Per step the model reaches two kernels: ``ops/rmsnorm.py`` (2 per layer +
 the final norm) and, for one-token steps, a decode-attention kernel (one
 per layer): ``decode_attention`` for the bf16 cache,
@@ -38,19 +45,24 @@ from kuberay_tpu_torch.ops.decode_attention import (
 )
 from kuberay_tpu_torch.ops.rmsnorm import rmsnorm
 from kuberay_tpu_torch.ops.rope import apply_rope, rope_frequencies
+from kuberay_tpu_torch.parallel.spmd import embed_lookup, reduce_over
+from kuberay_tpu_torch.serve.sharding import SERVE_AXES
 
 _NEG_INF = -1e30
 
 
 def init_kv_cache(cfg, slots: int, max_len: int, device="cuda",
-                  quant: str = "none") -> Dict[str, Any]:
+                  quant: str = "none", n_kv_heads: Optional[int] = None
+                  ) -> Dict[str, Any]:
     """Zeroed dense cache {"k", "v"}, each [L, slots, max_len, Hkv, D] in
     ``cfg.dtype``; with ``quant="int8"`` each is {"q": int8 [L, slots,
     max_len, Hkv, D], "s": float32 [L, slots, Hkv, max_len]} (scales with
-    positions on the last axis, the layout the int8 decode kernel reads)."""
-    shape = (cfg.n_layers, slots, max_len, cfg.n_kv_heads, cfg.head_dim)
+    positions on the last axis, the layout the int8 decode kernel reads).
+    ``n_kv_heads``: Hkv where not the model's (a tp rank's local heads)."""
+    hkv = n_kv_heads or cfg.n_kv_heads
+    shape = (cfg.n_layers, slots, max_len, hkv, cfg.head_dim)
     if quant == "int8":
-        sshape = (cfg.n_layers, slots, cfg.n_kv_heads, max_len)
+        sshape = (cfg.n_layers, slots, hkv, max_len)
 
         def leaf():
             return {"q": torch.zeros(shape, dtype=torch.int8, device=device),
@@ -185,13 +197,14 @@ def _decode_attention_quant(q, ckv, cvv, lens, q_positions):
         lens.to(torch.int32))[:, None]
 
 
-def make_quantized_forward(base_forward=None):
+def make_quantized_forward(base_forward=None, layout=None):
     """Wrap a cache forward for the int8 cache (``init_kv_cache(...,
     quant="int8")``): its ``kv_update`` quantises the new K/V and writes
     values and scales in place; its ``attention`` reads the int8 cache
     natively, through the int8 decode kernel for one-token steps and
     ``_cached_attention_quant_multi`` for prefill.  The returned forward
-    takes ``forward_with_cache``'s arguments."""
+    takes ``forward_with_cache``'s arguments; ``layout``: a tp rank's
+    serving layout, passed to the base forward."""
     base = base_forward or forward_with_cache
 
     def fwd(cfg, params, tokens, cache, start, write_mask=None,
@@ -218,7 +231,7 @@ def make_quantized_forward(base_forward=None):
             else _cached_attention_quant_multi
         return base(cfg, params, tokens, cache, start, write_mask,
                     token_mask=token_mask, logits_index=logits_index,
-                    kv_update=kv_update, attention=attention)
+                    kv_update=kv_update, attention=attention, layout=layout)
 
     return fwd
 
@@ -238,14 +251,19 @@ def _moe_ffn(cfg, h, lp, token_mask):
 def forward_with_cache_mixtral(cfg, params, tokens, cache, start,
                                write_mask=None, logits_index=None,
                                token_mask=None, kv_update=None,
-                               attention=None):
+                               attention=None, layout=None):
     """Mixtral against the cache: ``forward_with_cache`` with the dropless
     MoE FFN.  The token mask keeps padding and idle slots' weight out of
-    the expert combine; router aux losses play no part at inference."""
+    the expert combine; router aux losses play no part at inference.
+    Under a layout every rank holds every expert's block of mlp columns
+    (``SERVE_RULES``: expert replicated, mlp over (tp, tpr)) and the
+    replicated router, so each rank routes every token alike and the
+    grouped ``w_down``'s partial sums meet in the forward's all-reduce."""
     return forward_with_cache(cfg, params, tokens, cache, start, write_mask,
                               logits_index=logits_index,
                               token_mask=token_mask, kv_update=kv_update,
-                              attention=attention, ffn=_moe_ffn)
+                              attention=attention, ffn=_moe_ffn,
+                              layout=layout)
 
 
 def base_forward_for(cfg):
@@ -272,8 +290,8 @@ def forward_with_cache(cfg, params: Dict[str, Any], tokens: torch.Tensor,
                        write_mask: Optional[torch.Tensor] = None,
                        logits_index: Optional[torch.Tensor] = None,
                        token_mask: Optional[torch.Tensor] = None,
-                       kv_update=None, attention=None, ffn=None
-                       ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+                       kv_update=None, attention=None, ffn=None,
+                       layout=None) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Run T new tokens through the model against the cache.
 
     params: the model's tree, or a ``serve/weight_quant.py::DequantView``
@@ -294,8 +312,10 @@ def forward_with_cache(cfg, params: Dict[str, Any], tokens: torch.Tensor,
     and returns what ``attention(q, k_view, v_view, lens, positions)``
     reads; the defaults are the dense cache's insert and
     ``_cached_attention``.  ``ffn(cfg, h, lp, token_mask)`` is the
-    feed-forward block (default: the dense SwiGLU).  Returns (float32
-    logits [B, T or 1, V], the cache, updated in place).
+    feed-forward block (default: the dense SwiGLU).  ``layout``: this
+    rank's serving layout (``serve/sharding.py``), with ``params`` and
+    ``cache`` its shards; None for one process.  Returns (float32 logits
+    [B, T or 1, V], the cache, updated in place).
     """
     B, T = tokens.shape
     dev = tokens.device
@@ -318,12 +338,14 @@ def forward_with_cache(cfg, params: Dict[str, Any], tokens: torch.Tensor,
     # Bucket padding past a cached prefix may run past the tables; those
     # positions are never written or read back (JAX's gather clamps too).
     rope_pos = positions.clamp(max=cfg.max_seq_len - 1)
-    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
     layers = params["layers"]
-    x = params["embed"][tokens]
+    x = embed_lookup(params["embed"], tokens, layout, *SERVE_AXES)
     for i in range(cfg.n_layers):
         lp = {k: v[i] for k, v in layers.items()}
         ck, cv = (tree_map(lambda t: t[i], cache[n]) for n in ("k", "v"))
+        # Local head counts: a tp rank's shards hold its heads only.
+        hq, hkv = lp["wq"].shape[-1] // hd, lp["wk"].shape[-1] // hd
         h = rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
         q = (h @ lp["wq"]).reshape(B, T, hq, hd)
         kk = (h @ lp["wk"]).reshape(B, T, hkv, hd)
@@ -332,9 +354,11 @@ def forward_with_cache(cfg, params: Dict[str, Any], tokens: torch.Tensor,
         kk = apply_rope(kk, cos, sin, rope_pos)
         k_view, v_view = kv_update(ck, cv, kk, vv)
         attn = attention(q, k_view, v_view, lens, positions)
-        x = x + (attn.reshape(B, T, -1) @ lp["wo"]).to(x.dtype)
+        x = x + reduce_over(attn.reshape(B, T, -1) @ lp["wo"], layout,
+                            *SERVE_AXES).to(x.dtype)
         h = rmsnorm(x, lp["mlp_norm"], cfg.norm_eps)
-        x = x + ffn(cfg, h, lp, token_mask).to(x.dtype)
+        x = x + reduce_over(ffn(cfg, h, lp, token_mask), layout,
+                            *SERVE_AXES).to(x.dtype)
         # Drop the layer's leaves before the next layer's are made: with
         # int8 weights each is a dequantised copy, so only one layer's
         # bf16 weights are held at a time.
@@ -345,4 +369,10 @@ def forward_with_cache(cfg, params: Dict[str, Any], tokens: torch.Tensor,
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"].T if getattr(cfg, "tie_embeddings", False) \
         else params["lm_head"]
-    return _logits(x, head), cache
+    logits = _logits(x, head)
+    if layout is not None:
+        # This rank's vocabulary block -> the whole row, innermost axis
+        # first, so the blocks land in (tp, tpr) order.
+        for a in reversed(SERVE_AXES):
+            logits = layout.all_gather(logits, a, logits.dim() - 1)
+    return logits, cache

@@ -47,7 +47,12 @@ them would resolve through the zero-filled tail of its table into block
 0, another request's block, so only real tokens write.  Weight
 quantisation dequantises outermost, around the paged forward.
 
-Not ported yet: tensor parallelism.
+Tensor parallelism (``layout``, as the dense engine's): the pool holds the
+rank's kv heads and the tables ride every step plan to the followers
+(``serve/multihost.py::MultihostPagedServeEngine``).  Under tp > 1 the KV
+tiers and block export and import are refused (ROADMAP A9b): they read and
+write whole blocks on one process, and the followers would need plan ops
+for a block's demotion, promotion, export and import.
 """
 
 from __future__ import annotations
@@ -68,9 +73,19 @@ from kuberay_tpu_torch.serve.paged_kv import (
     make_paged_forward,
     make_paged_quant_forward,
 )
+from kuberay_tpu_torch.serve.sharding import local_kv_heads, mesh_tp
 
 # The KV-block wire payload's element type: float32, little-endian.
 WIRE_DTYPE = np.dtype("<f4")
+
+_TP_BLOCKS = ("{what} under tensor parallelism (tp > 1) is not ported yet "
+              "(ROADMAP A9b): it reads and writes whole blocks on one "
+              "process")
+
+
+def _refuse_under_tp(layout, what: str) -> None:
+    if layout is not None and mesh_tp(layout) > 1:
+        raise ValueError(_TP_BLOCKS.format(what=what))
 
 
 class PagedServeEngine(ServeEngine):
@@ -81,7 +96,9 @@ class PagedServeEngine(ServeEngine):
                  prefill_chunk: int = 0, speculative: int = 0,
                  weight_quant: str = "none", donate_params: bool = False,
                  metrics=None, tracer=None, host_blocks: int = 0,
-                 spill_blocks: int = 0):
+                 spill_blocks: int = 0, layout=None):
+        if host_blocks > 0 or spill_blocks > 0:
+            _refuse_under_tp(layout, "KV tiering (host_blocks, spill_blocks)")
         if (host_blocks > 0 or spill_blocks > 0) and kv_quant != "none":
             raise ValueError(
                 "KV tiering requires kv_quant='none' (tier payloads "
@@ -99,7 +116,7 @@ class PagedServeEngine(ServeEngine):
                          prefill_chunk=prefill_chunk, speculative=speculative,
                          weight_quant=weight_quant,
                          donate_params=donate_params, metrics=metrics,
-                         tracer=tracer)
+                         tracer=tracer, layout=layout)
         self.allocator = BlockAllocator(num_blocks, block_size)
         self.tables = np.zeros((max_slots, self.max_blocks), dtype=np.int32)
         self.owned: List[List[int]] = [[] for _ in range(max_slots)]
@@ -118,12 +135,15 @@ class PagedServeEngine(ServeEngine):
 
     def _init_cache(self):
         return init_paged_cache(self.cfg, self.num_blocks, self.block_size,
-                                quant=self.kv_quant, device=self.device)
+                                quant=self.kv_quant, device=self.device,
+                                n_kv_heads=local_kv_heads(self.cfg,
+                                                          self.layout))
 
     def _base_forward(self):
         make = make_paged_quant_forward if self.kv_quant == "int8" \
             else make_paged_forward
-        return make(self.block_size, base_forward_for(self.cfg))
+        return make(self.block_size, base_forward_for(self.cfg),
+                    layout=self.layout)
 
     # ------------------------------------------------------------------
     # model calls (paged signatures)
@@ -489,6 +509,7 @@ class PagedServeEngine(ServeEngine):
         in no tier (a block the pool evicted is served from its host or
         spill copy when tiers are on); ``max_blocks`` > 0 caps the record
         count, so the importer still holds a contiguous prefix."""
+        _refuse_under_tp(self.layout, "KV-block export")
         if self.kv_quant != "none":
             raise NotImplementedError(
                 "KV-block export requires kv_quant='none' (int8 pools "
@@ -540,6 +561,7 @@ class PagedServeEngine(ServeEngine):
         refcount-0 cached; the walk stops at the first chain gap, malformed
         payload or pool exhaustion (match_prefix serves only contiguous
         prefixes).  Returns ``{"imported": n, "skipped": m}``."""
+        _refuse_under_tp(self.layout, "KV-block import")
         if self.kv_quant != "none":
             raise NotImplementedError(
                 "KV-block import requires kv_quant='none'")

@@ -1,7 +1,6 @@
 """Paged KV cache with prefix caching, in PyTorch.
 
-Port of ``kuberay_tpu/serve/paged_kv.py`` (without its tensor-parallel
-``mesh`` branches):
+Port of ``kuberay_tpu/serve/paged_kv.py``:
 
 - one flat physical pool per layer, head-major ``[L, Hkv, num_blocks *
   block_size, D]``, so one page of one kv head is a contiguous run; a
@@ -20,7 +19,11 @@ Port of ``kuberay_tpu/serve/paged_kv.py`` (without its tensor-parallel
 - prefix caching is block-aligned and read-only: a shared block is never
   a write target, so no copy-on-write is needed;
 - the block allocator is host-side Python (refcounts, free list, LRU
-  reuse of refcount-0 cached blocks), copied whole from the JAX package.
+  reuse of refcount-0 cached blocks), copied whole from the JAX package;
+- under a serving ``layout`` (tensor parallelism, ``serve/sharding.py``)
+  the pool holds the rank's kv heads, ``[L, Hkv_local, P, D]``, and the
+  tables are replicated (the position axis is unsplit, so every table is
+  valid on every rank): every decode kernel reads only local heads.
 """
 
 from __future__ import annotations
@@ -222,12 +225,14 @@ class BlockAllocator:
 # ---------------------------------------------------------------------------
 
 def init_paged_cache(cfg, num_blocks: int, block_size: int,
-                     quant: str = "none", device="cuda") -> Dict:
+                     quant: str = "none", device="cuda",
+                     n_kv_heads: Optional[int] = None) -> Dict:
     """Flat physical pool, head-major: [L, Hkv, num_blocks * block_size, D]
     in ``cfg.dtype``; with ``quant="int8"`` each of "k"/"v" is {"q": int8
-    [L, Hkv, P, D], "s": float32 [L, Hkv, P]}."""
-    shape = (cfg.n_layers, cfg.n_kv_heads, num_blocks * block_size,
-             cfg.head_dim)
+    [L, Hkv, P, D], "s": float32 [L, Hkv, P]}.  ``n_kv_heads``: Hkv where
+    not the model's (a tp rank's local heads)."""
+    shape = (cfg.n_layers, n_kv_heads or cfg.n_kv_heads,
+             num_blocks * block_size, cfg.head_dim)
     if quant == "int8":
         def leaf():
             return {"q": torch.zeros(shape, dtype=torch.int8, device=device),
@@ -292,7 +297,7 @@ def _scatter(pool, rows, phys):
     pool[:, phys] = rows.transpose(0, 1).to(pool.dtype)
 
 
-def make_paged_forward(block_size: int, base_forward=None):
+def make_paged_forward(block_size: int, base_forward=None, layout=None):
     """Paged counterpart of ``forward_with_cache`` for a fixed block size.
 
     The returned ``fwd(cfg, params, tokens, cache, block_tables, start,
@@ -304,7 +309,8 @@ def make_paged_forward(block_size: int, base_forward=None):
     each live block has one writer and prefix-shared blocks are never
     written.  Decode (T == 1) hands the raw pool and tables to the paged
     kernel; prefill gathers per-request views after the write and runs the
-    dense masked attention on them.
+    dense masked attention on them.  ``layout``: a tp rank's serving
+    layout, passed to the base forward (the pool holds local heads).
     """
     base = base_forward or forward_with_cache
 
@@ -331,12 +337,13 @@ def make_paged_forward(block_size: int, base_forward=None):
         return base(cfg, params, tokens, cache, start, write_mask,
                     token_mask=token_mask, logits_index=logits_index,
                     kv_update=kv_update,
-                    attention=decode if T == 1 else None)
+                    attention=decode if T == 1 else None, layout=layout)
 
     return fwd
 
 
-def make_paged_quant_forward(block_size: int, base_forward=None):
+def make_paged_quant_forward(block_size: int, base_forward=None,
+                             layout=None):
     """int8 paged pool: quantise-on-write scatter, and per-request
     gathered int8 views read by the dense int8 attention (the decode
     kernel and ``_cached_attention_quant_multi``).  The JAX package's
@@ -374,6 +381,6 @@ def make_paged_quant_forward(block_size: int, base_forward=None):
                     token_mask=token_mask, logits_index=logits_index,
                     kv_update=kv_update,
                     attention=decode if T == 1
-                    else _cached_attention_quant_multi)
+                    else _cached_attention_quant_multi, layout=layout)
 
     return fwd

@@ -43,6 +43,9 @@ Run:  python -m kuberay_tpu_torch.serve.server --model llama3_8b
           [--checkpoint-dir DIR [--checkpoint-step N]]
           [--app-name NAME] [--coordinator URL|auto
           [--config-from-coordinator [--config-wait S]]]
+          [--tp N [--dist-backend nccl|gloo] [--dist-port P]
+           [--group-miss-timeout S] [--group-step-timeout S]
+           [--group-compile-timeout S] [--group-budget-multiplier X]]
 
 ``--paged`` serves from the paged KV pool with prefix caching
 (``serve/paged_engine.py``), ``--host-blocks`` / ``--spill-blocks`` add
@@ -60,10 +63,26 @@ error.  With ``--coordinator`` the app reports RUNNING to the head's
 coordinator once its socket is bound and STOPPED before it drains;
 ``--config-from-coordinator`` first reads the app's block of the
 submitted serve config (the TpuService's ``serveConfig``), which
-overrides the flags.  Config keys for features the port lacks are
-refused, naming their ROADMAP item: ``tp`` > 1 and ``group_*``
-(multi-host and tensor-parallel serving, A9); so is a slice of more than
-one process (A9).
+overrides the flags.  ``decode_impl`` other than ``auto`` (as a flag
+or a config key) is refused: the port has one decode path.
+
+Tensor parallelism (``--tp``, one process a card): every process of the
+slice runs the same command with the worker env (``TPU_WORKER_ID``,
+``TPU_WORKER_HOSTNAMES``, or ``TPU_NUM_PROCESSES``; the card is
+``LOCAL_RANK``), which joins them into one process group
+(``train/launcher.py::initialize_distributed``); tp must equal the
+group's size.  Each rank builds the serving mesh, its shards of the
+params (seeded, or its chunks of ``--checkpoint-dir``) and of the cache.
+Rank 0 serves HTTP through ``serve/multihost.py``'s lockstep engine and
+listens for the followers' heartbeats on ``TPU_GROUP_HEALTH_PORT``
+(``serve/group_health.py``); every other rank prints ``serve follower i/n
+ready``, beats rank 0 and replays its device calls until STOP.  A follower
+that dies or wedges degrades the group: ``/healthz`` and pending requests
+answer 503, and the app reports DEGRADED to the coordinator (retried until
+delivered).  At shutdown rank 0 drains, ends its engine loop, then
+broadcasts STOP; a follower waits for it through a SIGTERM.  The KV tiers
+and the ``/v1/kv/*`` block transfer are refused under tp > 1 (ROADMAP
+A9b).
 """
 
 from __future__ import annotations
@@ -113,9 +132,12 @@ def render_stats(stats: Dict[str, Any]) -> str:
 
 
 class ServeFrontend:
-    def __init__(self, engine: ServeEngine, max_queue: int = 256):
+    def __init__(self, engine: ServeEngine, max_queue: int = 256,
+                 monitor=None, on_degraded=None):
         self.engine = engine
         self.max_queue = max_queue
+        self.monitor = monitor               # GroupMonitor (rank 0) or None
+        self._on_degraded_cb = on_degraded   # e.g. the coordinator report
         self._degraded: Optional[str] = None
         self._lock = threading.Lock()
         self._waiters: Dict[str, threading.Event] = {}
@@ -131,6 +153,9 @@ class ServeFrontend:
         self._stats = {"requests": 0, "completed": 0, "rejected": 0,
                        "tokens_out": 0, "failed_degraded": 0}
         engine.token_callback = self._on_tokens
+        if monitor is not None and hasattr(engine, "attach_monitor"):
+            engine.attach_monitor(monitor)
+            monitor.on_degraded = self._handle_degraded
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="serve-engine-loop")
         self._thread.start()
@@ -141,8 +166,10 @@ class ServeFrontend:
             return self._degraded
 
     def _handle_degraded(self, reason: str) -> None:
-        """One-way: stop admitting and fail every pending waiter (an
-        immediate 503 beats a client-timeout hang)."""
+        """One-way: stop admitting, fail every pending waiter (an immediate
+        503 beats a client-timeout hang) and surface it.  In a tp group the
+        engine-loop thread may stay stuck inside a dead collective; the
+        recovery is the whole group's replacement, not in-process repair."""
         with self._lock:
             if self._degraded is not None:
                 return
@@ -150,8 +177,20 @@ class ServeFrontend:
             waiters = list(self._waiters.values())
             self._waiters.clear()
             self._stats["failed_degraded"] += len(waiters)
+        # The engine (its STOP broadcast is skipped) and the monitor (so
+        # /stats' group view agrees) learn it too, also when the signal
+        # came from an engine exception rather than the watchdog.
+        if hasattr(self.engine, "group_failed"):
+            self.engine.group_failed = True
+        if self.monitor is not None:
+            self.monitor.mark_degraded(reason)
         for ev in waiters:
             ev.set()                       # submit() sees no result -> None
+        if self._on_degraded_cb is not None:
+            try:
+                self._on_degraded_cb(reason)
+            except Exception:
+                traceback.print_exc(file=sys.stderr)
 
     def _loop(self):
         while not self._stop.is_set():
@@ -317,6 +356,8 @@ class ServeFrontend:
             degraded = self._degraded
         if degraded is not None:
             out["degraded"] = degraded
+        if self.monitor is not None:
+            out["group"] = self.monitor.status()
         return out
 
     def drain(self, timeout: float = 60.0) -> bool:
@@ -332,8 +373,15 @@ class ServeFrontend:
         return False
 
     def close(self, timeout: Optional[float] = 2.0):
-        """Stop the engine loop."""
+        """Stop the engine loop.  ``timeout=None`` waits until the thread
+        has ended, which a tp group's rank 0 needs before it broadcasts
+        STOP (two threads broadcasting could pair a follower's receive
+        with the wrong send).  A degraded group caps the wait: the loop
+        thread may be pinned inside a dead collective (it is a daemon, and
+        the STOP broadcast is skipped then)."""
         self._stop.set()
+        if self.degraded is not None:
+            timeout = 2.0 if timeout is None else min(timeout, 2.0)
         self._thread.join(timeout=timeout)
 
     # -- HTTP --------------------------------------------------------------
@@ -456,7 +504,9 @@ class ServeFrontend:
                         lambda e: e.import_kv_blocks(prompt, blocks))
                     return self._send(200, counts,
                                       headers=self._load_headers())
-                except NotImplementedError as e:
+                except (NotImplementedError, ValueError) as e:
+                    # A pool format or a layout (tp > 1) without the
+                    # transfer.
                     return self._send(501, {"message": str(e)})
                 except TimeoutError as e:
                     return self._send(503, {"message": str(e)})
@@ -647,10 +697,6 @@ _CONFIG_KEYS = {
 
 def _unported(key: str, val) -> Optional[str]:
     """Why the port cannot honour config ``key`` = ``val``, or None."""
-    if key == "tp" and val > 1:
-        return "tensor-parallel serving is not ported yet (ROADMAP A9)"
-    if key.startswith("group_"):
-        return "multi-host serve groups are not ported yet (ROADMAP A9)"
     if key == "decode_impl" and val != "auto":
         return ("the port has one decode path, its CUDA kernels (auto); "
                 "it has no XLA or Pallas path to choose")
@@ -709,10 +755,33 @@ def main(argv=None):
     import signal
 
     import torch
+    import torch.distributed as dist
 
     from kuberay_tpu_torch.models import llama
+    from kuberay_tpu_torch.serve.group_health import (
+        GroupMonitor,
+        start_heartbeat,
+    )
+    from kuberay_tpu_torch.serve.multihost import (
+        MultihostPagedServeEngine,
+        MultihostServeEngine,
+        follower_loop,
+    )
+    from kuberay_tpu_torch.serve.paged_engine import _TP_BLOCKS
+    from kuberay_tpu_torch.serve.sharding import (
+        SERVE_AXES,
+        init_sharded_params,
+        param_shardings,
+        serve_layout,
+        serve_mesh,
+        tp_factors,
+        validate_tp,
+    )
     from kuberay_tpu_torch.train.checkpoint import load_params_for_serving
-    from kuberay_tpu_torch.train.launcher import WorkerIdentity
+    from kuberay_tpu_torch.train.launcher import (
+        WorkerIdentity,
+        initialize_distributed,
+    )
     from kuberay_tpu_torch.utils.device import resolve_device
 
     ap = argparse.ArgumentParser(prog="kuberay-tpu-torch-serve")
@@ -735,6 +804,10 @@ def main(argv=None):
     ap.add_argument("--spill-blocks", type=int, default=0,
                     help="bounded spill KV tier behind the host tier "
                          "(blocks; 0 = off)")
+    ap.add_argument("--decode-impl", default="auto",
+                    choices=["auto", "pallas", "xla", "pallas_interpret"],
+                    help="decode attention path; the port has one, its "
+                         "CUDA kernels (auto)")
     ap.add_argument("--kv-quant", default="none", choices=["none", "int8"],
                     help="KV cache storage: bf16 (none) or int8 with "
                          "per-position scales")
@@ -747,15 +820,55 @@ def main(argv=None):
                     choices=["none", "int8"],
                     help="W8A16: int8 matmul weights with per-channel "
                          "scales (half the weight bytes)")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor parallelism: one process a card, tp of "
+                         "them (0 = the slice's process count; a slice of "
+                         "several processes implies it).  Every process of "
+                         "the slice runs this same command; the worker env "
+                         "(TPU_WORKER_ID, TPU_WORKER_HOSTNAMES) joins them "
+                         "into one group and ranks > 0 become lockstep "
+                         "followers")
+    ap.add_argument("--group-miss-timeout", type=float,
+                    default=float(os.environ.get(
+                        "TPU_GROUP_MISS_TIMEOUT", "10")),
+                    help="seconds of missed follower heartbeats before "
+                         "the group degrades")
+    ap.add_argument("--group-step-timeout", type=float,
+                    default=float(os.environ.get(
+                        "TPU_GROUP_STEP_TIMEOUT", "60")),
+                    help="cold-start device-step budget; after ~20 "
+                         "observed steps the watchdog switches to an "
+                         "adaptive budget (multiplier x rolling p99, "
+                         "floored at the miss timeout)")
+    ap.add_argument("--group-compile-timeout", type=float,
+                    default=float(os.environ.get(
+                        "TPU_GROUP_COMPILE_TIMEOUT", "900")),
+                    help="budget for an op's first step (kernel builds)")
+    ap.add_argument("--group-budget-multiplier", type=float,
+                    default=float(os.environ.get(
+                        "TPU_GROUP_BUDGET_MULTIPLIER", "20")),
+                    help="adaptive budget = this x rolling p99 step "
+                         "time")
+    ap.add_argument("--dist-backend", default="", choices=("", "nccl",
+                                                           "gloo"),
+                    help="backend of a multi-process slice's model "
+                         "collectives (default: nccl on the card, gloo on "
+                         "the cpu; given on a single host, a group of "
+                         "one); gloo on the card stages them through "
+                         "pinned host buffers, so ranks can share a card")
+    ap.add_argument("--dist-port", type=int, default=0,
+                    help="port of the process group's rendezvous on "
+                         "worker 0 (default: the coordinator port)")
     ap.add_argument("--app-name", default="llm",
                     help="the serve application's name")
     ap.add_argument("--coordinator", default="",
                     help="the head coordinator's URL, or auto (from "
                          "TPU_COORDINATOR_ADDRESS): the app reports "
-                         "RUNNING and STOPPED there")
+                         "RUNNING, DEGRADED and STOPPED there")
     ap.add_argument("--checkpoint-dir", default="",
                     help="serve the params of this train checkpoint "
-                         "directory instead of seed 0's random weights")
+                         "directory instead of seed 0's random weights "
+                         "(each rank reads its shards under --tp)")
     ap.add_argument("--checkpoint-step", type=int, default=-1,
                     help="checkpoint step to serve (-1 = latest; 0 is "
                          "a real step)")
@@ -772,25 +885,62 @@ def main(argv=None):
         args.coordinator = dashboard_url(addr) if addr else ""
     if args.config_from_coordinator:
         _apply_coordinator_config(args, ap)
+    why = _unported("decode_impl", args.decode_impl)
+    if why is not None:
+        ap.error(f"--decode-impl {args.decode_impl}: {why}")
+    # Slice identity: the training launcher's env contract.  One process
+    # a card, so tp is the group's size.
     ident = WorkerIdentity.from_env()
-    if ident.is_distributed:
-        raise NotImplementedError(
-            f"a slice of {ident.global_process_count} processes: "
-            f"multi-host serving is not ported yet (ROADMAP A9)")
-    device = resolve_device(args.device)
-
+    world = ident.global_process_count
+    tp = args.tp if args.tp > 0 else world
+    if ident.is_distributed and args.tp == 1:
+        tp = world                     # a multi-process slice implies tp
+    if tp != world:
+        # A group smaller than the slice would leave some processes out
+        # of the plans: they hang in their first collective.
+        ap.error(f"multi-host serving requires tp == total chips "
+                 f"({world}); got --tp {args.tp}. Use --tp 0 (auto)")
+    if tp > 1 and (args.host_blocks > 0 or args.spill_blocks > 0):
+        ap.error(_TP_BLOCKS.format(what="KV tiering (--host-blocks, "
+                                        "--spill-blocks)"))
     cfg = llama.CONFIGS[args.model]
+    try:
+        # Every rank refuses a model the mesh cannot split before the
+        # group's rendezvous.
+        validate_tp(cfg, dict(zip(SERVE_AXES,
+                                  tp_factors(tp, cfg.n_kv_heads))))
+    except ValueError as e:
+        ap.error(str(e))
+    device = resolve_device(args.device)
+    if ident.is_distributed or args.dist_backend:
+        initialize_distributed(ident, args.dist_backend, device,
+                               args.dist_port)
+    grouped = dist.is_initialized()
+    rank = dist.get_rank() if grouped else 0
+    if device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+
+    layout = None
+    if grouped:
+        layout = serve_layout(serve_mesh(tp, n_kv_heads=cfg.n_kv_heads,
+                                         device_type=device.type))
     if args.checkpoint_dir:
         # The train-to-serve handoff.  A missing checkpoint is an error:
         # serving random weights instead would look like a broken model.
         step = None if args.checkpoint_step < 0 else args.checkpoint_step
-        params = load_params_for_serving(args.checkpoint_dir, step=step,
-                                         dtype=cfg.dtype, device=device)
+        params = load_params_for_serving(
+            args.checkpoint_dir, step=step, dtype=cfg.dtype, device=device,
+            shardings=(param_shardings(cfg, layout) if layout is not None
+                       else None))
         if params is None:
             ap.error(f"no checkpoint found in {args.checkpoint_dir}"
                      + (f" at step {step}" if step is not None else ""))
         print(f"restored params from {args.checkpoint_dir} "
               f"(step {'latest' if step is None else step})", flush=True)
+    elif layout is not None:
+        # Drawn straight into this rank's shards: the flagship model does
+        # not fit one card twice.
+        params = init_sharded_params(cfg, 0, layout)
     else:
         gen = torch.Generator(device=device).manual_seed(0)
         params = llama.init_params(cfg, gen, device)
@@ -802,25 +952,91 @@ def main(argv=None):
                      # The tree is handed over: each bf16 leaf is freed
                      # once quantised.
                      donate_params=args.weight_quant != "none",
-                     metrics=MetricsRegistry())
+                     layout=layout)
     if args.paged:
-        engine = PagedServeEngine(cfg, params, num_blocks=args.num_blocks,
-                                  block_size=args.block_size,
-                                  host_blocks=args.host_blocks,
-                                  spill_blocks=args.spill_blocks, **engine_kw)
+        engine_kw.update(num_blocks=args.num_blocks,
+                         block_size=args.block_size,
+                         host_blocks=args.host_blocks,
+                         spill_blocks=args.spill_blocks)
+    # One class pair for both roles: rank 0's and the followers' engines
+    # must match, or the plans' shapes diverge (a hang, not an error).
+    follower_cls, lead_cls = (
+        (PagedServeEngine, MultihostPagedServeEngine) if args.paged
+        else (ServeEngine, MultihostServeEngine))
+    hb_port = int(os.environ.get("TPU_GROUP_HEALTH_PORT",
+                                 C.PORT_GROUP_HEALTH))
+    if rank > 0:
+        # A follower: no frontend and no scheduling; replay rank 0's
+        # device calls until it broadcasts STOP.  Its heartbeat lets rank
+        # 0 detect its death instead of hanging in a collective.
+        engine = follower_cls(cfg, params, **engine_kw)
+        del params
+        host0 = ident.hostnames[0] if ident.hostnames else "127.0.0.1"
+        start_heartbeat(host0, hb_port, rank)
+
+        def _follower_term(signum, frame):
+            # The group stops together: rank 0 drains, then its STOP
+            # plan ends this loop.
+            print("serve follower: SIGTERM — waiting for STOP", flush=True)
+
+        try:
+            signal.signal(signal.SIGTERM, _follower_term)
+        except ValueError:             # not the main thread
+            pass
+        print(f"serve follower {rank}/{world} ready", flush=True)
+        n = follower_loop(engine)
+        print(f"serve follower {rank}/{world}: STOP after {n} device "
+              f"calls", flush=True)
+        dist.destroy_process_group()
+        return
+
+    engine_kw["metrics"] = MetricsRegistry()
+    monitor = None
+    if grouped:
+        engine = lead_cls(cfg, params, **engine_kw)
+        if world > 1:
+            monitor = GroupMonitor(
+                expected=list(range(1, world)),
+                miss_timeout=args.group_miss_timeout,
+                step_timeout=args.group_step_timeout,
+                compile_timeout=args.group_compile_timeout,
+                budget_multiplier=args.group_budget_multiplier)
+            monitor.listen(port=hb_port)
     else:
-        engine = ServeEngine(cfg, params, **engine_kw)
+        engine = follower_cls(cfg, params, **engine_kw)
     del params
-    frontend = ServeFrontend(engine)
+
+    def on_degraded(reason: str) -> None:
+        # The TpuService controller maps a DEGRADED app to its
+        # ServeGroupDegraded condition and replaces the group.  The
+        # transition fires once, so the report retries until delivered.
+        print(f"serve: DEGRADED — {reason}", flush=True)
+        if not args.coordinator:
+            return
+
+        def report_until_delivered():
+            while True:
+                try:
+                    CoordinatorClient(args.coordinator).set_serve_app_status(
+                        args.app_name, "DEGRADED", reason)
+                    return
+                except CoordinatorError:
+                    time.sleep(5.0)
+
+        threading.Thread(target=report_until_delivered, daemon=True,
+                         name="degraded-report").start()
+
+    frontend = ServeFrontend(engine, monitor=monitor, on_degraded=on_degraded)
     srv = frontend.make_server(args.host, args.port)
     if args.coordinator:
         register_with_coordinator(args.app_name, args.coordinator)
     kind = "paged" if args.paged else "dense"
+    tpr = layout.size("tpr") if layout is not None else 1
     print(f"serving {args.model} on {args.host}:{srv.server_address[1]} "
           f"(app {args.app_name}; {device}, {kind} KV cache, kv quant "
           f"{args.kv_quant}, weight quant {args.weight_quant}, prefill "
-          f"chunk {args.prefill_chunk}, speculative {args.speculative})",
-          flush=True)
+          f"chunk {args.prefill_chunk}, speculative {args.speculative}, "
+          f"tp={tp // tpr} x tpr={tpr}, processes {world})", flush=True)
 
     def _on_term(signum, frame):
         # srv.shutdown() must not run on the thread inside serve_forever.
@@ -842,7 +1058,21 @@ def main(argv=None):
         drained = frontend.drain(timeout=60.0)
         srv.server_close()
         print(f"serve: drained={drained}", flush=True)
+        # The loop thread ends before STOP is broadcast: two threads
+        # broadcasting could pair a follower's receive with the wrong
+        # send.
         frontend.close(timeout=None)
+        if isinstance(engine, lead_cls):
+            engine.stop()
+        if monitor is not None:
+            monitor.close()
+    if grouped:
+        if frontend.degraded is not None:
+            # The loop thread may sit in a dead collective, and tearing
+            # the group down could wait on it: leave at once.
+            sys.stdout.flush()
+            os._exit(1)
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

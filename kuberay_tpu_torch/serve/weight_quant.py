@@ -21,14 +21,23 @@ view of the tree that dequantises on access: a stacked leaf one layer at a
 time, as ``forward_with_cache``'s layer loop indexes it, and ``lm_head``
 when the logits read it.  The products stay ``torch.matmul`` on the
 dequantised layer.
+
+Under tensor parallelism each rank quantises its own shards, after
+sharding.  A channel's scale is taken over the contraction axis, and for
+``wo`` and ``w_down`` that axis is the one split over ``(tp, tpr)``: a
+rank's local maximum would give each rank its own scale, another function.
+So their per-channel maxima are all-reduced with MAX over the axes that
+split the contraction first, as the JAX package's max over a sharded axis
+is global.
 """
 
 from __future__ import annotations
 
 from collections.abc import Mapping
-from typing import Any, Dict
+from typing import Any, Callable, Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 # Leaves quantised, by name; everything else (norms, embed) is untouched.
 _QUANT_LEAVES = frozenset({
@@ -36,17 +45,22 @@ _QUANT_LEAVES = frozenset({
 })
 
 
-def _quantize_leaf(w: torch.Tensor) -> Dict[str, torch.Tensor]:
+def _quantize_leaf(w: torch.Tensor, reduce_amax: Optional[Callable] = None
+                   ) -> Dict[str, torch.Tensor]:
     """Per-output-channel symmetric int8, scaled over the contraction axis
     only (``w.ndim - 2`` in the ``x @ w`` layout): a leaf stacked over
     layers keeps one scale row per layer.  A stacked leaf is quantised one
     layer at a time (the same numbers: the reduction never crosses the
-    stack axis), so the float32 temporaries are one layer's."""
+    stack axis), so the float32 temporaries are one layer's.
+    ``reduce_amax``: the maxima's all-reduce over the ranks that split the
+    contraction axis, where a tp layout does."""
     if w.ndim > 2:
-        parts = [_quantize_leaf(w[i]) for i in range(w.shape[0])]
+        parts = [_quantize_leaf(w[i], reduce_amax) for i in range(w.shape[0])]
         return {k: torch.stack([p[k] for p in parts]) for k in ("q8", "s8")}
     wf = w.float()
     amax = wf.abs().amax(dim=w.ndim - 2, keepdim=True)
+    if reduce_amax is not None:
+        amax = reduce_amax(amax)
     scale = amax.clamp_min(1e-8) / 127.0
     q = torch.clamp(torch.round(wf / scale), -127, 127).to(torch.int8)
     return {"q8": q, "s8": scale}
@@ -56,28 +70,47 @@ def _is_quant_leaf(obj: Any) -> bool:
     return isinstance(obj, dict) and set(obj) == {"q8", "s8"}
 
 
-def quantize_weights(params: Dict[str, Any],
-                     donate: bool = False) -> Dict[str, Any]:
+def _amax_reducer(layout, axes, w: torch.Tensor) -> Optional[Callable]:
+    """The all-reduce (MAX) of a leaf's per-channel maxima over the layout
+    axes that split its contraction axis (``w.ndim - 2``), or None."""
+    if layout is None:
+        return None
+    split = layout.leaf_dims(axes).get(w.ndim - 2)
+    if not split:
+        return None
+    return lambda amax: layout.all_reduce(amax, split, op=dist.ReduceOp.MAX)
+
+
+def quantize_weights(params: Dict[str, Any], donate: bool = False,
+                     layout=None, axes: Optional[Dict[str, Any]] = None
+                     ) -> Dict[str, Any]:
     """The params tree with matmul weights replaced by {"q8": int8, "s8":
     float32 per-channel} pairs, quantised leaf by leaf.  With ``donate``
     the caller hands the tree over: each bf16 leaf is removed from its
     dict once quantised, so it is freed as soon as nothing else holds it
-    (the peak is then the int8 tree plus one leaf, not both trees)."""
-    def walk(node):
+    (the peak is then the int8 tree plus one leaf, not both trees).  A tp
+    rank passes its serving ``layout`` and the model's logical ``axes``
+    (``param_axes``) with its shards: leaves whose contraction axis is
+    split take their maxima over every rank that splits it."""
+    def walk(node, ax):
         if not isinstance(node, dict):
             return node
         out = {}
         for k in list(node):
             v = node[k]
+            sub = ax[k] if ax is not None else None
             if k in _QUANT_LEAVES and not isinstance(v, dict):
-                out[k] = _quantize_leaf(v)
+                out[k] = _quantize_leaf(v, _amax_reducer(layout, sub, v))
                 if donate:
                     del node[k]
                     del v
             else:
-                out[k] = walk(v)
+                out[k] = walk(v, sub)
         return out
-    return walk(params)
+    if layout is not None and axes is None:
+        raise ValueError("quantize_weights under a layout needs the "
+                         "params' logical axes")
+    return walk(params, axes)
 
 
 def _dequant(leaf: Dict[str, torch.Tensor], dtype=torch.bfloat16,

@@ -374,14 +374,17 @@ def restore_latest(directory: str, state: Dict[str, Any], shardings=None
 
 def load_params_for_serving(directory: str, step: Optional[int] = None,
                             dtype: Optional[torch.dtype] = None,
-                            device="cuda") -> Optional[Dict[str, Any]]:
+                            device="cuda", shardings=None
+                            ) -> Optional[Dict[str, Any]]:
     """The ``params`` subtree of a train checkpoint, for the serve path.
 
     Reads only the params (into host memory, in the saved dtypes), casts
     on the host to ``dtype`` when given, then places the tree on
-    ``device``.  Returns None when ``directory`` does not exist (it is not
-    created) or holds no committed step, or when ``step`` is given and not
-    there."""
+    ``device``.  ``shardings`` (a tree of ``spmd.LeafSpec``, e.g.
+    ``serve/sharding.py::param_shardings``): this rank's shards only, the
+    leaves read one at a time, so the host holds one whole leaf at most.
+    Returns None when ``directory`` does not exist (it is not created) or
+    holds no committed step, or when ``step`` is given and not there."""
     dev = resolve_device(device)
     steps = _committed_steps(directory)
     if not steps:
@@ -397,16 +400,21 @@ def load_params_for_serving(directory: str, step: Optional[int] = None,
         keys = fqn.split(".")
         if keys[0] != "params":
             continue
-        node = params
+        spec = shardings
+        for k in keys[1:]:
+            spec = spec[k] if spec is not None else None
+        leaf = {}
+        node = leaf
         for k in keys[1:-1]:
             node = node.setdefault(k, {})
         node[keys[-1]] = torch.empty(md.size, dtype=md.properties.dtype)
-    dcp.load({"params": params}, storage_reader=dcp.FileSystemReader(path),
-             no_dist=True)
-
-    def place(tree):
-        if isinstance(tree, dict):
-            return {k: place(v) for k, v in tree.items()}
-        return tree.to(dtype=dtype or tree.dtype).to(dev)
-
-    return place(params)
+        dcp.load({"params": leaf}, storage_reader=dcp.FileSystemReader(path),
+                 no_dist=True)
+        t = node[keys[-1]]
+        if spec is not None:
+            t = spec.shard(t)
+        node = params
+        for k in keys[1:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = t.to(dtype=dtype or t.dtype).to(dev)
+    return params

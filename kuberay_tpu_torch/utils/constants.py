@@ -17,3 +17,4 @@ PORT_DASHBOARD = 8265           # runtime dashboard / job API
 PORT_METRICS = 8080             # Prometheus metrics on every node
 PORT_SERVE = 8000               # inference HTTP
 PORT_MXLA = 8081                # multi-process coordinator on worker 0
+PORT_GROUP_HEALTH = 8090        # serve-group heartbeat listener (rank 0)

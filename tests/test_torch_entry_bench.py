@@ -10,8 +10,9 @@ vs the coordinator's.
   ``llama_tiny`` here (a ``llama_1b`` forward at 1 x 512 is a card's
   work; ``chip_smoke.py``'s ``entry`` phase runs it there), tokens 1 x 512,
   float32, within 1e-5.
-- ``dryrun_multichip(8, device="cpu")`` prints every ported block's line
-  (and none for the pipeline and serving blocks, A11 and A9).
+- ``dryrun_multichip(8, device="cpu")`` prints every ported block's line,
+  tensor-parallel serving over 4 of the ranks (tp=2 x tpr=2) among them
+  (and none for the pipeline block, A11).
 - ``ProfileHook`` answers as ``CoordinatorServer``'s hook over start →
   second start → stop → stop, a timer that fires after a newer capture
   began (the generation mismatch), a timer that stops its own capture,
@@ -103,9 +104,10 @@ def test_dryrun_multichip_prints_every_ported_block(capfd):
     for pat in (r"dryrun_multichip ok: mesh dp=2 fsdp=2 tp=2 loss=\d",
                 r"dryrun sp ok: ring attention over sp=8",
                 r"dryrun ep ok: MoE over ep=2",
-                r"dryrun multislice ok: 2 slices x 4 ranks .* loss=\d"):
+                r"dryrun multislice ok: 2 slices x 4 ranks .* loss=\d",
+                r"dryrun serve ok: tp=2 x tpr=2 engine generated 4 tokens"):
         assert len(re.findall(pat, out)) == 1, (pat, out)
-    assert "dryrun pp ok" not in out and "dryrun serve ok" not in out
+    assert "dryrun pp ok" not in out
 
 
 class _Clock:

@@ -189,3 +189,36 @@ def test_layout_modules_catch_nothing():
         tree = ast.parse((ROOT / name).read_text())
         assert not [n for n in ast.walk(tree)
                     if isinstance(n, ast.Try) and n.handlers], name
+
+
+TP_SERVING_MODULES = ("kuberay_tpu_torch/serve/sharding.py",
+                      "kuberay_tpu_torch/serve/multihost.py",
+                      "kuberay_tpu_torch/serve/group_health.py",
+                      "kuberay_tpu_torch/utils/quantiles.py")
+
+
+def test_scan_covers_the_tp_serving_modules_and_their_worker():
+    """The tensor-parallel serving modules are in the scan, and their test
+    worker imports nothing of JAX or the JAX package either."""
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    assert set(TP_SERVING_MODULES) <= names
+    tree = ast.parse((ROOT / "tests/torch_tp_serve_worker.py").read_text())
+    assert not [m for m in _imported_modules(tree)
+                if m.split(".")[0] in FORBIDDEN]
+
+
+def test_tp_serving_paths_catch_nothing():
+    """No ``except`` in the sharding and the lockstep engines: a failed
+    collective or broadcast raises to the frontend, which degrades the
+    group (no fallback to tp=1 or to the CPU)."""
+    for name in TP_SERVING_MODULES[:2]:
+        tree = ast.parse((ROOT / name).read_text())
+        assert not [n for n in ast.walk(tree)
+                    if isinstance(n, ast.Try) and n.handlers], name
+
+
+def test_tp_server_raises_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("TPU_WORKER_HOSTNAMES", "a,b")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        server.main(["--model", "llama_tiny", "--port", "0", "--tp", "2"])

@@ -13,8 +13,11 @@ the coordinator, vs the JAX server, on ``llama_tiny``.
   paged pool, speculation, int8 weights, checkpoint: the JAX engine's
   int8-weight tokens on the same checkpoint); every ``_CONFIG_KEYS`` coercion
   or choice error, and the wait's and the missing coordinator's, is the
-  JAX server's text; each key the port cannot honour is refused, naming
-  its ROADMAP item.
+  JAX server's text; ``tp`` and the ``group_*`` keys are honoured as the
+  JAX server honours them; ``decode_impl`` other than ``auto`` is refused
+  (the port has one decode path).  A slice of several processes is taken
+  (``tests/test_torch_multihost_serve.py`` serves one), and a tp other
+  than its size is refused with the JAX server's text.
 """
 
 import argparse
@@ -224,10 +227,17 @@ def test_missing_checkpoint_is_a_usage_error(tmp_path, handoff, capsys):
     assert "at step 7" in capsys.readouterr().err
 
 
-def test_server_refuses_a_slice_of_many_processes(monkeypatch):
+def test_server_refuses_a_slice_of_many_processes(monkeypatch, capsys):
+    """A slice of two processes serves tp=2 (it is taken: the group's
+    rendezvous would follow), but not a tp other than its size, which the
+    JAX server refuses with the same text."""
     monkeypatch.setenv("TPU_WORKER_HOSTNAMES", "a,b")
-    with pytest.raises(NotImplementedError, match="A9"):
-        server.main(["--model", "llama_tiny", "--device", "cpu"])
+    with pytest.raises(SystemExit) as e:
+        server.main(["--model", "llama_tiny", "--device", "cpu",
+                     "--tp", "4"])
+    assert e.value.code == 2
+    assert ("multi-host serving requires tp == total chips (2); got --tp "
+            "4. Use --tp 0 (auto)") in capsys.readouterr().err
 
 
 class _ApError(Exception):
@@ -290,10 +300,6 @@ def test_wait_and_missing_coordinator_give_the_jax_text(coordinator):
 
 
 @pytest.mark.parametrize("key,value,item", [
-    ("tp", 2, "A9"), ("tp", 8, "A9"),
-    ("group_miss_timeout", 10.0, "A9"), ("group_step_timeout", 60.0, "A9"),
-    ("group_compile_timeout", 900.0, "A9"),
-    ("group_budget_multiplier", 20.0, "A9"),
     ("decode_impl", "xla", "one decode path"),
     ("decode_impl", "pallas", "one decode path"),
     ("decode_impl", "pallas_interpret", "one decode path"),
@@ -309,6 +315,22 @@ def test_unported_keys_are_refused_naming_their_item(key, value, item,
     ref = _apply(jserver._apply_coordinator_config, coordinator, app,
                  {key: value})
     assert ref[key] == value
+
+
+@pytest.mark.parametrize("key,value", [
+    ("tp", 2), ("tp", 8), ("tp", 0),
+    ("group_miss_timeout", 10.0), ("group_step_timeout", 60.0),
+    ("group_compile_timeout", 900.0), ("group_budget_multiplier", 20.0)])
+def test_tp_and_group_keys_are_honoured_as_the_jax_server_does(
+        key, value, coordinator):
+    """A TpuService's tensor parallelism and group-health overrides reach
+    the port's args as they reach the JAX server's."""
+    app = f"tp-{key}-{value}"
+    ours = _apply(server._apply_coordinator_config, coordinator, app,
+                  {key: value})
+    ref = _apply(jserver._apply_coordinator_config, coordinator, app,
+                 {key: value})
+    assert ours == ref and ours[key] == value
 
 
 @pytest.mark.parametrize("key,value", [("host_blocks", 64),

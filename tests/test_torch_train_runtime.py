@@ -54,7 +54,7 @@ STEPS, INTERRUPT_AT = 5, 3
 
 def test_constants_are_the_jax_packages():
     names = [n for n in dir(TC) if n.isupper()]
-    assert len(names) == 12
+    assert len(names) == 13
     for n in names:
         assert getattr(TC, n) == getattr(JC, n), n
 
