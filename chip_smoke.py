@@ -38,8 +38,9 @@
    Llama-3-8B head layout (32 / 8) at S 1024, a ragged S (1000), Skv > Sq,
    D 64 with group 1 (llama_125m), S 960 (which the forward's 128-row
    tile does not divide, the backward's 64-row q steps do), group 8 at D
-   64, and the ring's two block shapes (B 2, shards of 1024, llama_1b's
-   heads; causal on the diagonal, not causal on past blocks): out and lse
+   64, the ring's two block shapes (B 2, shards of 1024, llama_1b's
+   heads; causal on the diagonal, not causal on past blocks) and a
+   pipeline stage's microbatch (B 1, S 2048, 16 / 8): out and lse
    (atol 1e-4) of the forward, and dQ/dK/dV for a seeded dO, against the
    plain versions, each
    bf16 element within one ulp of its own value plus 2^-5 of its row's
@@ -187,6 +188,28 @@
    503 within TP_MISS + 5 s and the pending request 503 (every wait
    bounded).  The ranks' launches go into ``launches_by_path`` as
    ``serve_tp``.
+   The KV tiers and the block transfer under tp (``serve_tp_tiers``):
+   the server as two ranks at ``--tp 2 --paged --num-blocks 192
+   --host-blocks 512`` on gloo (rank 0 holds the tier store; every block
+   copy is a plan the follower replays, its kv heads gathered to or
+   scattered from rank 0 through the host), through ``serve_tiers``'
+   waves on serve_tp's paged prompts: the first wave, the warm wave,
+   requests of 48 decode steps until no demotion is queued, an evicting
+   wave of 6 prompts of 1200 tokens, the first wave again, which must
+   promote from the host tier, prefill fewer tokens than the first wave
+   and give the warm wave's tokens; every token within the no-cache
+   recompute's margin of the whole tree.  Then a one-process paged
+   replica with the same tiers: a prompt handed from the group to the
+   replica and one from the replica to the group over ``/v1/kv/*`` (each
+   receiver's prefix hits cover the imported blocks, its tokens pass the
+   recompute), and the group's export of a third prompt held to the
+   replica's export of it and to a float32 forward's K/V of it, layer by
+   layer, within 20% of the layer's largest |value| (sound bf16 exports
+   read under 5%, a head in the wrong place or missing about 100%).  The follower must replay every plan rank 0
+   broadcast (the block plans among them), both ranks launch 65
+   RMSNorms a forward and 32 paged decode attentions a decode step;
+   prints the demotion, promotion, export and import ms a block (rank
+   0's, host-staged) beside the card's name and power limit.
 4. Train: runs the launcher (``kuberay_tpu_torch.train.launcher.main``)
    on llama_1b at full width and depth, batch 4 x 2048, 8 steps, bf16
    masters, on the synthetic shard; then 8 steps of make_train_step on
@@ -267,7 +290,20 @@
    rank launches 8 flash forwards, 4 dK/dV, 4 dQ and 17 RMSNorms a
    step.  Prints each rank's peak memory, the step times, the launches
    and the readings.
-8. Prints each phase's wall seconds and the total, then the kernels'
+8. ``pipeline``: ``parallel/pipeline.py::pipeline_apply`` over llama_1b's
+   16 layers (``llama._layer``) at full width as 2 stages of 8, one
+   process a stage sharing the card over gloo (the hops through pinned
+   host memory), B 4 x S 2048 in 4 microbatches, bf16, forward and
+   backward of ``(out.float() ** 2).sum()``: each rank's output bit for
+   bit the same layers applied microbatch by microbatch in its process,
+   its stage's gradients within 2^-7 in norm of that run's (the other
+   stage's rows zero), 32 flash forwards, 32 dK/dV, 32 dQ and 64
+   RMSNorms a rank a step; prints the launches and step ms.
+   ``bench_profile``: ``python -m kuberay_tpu_torch.bench --profile-out
+   PATH`` as a process: its stdout line with the bench's keys, and a
+   ``tpu-profile/v1`` document with one ``train`` record a timed step,
+   each of ``dispatch`` and ``host-fetch``, and the bench's meta.
+9. Prints each phase's wall seconds and the total, then the kernels'
    JSON line, and as the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -278,6 +314,7 @@ raises and exits non-zero.
 from __future__ import annotations
 
 import argparse
+import base64
 import contextlib
 import dataclasses
 import gc
@@ -509,13 +546,13 @@ def within_local(rec: dict) -> bool:
 
 def check_rmsnorm(gen: torch.Generator) -> dict:
     """RMSNorm at decode (8 rows), ragged and prefill row counts of the 8B
-    serving path, llama_1b's at entry() (512 rows) and at mesh_train's
-    halved batch (4096 rows), and llama_1b's training shape (4 x 2048
-    rows of 2048)."""
+    serving path, llama_1b's at entry() (512 rows), at a pipeline
+    microbatch (2048 rows) and at mesh_train's halved batch (4096 rows),
+    and llama_1b's training shape (4 x 2048 rows of 2048)."""
     shapes = []
     for rows, d in ((1, D_MODEL), (8, D_MODEL), (300, D_MODEL),
-                    (2048, D_MODEL), (512, 2048), (4096, 2048),
-                    (8192, 2048)):
+                    (2048, D_MODEL), (512, 2048), (2048, 2048),
+                    (4096, 2048), (8192, 2048)):
         # Uniform inputs keep |y| < 4, where one bf16 ulp is <= 1/64.
         x = (torch.rand(rows, d, generator=gen, device="cuda") * 2 - 1
              ).bfloat16()
@@ -959,9 +996,10 @@ def check_paged(gen: torch.Generator) -> dict:
 # (name, B, Sq, Skv, Hq, Hkv, D, causal); the first is the training path's
 # shape; "entry" is entry()'s forward; "mesh_rows" and "mesh_tp2" are
 # mesh_train's local shapes (dp=2 or fsdp=2: half the rows; tp=2: half
-# the heads); the last two are the ring's blocks (long-context training
-# calls the backward pair on each: causal on the diagonal, not causal on
-# past blocks).
+# the heads); "ring_diag" and "ring_past" are the ring's blocks
+# (long-context training calls the backward pair on each: causal on the
+# diagonal, not causal on past blocks); "pipeline_mb" is a pipeline
+# stage's microbatch (B 4 in 4 microbatches of 1).
 FLASH_SHAPES = (("llama_1b", 4, 2048, 2048, 16, 8, 128, True),
                 ("llama3_8b_heads", 1, 1024, 1024, 32, 8, 128, True),
                 ("ragged", 2, 1000, 1000, 16, 8, 128, True),
@@ -975,7 +1013,8 @@ FLASH_SHAPES = (("llama_1b", 4, 2048, 2048, 16, 8, 128, True),
                 ("mesh_rows", 2, 2048, 2048, 16, 8, 128, True),
                 ("mesh_tp2", 4, 2048, 2048, 8, 4, 128, True),
                 ("ring_diag", 2, 1024, 1024, 16, 8, 128, True),
-                ("ring_past", 2, 1024, 1024, 16, 8, 128, False))
+                ("ring_past", 2, 1024, 1024, 16, 8, 128, False),
+                ("pipeline_mb", 1, 2048, 2048, 16, 8, 128, True))
 
 
 def visible_pairs(B, Sq, Skv, Hq, causal=True) -> int:
@@ -2289,6 +2328,45 @@ def serve_tiers(cfg, params, smi: str, seed: int = 5) -> dict:
     return out
 
 
+def handoff(src_url: str, dst_url: str, prompt, dst_stats) -> dict:
+    """The gateway's two hops from ``src`` to ``dst``
+    (kuberay_tpu/serve/gateway.py's two-hop forward): the prompt on src for
+    one token, ``resident`` on dst, ``export`` on src past the resident
+    blocks, ``import`` on dst, then the prompt and its first token on dst
+    (``body``).  ``dst_stats()`` reads dst's engine stats."""
+    t0 = time.perf_counter()
+    _, _, hop1, _ = post_json(src_url, "/v1/completions", {
+        "prompt_tokens": prompt, "max_tokens": 1})
+    hop1_s = time.perf_counter() - t0
+    _, _, res, _ = post_json(dst_url, "/v1/kv/resident",
+                             {"prompt_tokens": prompt})
+    t1 = time.perf_counter()
+    _, _, exp, nbytes = post_json(src_url, "/v1/kv/export", {
+        "prompt_tokens": prompt, "skip_blocks": res["resident_blocks"],
+        "max_blocks": 0})
+    t2 = time.perf_counter()
+    _, _, imp, _ = post_json(dst_url, "/v1/kv/import", {
+        "prompt_tokens": prompt, "blocks": exp["blocks"]})
+    t3 = time.perf_counter()
+    hits0 = dst_stats()["prefix_hit_tokens"]
+    body = {"prompt_tokens": prompt + hop1["tokens"],
+            "max_tokens": MAX_TOKENS - 1}
+    _, headers, dec, _ = post_json(dst_url, "/v1/completions", body)
+    handoff_s = time.perf_counter() - t0
+    sent = len(exp["blocks"])
+    return {"prompt_len": len(prompt), "blocks": len(prompt) // BLOCK_SIZE,
+            "resident": res["resident_blocks"], "sent": sent,
+            "import": imp, "export_bytes": nbytes,
+            "export_http_ms_per_block": (t2 - t1) * 1e3 / max(1, sent),
+            "import_http_ms_per_block": (t3 - t2) * 1e3 / max(1, sent),
+            "decode_hits": dst_stats()["prefix_hit_tokens"] - hits0,
+            "handoff_s": handoff_s, "prefill_hop_s": hop1_s,
+            "hop1_ttft_ms": hop1["ttft_ms"], "body": body,
+            "tokens": hop1["tokens"] + dec["tokens"],
+            "load_headers": {k: v for k, v in headers.items()
+                             if k.startswith("X-TPU-")}}
+
+
 def serve_disagg(cfg, params, smi: str, seed: int = 6) -> dict:
     """The disaggregated prefill -> decode handoff at llama3_8b: two
     PagedServeEngines sharing one params tree, each behind its own
@@ -2322,52 +2400,19 @@ def serve_disagg(cfg, params, smi: str, seed: int = 6) -> dict:
     try:
         reset_counts()
         for prompt in prompts:
-            total = len(prompt) // BLOCK_SIZE
-            t0 = time.perf_counter()
-            _, _, hop1, _ = post_json(pf, "/v1/completions", {
-                "prompt_tokens": prompt, "max_tokens": 1})
-            hop1_s = time.perf_counter() - t0
-            tok0 = hop1["tokens"]
-            _, _, res, _ = post_json(de, "/v1/kv/resident",
-                                     {"prompt_tokens": prompt})
-            resident = res["resident_blocks"]
-            t1 = time.perf_counter()
-            _, _, exp, nbytes = post_json(pf, "/v1/kv/export", {
-                "prompt_tokens": prompt, "skip_blocks": resident,
-                "max_blocks": 0})
-            t2 = time.perf_counter()
-            _, _, imp, _ = post_json(de, "/v1/kv/import", {
-                "prompt_tokens": prompt, "blocks": exp["blocks"]})
-            t3 = time.perf_counter()
-            hits0 = fes["decode"].call_engine(
-                lambda e: e.stats["prefix_hit_tokens"])
-            body = {"prompt_tokens": prompt + tok0,
-                    "max_tokens": MAX_TOKENS - 1}
-            _, headers, dec, _ = post_json(de, "/v1/completions", body)
-            handoff_s = time.perf_counter() - t0
-            hits = fes["decode"].call_engine(
-                lambda e: e.stats["prefix_hit_tokens"]) - hits0
-            _, _, own, _ = post_json(pf, "/v1/completions", body)
+            row = handoff(pf, de, prompt, lambda: fes["decode"].call_engine(
+                lambda e: dict(e.stats)))
+            _, _, own, _ = post_json(pf, "/v1/completions", row.pop("body"))
             _, _, res2, _ = post_json(de, "/v1/kv/resident",
                                       {"prompt_tokens": prompt})
             _, _, exp2, _ = post_json(pf, "/v1/kv/export", {
                 "prompt_tokens": prompt,
                 "skip_blocks": res2["resident_blocks"]})
-            sent = len(exp["blocks"])
-            rows.append({
-                "prompt_len": len(prompt), "blocks": total,
-                "resident": resident, "sent": sent, "import": imp,
-                "export_bytes": nbytes,
-                "export_http_ms_per_block": (t2 - t1) * 1e3 / max(1, sent),
-                "import_http_ms_per_block": (t3 - t2) * 1e3 / max(1, sent),
-                "decode_hits": hits, "handoff_s": handoff_s,
-                "prefill_hop_s": hop1_s, "hop1_ttft_ms": hop1["ttft_ms"],
-                "tokens": tok0 + dec["tokens"],
-                "equals_prefill_replica": dec["tokens"] == own["tokens"],
-                "second": {"resident": res2["resident_blocks"],
-                           "sent": len(exp2["blocks"])},
-                "load_headers": {k: v for k, v in headers.items()
-                                 if k.startswith("X-TPU-")}})
+            row.update(equals_prefill_replica=row["tokens"][1:]
+                       == own["tokens"],
+                       second={"resident": res2["resident_blocks"],
+                               "sent": len(exp2["blocks"])})
+            rows.append(row)
         launches = serve_counts()
         stats = {k: fe.stats() for k, fe in fes.items()}
     finally:
@@ -3543,15 +3588,17 @@ TP_SHARED, TP_SHARED_SUFFIXES, TP_OTHER_LENS = 256, (7, 33, 100, 200), \
 TP_MISS = 5.0
 TP_WEIGHT_RTOL = 0.01
 # A serving rank as ``python -c``: the server's main, its kernel launch
-# counts, the bytes of the shards it drew and its peak memory printed at
-# exit.
+# counts, the bytes of the shards it drew, its peak memory, the plans it
+# broadcast by op and its block copies' (count, ms) printed at exit: a
+# demotion pump's blocks taken off the queue, a promotion's blocks, an
+# export's records, an import's blocks, each timed to a device sync.
 SERVE_TP_RANK = (
-    "import atexit, json, runpy, torch\n"
+    "import atexit, json, runpy, time, numpy as np, torch\n"
     "from kuberay_tpu_torch.ops import decode_attention as da\n"
     "from kuberay_tpu_torch.ops import paged_attention as pa\n"
     "from kuberay_tpu_torch.ops import rmsnorm as rn\n"
-    "from kuberay_tpu_torch.serve import sharding\n"
-    "held = {}\n"
+    "from kuberay_tpu_torch.serve import multihost, paged_engine, sharding\n"
+    "held = {'plans': {}, 'tier_ms': {}}\n"
     "def nbytes(t):\n"
     "    if isinstance(t, dict):\n"
     "        return sum(nbytes(v) for v in t.values())\n"
@@ -3561,12 +3608,34 @@ SERVE_TP_RANK = (
     "    held['weight_bytes'] = nbytes(params)\n"
     "    return params\n"
     "sharding.init_sharded_params = init\n"
+    "def send(self, _real=multihost.MultihostServeEngine._send, **u):\n"
+    "    op = str(int(np.asarray(u['op']).ravel()[0]))\n"
+    "    held['plans'][op] = held['plans'].get(op, 0) + 1\n"
+    "    return _real(self, **u)\n"
+    "multihost.MultihostServeEngine._send = send\n"
+    "def timed(name, cls=paged_engine.PagedServeEngine):\n"
+    "    real = getattr(cls, name)\n"
+    "    def wrapper(self, *a, **k):\n"
+    "        t0 = time.perf_counter()\n"
+    "        out = real(self, *a, **k)\n"
+    "        torch.cuda.synchronize()\n"
+    "        n = len(out) if isinstance(out, list) else \\\n"
+    "            out['imported'] if isinstance(out, dict) else out\n"
+    "        if n:\n"
+    "            held['tier_ms'].setdefault(name, []).append(\n"
+    "                [n, (time.perf_counter() - t0) * 1e3])\n"
+    "        return out\n"
+    "    setattr(cls, name, wrapper)\n"
+    "for name in ('_pump_demotions', '_promote_from_tiers',\n"
+    "             'export_kv_blocks', 'import_kv_blocks'):\n"
+    "    timed(name)\n"
     "atexit.register(lambda: print('rank stats ' + json.dumps({\n"
     "    'launches': {'rmsnorm': rn.launches,\n"
     "                 'decode_attention': da.launches,\n"
     "                 'decode_attention_quant': da.launches_quant,\n"
     "                 'paged_decode_attention': pa.launches},\n"
     "    'weight_bytes': held.get('weight_bytes'),\n"
+    "    'plans': held['plans'], 'tier_ms': held['tier_ms'],\n"
     "    'peak_memory_gb': torch.cuda.max_memory_allocated() / 1e9}),\n"
     "    flush=True))\n"
     "runpy.run_module('kuberay_tpu_torch.serve.server', run_name='__main__',\n"
@@ -3950,6 +4019,519 @@ def serve_tp(cfg, params, smi: str, serve_run: dict, decode_res: dict,
             "killed_follower": killed, "launches": launches}
 
 
+# The KV tiers and the block transfer under tp (serve_tp_tiers): a pool of
+# TPT_BLOCKS blocks a rank holds the first wave whole (serve_tp's paged
+# prompts and their decode blocks take about 124); a host tier of
+# TPT_HOST blocks on rank 0; an evicting wave of TPT_EVICT_LENS prompts of
+# one new token each (450 blocks); TPT_PUMP_TOKENS decode steps a request
+# that drains the queued demotions (4 a step); handoff prompts of
+# TPT_HANDOFF_LENS tokens.  A group's export of a prompt is held to the
+# one-process replica's export of the same prompt, and to a float32
+# forward's K/V of it, layer by layer: the largest difference within
+# TPT_EXPORT_MARGIN of the layer's largest |value|.  Sound bf16 exports
+# read up to 0.049 against float32 and each other, the one-process
+# replica's as far from float32 as the group's, both growing with depth
+# from 0.004 at layer 0; the group's kv heads joined in the wrong mesh
+# order read 1.23 to 1.61 at every layer, one rank's heads missing 0.88
+# to 1.0 (NVIDIA H100 80GB HBM3, 700 W).  The limit sits about 4x above
+# the one and below the other.
+TPT_BLOCKS, TPT_HOST = 192, 512
+TPT_EVICT_LENS = (1200,) * 6
+TPT_PUMP_TOKENS = 48
+TPT_HANDOFF_LENS = (700, 600, 500)
+TPT_EXPORT_MARGIN = 0.2
+
+
+def tpt_first_wave(cfg, rng) -> list:
+    """serve_tp's paged prompts drawn from ``rng``: 4 sharing a
+    TP_SHARED-token prefix, then 4 others."""
+    prefix = rng.integers(0, cfg.vocab_size, TP_SHARED).tolist()
+    return ([prefix + rng.integers(0, cfg.vocab_size, n).tolist()
+             for n in TP_SHARED_SUFFIXES]
+            + [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in TP_OTHER_LENS])
+
+
+def serve_first_wave(url: str, prompts, pinned: bool = True) -> list:
+    """A first wave's greedy tokens.  ``pinned``: the first prompt alone,
+    then the other seven together, so the shared prefix's K/V always come
+    from the first prompt's prefill (else from whichever request the
+    engine admits first, in other shapes that round otherwise)."""
+    if not pinned:
+        return [b["tokens"] for b in post_all(url, prompts, MAX_TOKENS)]
+    return [b["tokens"] for b in post_all(url, prompts[:1], MAX_TOKENS)
+            + post_all(url, prompts[1:], MAX_TOKENS)]
+
+
+def wire_blocks(blocks, cfg) -> np.ndarray:
+    """[n, 2, L, Hkv, block_size, D] float32 of ``/v1/kv/export``
+    records."""
+    shape = (cfg.n_layers, cfg.n_kv_heads, BLOCK_SIZE, cfg.head_dim)
+    return np.stack([np.stack([np.frombuffer(base64.b64decode(b[n]), "<f4")
+                               .reshape(shape) for n in ("k", "v")])
+                     for b in blocks])
+
+
+def layer_ratio(got: np.ndarray, ref: np.ndarray) -> list:
+    """Per layer (axis 2 of [n, 2, L, ...]), the largest |got - ref| over
+    the layer's largest |ref|."""
+    return [float(np.abs(got[:, :, l] - ref[:, :, l]).max()
+                  / np.abs(ref[:, :, l]).max())
+            for l in range(got.shape[2])]
+
+
+def export_pair(group_url: str, replica_url: str, prompt) -> list:
+    """The prompt prefilled on each side (one token), its blocks exported
+    from each: the two lists of wire records, the group's first."""
+    exports = []
+    for url in (group_url, replica_url):
+        post_json(url, "/v1/completions", {"prompt_tokens": prompt,
+                                           "max_tokens": 1})
+        _, _, exp, _ = post_json(url, "/v1/kv/export",
+                                 {"prompt_tokens": prompt})
+        exports.append(exp["blocks"])
+    if [b["hash"] for b in exports[0]] != [b["hash"] for b in exports[1]] \
+            or len(exports[0]) != len(prompt) // BLOCK_SIZE:
+        raise AssertionError("the two exports hold other blocks")
+    return exports
+
+
+class Widened:
+    """A stacked layer leaf whose ``[i]`` is layer i in float32, for
+    ``forward_with_cache``'s loop (one layer widened at a time)."""
+
+    def __init__(self, t: torch.Tensor):
+        self.t = t
+
+    def __getitem__(self, i):
+        return self.t[i].float()
+
+
+def float32_kv(cfg, params, prompt, n_blocks: int) -> np.ndarray:
+    """[n_blocks, 2, L, Hkv, block_size, D]: the K/V of the prompt's first
+    ``n_blocks`` blocks from one float32 forward of the whole tree (the
+    bf16 weights widened a layer at a time, float32 activations and
+    cache, TF32 off): what an engine without rounding would export."""
+    T = n_blocks * BLOCK_SIZE
+    L, hkv, D = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    cache = {n: torch.zeros(L, 1, T, hkv, D, dtype=torch.float32,
+                            device="cuda") for n in ("k", "v")}
+    wide = dict(params, embed=params["embed"].float(),
+                final_norm=params["final_norm"].float(),
+                layers={k: Widened(v) for k, v in params["layers"].items()})
+    with torch.no_grad():
+        forward_with_cache(cfg, wide, torch.tensor([prompt[:T]],
+                                                   device="cuda"),
+                           cache, torch.zeros(1, dtype=torch.long,
+                                              device="cuda"),
+                           logits_index=torch.tensor([T - 1],
+                                                     device="cuda"))
+    kv = torch.stack([cache["k"][:, 0], cache["v"][:, 0]])  # [2, L, T, H, D]
+    kv = kv.reshape(2, L, n_blocks, BLOCK_SIZE, hkv, D)
+    out = kv.permute(2, 0, 1, 4, 3, 5).contiguous().cpu().numpy()
+    del cache, wide, kv
+    torch.cuda.empty_cache()
+    return out
+
+
+def export_witness(cfg, params, prompt, exports) -> dict:
+    """The group's export (``exports[0]``) against the replica's and
+    against ``float32_kv``, the replica's against ``float32_kv``, layer
+    by layer; and what two faults would read against the replica: the
+    group's kv heads joined in the wrong mesh order, and tp index 1's
+    heads missing (zeros)."""
+    got, rep = (wire_blocks(e, cfg) for e in exports)
+    exact = float32_kv(cfg, params, prompt, got.shape[0])
+    half = cfg.n_kv_heads // 2
+    swapped = np.concatenate([got[:, :, :, half:], got[:, :, :, :half]], 3)
+    zeroed = got.copy()
+    zeroed[:, :, :, half:] = 0
+    rows = {"group_vs_replica": layer_ratio(got, rep),
+            "group_vs_float32": layer_ratio(got, exact),
+            "replica_vs_float32": layer_ratio(rep, exact),
+            "swapped_vs_replica": layer_ratio(swapped, rep),
+            "zeroed_vs_replica": layer_ratio(zeroed, rep)}
+    return {"blocks": got.shape[0], "margin": TPT_EXPORT_MARGIN,
+            "worst": {k: max(v) for k, v in rows.items()},
+            "least": {k: min(v) for k, v in rows.items()},
+            "norm_rel": float(np.linalg.norm(got - rep)
+                              / np.linalg.norm(rep)),
+            "layer_ratio": rows}
+
+
+def per_block_ms(pairs) -> float | None:
+    """Milliseconds a block over (blocks, ms) records."""
+    n = sum(b for b, _ in pairs)
+    return sum(ms for _, ms in pairs) / n if n else None
+
+
+def serve_tp_tiers(cfg, params, smi: str, seed: int = 10) -> dict:
+    """llama3_8b's KV tiers and block transfer under tp: the server as two
+    ranks at ``--tp 2 --paged --host-blocks`` sharing this card over gloo,
+    seed 0's weights drawn into each rank's shards (``params`` is the
+    whole tree, for the recompute and the one-process replica).
+    ``serve_tiers``' waves: the first wave (serve_tp's paged prompts, 4
+    sharing a 256-token prefix; the first prompt alone, then the other
+    seven together), the same wave while its blocks are on
+    the card, requests of TPT_PUMP_TOKENS steps until no demotion is
+    queued, an evicting wave that leaves none of the first wave's blocks
+    on the card, the first wave again.  The repeat must promote from the
+    host tier, prefill fewer tokens than the first wave, and give the
+    warm wave's tokens; every wave's tokens pass the no-cache recompute of
+    the whole tree.  Then the handoff over ``/v1/kv/*`` both ways with a
+    one-process paged replica with the same tiers (each receiver's prefix
+    hits cover the imported blocks, its tokens pass the recompute), and
+    the group's export of a third prompt against the replica's export of
+    it and against a float32 forward's K/V of it (TPT_EXPORT_MARGIN;
+    ``export_witness`` also reads the replica against float32 and two
+    faults against the replica).  The follower replays every plan rank 0
+    broadcast, the block plans among them; both ranks launch 65 RMSNorms
+    a forward and 32 paged decode attentions a decode step.  Prints the
+    demotion, promotion, export and import ms a block (rank 0's, host
+    staged) and the follower's replay count."""
+    flags = ("--paged", "--block-size", str(BLOCK_SIZE), "--num-blocks",
+             str(TPT_BLOCKS), "--host-blocks", str(TPT_HOST))
+    rng = np.random.default_rng(seed)
+    prompts = tpt_first_wave(cfg, rng)
+    evict = [rng.integers(0, cfg.vocab_size, n).tolist()
+             for n in TPT_EVICT_LENS]
+    x, y, z = (rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in TPT_HANDOFF_LENS)
+    replica = PagedServeEngine(cfg, params, max_slots=SLOTS,
+                               max_len=MAX_LEN, block_size=BLOCK_SIZE,
+                               num_blocks=TPT_BLOCKS, host_blocks=TPT_HOST,
+                               device="cuda")
+    fe = ServeFrontend(replica)
+    rsrv, rurl = fe.serve_background("127.0.0.1", 0)
+    g = ServeGroup(2, "gloo", *flags)
+    waves = {}
+    try:
+        start_s = g.ready()
+        reset_counts()
+
+        def gstats():
+            return g.get("/stats")[1]
+
+        def resident():
+            return [post_json(g.url, "/v1/kv/resident",
+                              {"prompt_tokens": p})[2]["resident_blocks"]
+                    for p in prompts]
+
+        for name in ("first", "warm"):
+            before = gstats()
+            t0 = time.perf_counter()
+            tokens = serve_first_wave(g.url, prompts, name == "first")
+            waves[name] = {"wall_s": time.perf_counter() - t0,
+                           "tokens": tokens,
+                           "prefilled": prefilled(gstats())
+                           - prefilled(before),
+                           "resident_blocks": resident()}
+        pumps = 0
+        while gstats()["pending_demotions"] and pumps < 4:
+            post_all(g.url, [prompts[0][:7]], TPT_PUMP_TOKENS)
+            pumps += 1
+        drained = gstats()
+        post_all(g.url, evict, 1)
+        waves["evict"] = {"resident_blocks": resident(),
+                          "host_blocks_used": gstats()["host_blocks_used"]}
+        before = gstats()
+        t0 = time.perf_counter()
+        tokens = [b["tokens"] for b in post_all(g.url, prompts, MAX_TOKENS)]
+        after = gstats()
+        waves["repeat"] = {
+            "wall_s": time.perf_counter() - t0, "tokens": tokens,
+            "prefilled": prefilled(after) - prefilled(before),
+            "tier_fetch_blocks": after["tier_fetch_blocks"]
+            - before["tier_fetch_blocks"]}
+        to_replica = handoff(g.url, rurl, x, fe.stats)
+        to_group = handoff(rurl, g.url, y, gstats)
+        for row in (to_replica, to_group):
+            del row["body"]
+        exports = export_pair(g.url, rurl, z)
+        final = gstats()
+        replica_launches = serve_counts()
+        replica_stats = fe.stats()
+        rcs = g.stop()
+    finally:
+        g.kill()
+        rsrv.shutdown()
+        rsrv.server_close()
+        fe.close()
+    print(g.tail(), flush=True)
+    ranks = [g.rank_stats(r) for r in range(2)]
+    plans = ranks[0]["plans"]
+    replayed = sum(n for op, n in plans.items() if op != "0")
+    failures = []
+    if rcs != [0, 0] or "serve: drained=True" not in g.lines[0]:
+        failures.append(f"exit codes {rcs}")
+    if f"serve follower 1/2: STOP after {replayed} device calls" not in \
+            g.lines[1]:
+        failures.append(f"the follower did not replay {replayed} plans")
+    blocks = {"read": plans.get("4", 0), "write": plans.get("5", 0)}
+    if not blocks["read"] or not blocks["write"]:
+        failures.append(f"no block plans: {plans}")
+    if drained["pending_demotions"]:
+        failures.append(f"demotions still queued: {drained}")
+    if any(waves["evict"]["resident_blocks"]):
+        failures.append(f"first-wave blocks left on the card: "
+                        f"{waves['evict']}")
+    rep, first, warm = waves["repeat"], waves["first"], waves["warm"]
+    if rep["tier_fetch_blocks"] <= 0 or \
+            rep["prefilled"] >= first["prefilled"]:
+        failures.append(f"no promotion: {rep} (first wave prefilled "
+                        f"{first['prefilled']})")
+    if rep["tokens"] != warm["tokens"]:
+        failures.append("the promoted repeat's tokens are not the warm "
+                        "wave's")
+    calls = final["prefills"] + final["decode_steps"] + final["verify_steps"]
+    want = {"decode_attention": 0, "decode_attention_quant": 0,
+            "paged_decode_attention": cfg.n_layers * final["decode_steps"],
+            "rmsnorm": (2 * cfg.n_layers + 1) * calls}
+    for r, rs in enumerate(ranks):
+        if rs["launches"] != want:
+            failures.append(f"rank {r} launches {rs['launches']} != {want}")
+    for name, row in (("to_replica", to_replica), ("to_group", to_group)):
+        if row["sent"] != row["blocks"] - row["resident"] or \
+                row["import"]["imported"] != row["sent"] or \
+                row["decode_hits"] < row["blocks"] * BLOCK_SIZE:
+            failures.append(f"handoff {name}: {row}")
+    diff = export_witness(cfg, params, z, exports)
+    del exports
+    for k in ("group_vs_replica", "group_vs_float32"):
+        if not diff["worst"][k] <= TPT_EXPORT_MARGIN:
+            failures.append(f"the group's export left the other's ({k}): "
+                            f"{diff['worst']}")
+    # The repeat's tokens are the warm wave's (held above): two waves.
+    checks = {w: [check_against_recompute(cfg, params, p, t)
+                  for p, t in zip(prompts, waves[w]["tokens"])]
+              for w in ("first", "repeat")}
+    for row, p in ((to_replica, x), (to_group, y)):
+        row["recompute_check"] = check_against_recompute(
+            cfg, params, p, row.pop("tokens"))
+    tier_ms = ranks[0]["tier_ms"]
+    out = {"flags": list(flags), "start_s": start_s, "pumps": pumps,
+           "waves": {k: {kk: vv for kk, vv in v.items() if kk != "tokens"}
+                     for k, v in waves.items()},
+           "ms_per_block": {
+               "demotion": per_block_ms(tier_ms.get("_pump_demotions", [])),
+               "promotion": per_block_ms(tier_ms.get("_promote_from_tiers",
+                                                     [])),
+               "export": per_block_ms(tier_ms.get("export_kv_blocks", [])),
+               "import": per_block_ms(tier_ms.get("import_kv_blocks", []))},
+           "tier_ms": tier_ms, "plans": plans, "block_plans": blocks,
+           "follower_replayed": replayed, "device_calls": calls,
+           "handoffs": {"to_replica": to_replica, "to_group": to_group},
+           "export": diff, "engine": final,
+           "replica_engine": replica_stats,
+           "decode_step_ms": 1e3 * final["decode_s"] / final["decode_steps"],
+           "peak_memory_gb": [rs["peak_memory_gb"] for rs in ranks],
+           "recompute_check": {
+               w: {"tokens": sum(c["tokens"] for c in cs),
+                   "argmax_agree": sum(c["argmax_agree"] for c in cs),
+                   "gap_over_margin": [c["max_gap"] / c["margin"]
+                                       for c in cs]}
+               for w, cs in checks.items()},
+           "launches": {k: sum(rs["launches"][k] for rs in ranks)
+                        + replica_launches[k] for k in want},
+           "card": smi}
+    print(f"serve_tp_tiers [{smi}]: " + json.dumps(
+        {k: out[k] for k in ("start_s", "pumps", "waves", "ms_per_block",
+                             "plans", "follower_replayed", "handoffs",
+                             "decode_step_ms", "peak_memory_gb",
+                             "recompute_check")})
+          + "; export " + json.dumps(
+              {k: v for k, v in diff.items() if k != "layer_ratio"}),
+          flush=True)
+    if failures:
+        raise AssertionError(f"serve_tp_tiers: {failures}")
+    del replica
+    torch.cuda.empty_cache()
+    return out
+
+
+# Pipeline parallelism (pipeline_phase): llama_1b's 16 layers at full
+# width as two stages of 8, one process a stage sharing this card over
+# gloo (the hops staged through pinned host memory), B 4 x S 2048 in 4
+# microbatches of 1, bf16; a warm-up step, then the timed and counted one.
+# Each rank then applies all 16 layers microbatch by microbatch in its own
+# process (the reference): the output bit for bit, its stage's gradients
+# of (out.float() ** 2).sum() within PP_GRAD_NORM of the reference's in
+# norm, leaf by leaf.
+PP_STAGES, PP_MICRO, PP_B, PP_S = 2, 4, 4, 2048
+PP_GRAD_NORM = 2 ** -7
+PP_RANK = (
+    "import json, sys, time, torch, torch.distributed as dist\n"
+    "from kuberay_tpu_torch.models import llama\n"
+    "from kuberay_tpu_torch.ops import attention as fa\n"
+    "from kuberay_tpu_torch.ops import rmsnorm as rn\n"
+    "from kuberay_tpu_torch.ops.rope import rope_frequencies\n"
+    "from kuberay_tpu_torch.parallel import spmd\n"
+    "from kuberay_tpu_torch.parallel.mesh import MeshSpec\n"
+    "from kuberay_tpu_torch.parallel.pipeline import pipeline_apply\n"
+    "rank, world, port, n_micro, B, S = (int(a) for a in sys.argv[1:7])\n"
+    "torch.backends.cuda.matmul.allow_tf32 = False\n"
+    "torch.cuda.set_device(0)\n"
+    "dist.init_process_group('gloo', init_method=f'tcp://127.0.0.1:{port}',\n"
+    "                        rank=rank, world_size=world)\n"
+    "mesh = MeshSpec(pp=world, fsdp=1).build('cuda')\n"
+    "cfg = llama.CONFIGS['llama_1b']\n"
+    "params = llama.init_params(\n"
+    "    cfg, torch.Generator(device='cuda').manual_seed(0), 'cuda')\n"
+    "tokens = torch.randint(0, cfg.vocab_size, (B, S), device='cuda',\n"
+    "    generator=torch.Generator(device='cuda').manual_seed(1))\n"
+    "with torch.no_grad():\n"
+    "    x = params['embed'][tokens]\n"
+    "cos, sin = rope_frequencies(cfg.head_dim, S, cfg.rope_theta, 'cuda')\n"
+    "def layer(h, lp):\n"
+    "    return llama._layer(cfg, h, lp, cos, sin)\n"
+    "def fresh():\n"
+    "    return {k: v.detach().clone().requires_grad_(True)\n"
+    "            for k, v in params['layers'].items()}\n"
+    "def counts():\n"
+    "    return {'flash_fwd': fa.fwd_launches,\n"
+    "            'flash_bwd_dkv': fa.bwd_dkv_launches,\n"
+    "            'flash_bwd_dq': fa.bwd_dq_launches, 'rmsnorm': rn.launches}\n"
+    "def step(stack):\n"
+    "    out = pipeline_apply(layer, stack, x, mesh, n_microbatches=n_micro)\n"
+    "    (out.float() ** 2).sum().backward()\n"
+    "    return out.detach()\n"
+    "step(fresh())\n"
+    "stack = fresh()\n"
+    "torch.cuda.synchronize()\n"
+    "fa.fwd_launches = fa.bwd_dkv_launches = fa.bwd_dq_launches = 0\n"
+    "rn.launches = 0\n"
+    "t0 = time.perf_counter()\n"
+    "out = step(stack)\n"
+    "torch.cuda.synchronize()\n"
+    "step_ms = (time.perf_counter() - t0) * 1e3\n"
+    "launches = counts()\n"
+    "dist.barrier()\n"
+    "ref_stack, outs = fresh(), []\n"
+    "mb = B // n_micro\n"
+    "for m in range(n_micro):\n"
+    "    h = x[m * mb:(m + 1) * mb]\n"
+    "    for i in range(cfg.n_layers):\n"
+    "        h = layer(h, {k: v[i] for k, v in ref_stack.items()})\n"
+    "    outs.append(h)\n"
+    "ref = torch.cat(outs)\n"
+    "(ref.float() ** 2).sum().backward()\n"
+    "per = cfg.n_layers // world\n"
+    "rows = slice(rank * per, (rank + 1) * per)\n"
+    "grad_rel = {k: ((stack[k].grad[rows].float() - ref_stack[k].grad[rows]\n"
+    "                 .float()).norm() / ref_stack[k].grad[rows].float()\n"
+    "                 .norm()).item() for k in stack}\n"
+    "others_zero = all(not bool(torch.cat([stack[k].grad[:rows.start],\n"
+    "    stack[k].grad[rows.stop:]]).any()) for k in stack)\n"
+    "print('rank result ' + json.dumps({\n"
+    "    'rank': rank, 'step_ms': step_ms, 'launches': launches,\n"
+    "    'out_bits_equal': bool(torch.equal(out, ref)),\n"
+    "    'out_finite': bool(torch.isfinite(out).all()),\n"
+    "    'out_max_abs_diff': (out.float() - ref.float()).abs().max().item(),\n"
+    "    'grad_rel': grad_rel, 'other_stage_grads_zero': others_zero,\n"
+    "    'staged': spmd.layout_of(mesh).host_staged,\n"
+    "    'peak_memory_gb': torch.cuda.max_memory_allocated() / 1e9}),\n"
+    "    flush=True)\n"
+    "dist.destroy_process_group()\n")
+
+
+def pipeline_phase(smi: str) -> dict:
+    """``parallel/pipeline.py::pipeline_apply`` on this card: llama_1b's
+    layers (``llama._layer``) at full width and depth as PP_STAGES stages
+    of 8, one process a stage over gloo, B PP_B x S PP_S in PP_MICRO
+    microbatches, bf16, forward and backward of (out.float() ** 2).sum().
+    Each rank: its output bit for bit the same layers applied microbatch
+    by microbatch in one process, its stage's gradients within
+    PP_GRAD_NORM in norm of that run's (the other stage's rows zero), and
+    per step 2 x 4 = 8 layer-microbatches' flash forwards, dK/dV and dQ
+    each, and two RMSNorms each.  Prints the launches and step ms."""
+    torch.cuda.empty_cache()
+    port = free_port()
+    clean = {k: v for k, v in os.environ.items()
+             if not k.startswith(("TPU_", "MEGASCALE_"))}
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", PP_RANK, str(r), str(PP_STAGES), str(port),
+         str(PP_MICRO), str(PP_B), str(PP_S)], cwd=ROOT,
+        env={**clean, "PYTHONPATH": str(ROOT)}, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(PP_STAGES)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            p.kill()
+    wall_s = time.perf_counter() - t0
+    ranks = []
+    for p, out in zip(procs, outs):
+        lines = [ln for ln in out.splitlines()
+                 if ln.startswith("rank result ")]
+        if p.returncode != 0 or not lines:
+            raise AssertionError(f"pipeline rank rc {p.returncode}:\n"
+                                 f"{out[-6000:]}")
+        ranks.append(json.loads(lines[-1][len("rank result "):]))
+    per = llama.CONFIGS["llama_1b"].n_layers // PP_STAGES * PP_MICRO
+    want = {"flash_fwd": per, "flash_bwd_dkv": per, "flash_bwd_dq": per,
+            "rmsnorm": 2 * per}
+    run = {"stages": PP_STAGES, "microbatches": PP_MICRO,
+           "shape": [PP_B, PP_S], "wall_s": wall_s, "ranks": ranks,
+           "launches_per_rank": want,
+           "launches": {k: sum(r["launches"][k] for r in ranks)
+                        for k in want},
+           "card": smi}
+    print(f"pipeline [{smi}]: " + json.dumps(run), flush=True)
+    bad = [r["rank"] for r in ranks
+           if r["launches"] != want or not r["out_bits_equal"]
+           or not r["out_finite"] or not r["other_stage_grads_zero"]
+           or not r["staged"]
+           or not max(r["grad_rel"].values()) <= PP_GRAD_NORM]
+    if bad:
+        raise AssertionError(f"pipeline: ranks {bad} failed: {run}")
+    return run
+
+
+def bench_profile(smi: str) -> dict:
+    """``python -m kuberay_tpu_torch.bench --profile-out PATH`` as a
+    process: its stdout line has the bench's keys, and the document is
+    ``tpu-profile/v1`` with one ``train`` record a timed step, each
+    holding ``dispatch`` and ``host-fetch``, and the bench's meta."""
+    torch.cuda.empty_cache()
+    path = Path(tempfile.mkdtemp(prefix="bench-profile-")) / "profile.json"
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "kuberay_tpu_torch.bench",
+                          "--profile-out", str(path)], cwd=ROOT,
+                         capture_output=True, text=True, timeout=600)
+    wall_s = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"bench --profile-out: rc {out.returncode}\n"
+                             f"{out.stdout}\n{out.stderr[-4000:]}")
+    line = json.loads(out.stdout.strip().splitlines()[-1])
+    doc = json.loads(path.read_text())
+    shutil.rmtree(path.parent, ignore_errors=True)
+    d = line["detail"]
+    train = doc.get("shapes", {}).get("train", {})
+    kinds = train.get("kinds", {})
+    run = {"line": line, "wall_s": wall_s, "meta": doc.get("meta"),
+           "traces": train.get("traces"),
+           "kinds": {k: {kk: v[kk] for kk in ("count", "mean_s", "p50_s",
+                                              "fraction")}
+                     for k, v in kinds.items()},
+           "step_ms": d["batch"] * d["seq"] / line["value"] * 1e3,
+           "card": smi}
+    print(f"bench_profile: {json.dumps(run)}", flush=True)
+    meta_want = {"source": "kuberay_tpu_torch.bench", "model": "llama_1b",
+                 "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": d["steps"],
+                 "device": torch.cuda.get_device_name(0)}
+    if set(line) != BENCH_KEYS or set(d) != BENCH_DETAIL_KEYS or \
+            doc.get("schema") != "tpu-profile/v1" or \
+            doc.get("meta") != meta_want or train.get("traces") != d["steps"] \
+            or set(kinds) != {"dispatch", "host-fetch"} or \
+            any(k["count"] != d["steps"] for k in kinds.values()) or \
+            f"profile -> {path}" not in out.stderr:
+        raise AssertionError(f"bench --profile-out: {run}")
+    return run
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -4059,6 +4641,7 @@ def main(argv=None) -> None:
                                     params, smi)
     prof = timed("profile", profile_phase, cfg, params, smi)
     stp = timed("serve_tp", serve_tp, cfg, params, smi, srv, decode_res)
+    stt = timed("serve_tp_tiers", serve_tp_tiers, cfg, params, smi)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -4074,6 +4657,8 @@ def main(argv=None) -> None:
     handoff = timed("train_to_serve", train_to_serve, smi, steady_ms)
     ent = timed("entry", entry_phase, smi)
     mesh = timed("mesh_train", mesh_train, smi)
+    pipe = timed("pipeline", pipeline_phase, smi)
+    bprof = timed("bench_profile", bench_profile, smi)
     mesh_launches = {}
     for run in mesh["runs"].values():
         for rank in run["launches"]:
@@ -4088,7 +4673,9 @@ def main(argv=None) -> None:
                "train_ckpt": handoff["launcher"]["launches"],
                "serve_ckpt": handoff["server"]["launches"],
                "profile": prof["launches"], "entry": ent["launches"],
-               "mesh_train": mesh_launches, "serve_tp": stp["launches"]}
+               "mesh_train": mesh_launches, "serve_tp": stp["launches"],
+               "serve_tp_tiers": stt["launches"],
+               "pipeline": pipe["launches"]}
 
     def entry(name, route, source, replaces, res):
         m = res["main"]
@@ -4150,6 +4737,7 @@ def main(argv=None) -> None:
         "train": trn, "train_ring": trn_ring,
         "train_to_serve": handoff, "bench": bnch, "entry": ent,
         "mesh_train": mesh, "profile": prof, "serve_tp": stp,
+        "serve_tp_tiers": stt, "pipeline": pipe, "bench_profile": bprof,
         "walls_s": walls,
         **kernels}, indent=1))
     walls["total"] = time.perf_counter() - smoke_t0

@@ -1,6 +1,6 @@
 """Benchmark: training throughput of the flagship stack on one card.
 
-    python -m kuberay_tpu_torch.bench [--cpu] [--op]
+    python -m kuberay_tpu_torch.bench [--cpu] [--op] [--profile-out PATH]
 
 The counterpart of the JAX package's ``bench.py``: prints one JSON line,
 ``{"metric", "value", "unit", "vs_baseline", "detail"}`` with the same
@@ -17,6 +17,14 @@ keys.
   ``BENCH_REMAT_POLICY=dots`` as in the JAX bench.
 - ``--cpu``: ``llama_tiny`` at 2 x 128, 3 steps, on the CPU (the plain
   paths; the JAX bench's smoke mode); runs only when asked.
+- ``--profile-out PATH``: each timed step is also fenced by its loss's
+  host fetch and recorded as a ``train-step`` trace (``obs/trace.py``'s
+  ``Tracer``) with two spans, ``dispatch`` (the step's call returning)
+  and ``host-fetch`` (the loss's ``.item()``, where the device's time
+  lands); the ``tpu-profile/v1`` document of those traces
+  (``obs/profile.py::profile_spans``, shape ``train``, with the run's
+  model, batch, seq, steps and device as ``meta``) is written to PATH,
+  as the JAX bench writes it.  The stdout line is the same.
 - ``--op``: the port's ``flash_attention`` forward against SDPA at B 4,
   S 2048, 16/8 heads of 128, causal, bf16 (20 chained calls between CUDA
   events after a warm-up); ``vs_baseline`` is SDPA's time over the
@@ -35,12 +43,15 @@ import json
 import os
 import sys
 import time
+from pathlib import Path
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from kuberay_tpu_torch.models import llama
+from kuberay_tpu_torch.obs.profile import profile_spans
+from kuberay_tpu_torch.obs.trace import Tracer
 from kuberay_tpu_torch.ops.attention import flash_attention
 from kuberay_tpu_torch.train.train_step import (
     TrainConfig,
@@ -68,29 +79,54 @@ def peak_tflops(name: str) -> Optional[float]:
     return None
 
 
-def _step_times_ms(step, state, batch, steps: int, device):
+def _step_times_ms(step, state, batch, steps: int, device,
+                   tracer: Optional[Tracer] = None, model: str = ""):
     """Each step's time (CUDA events on the card, the host clock on the
-    CPU) and the state and metrics after the last."""
-    m = None
-    if device.type != "cuda":
-        dts = []
-        for _ in range(steps):
-            t0 = time.perf_counter()
-            state, m = step(state, batch)
-            float(m["total_loss"])
-            dts.append((time.perf_counter() - t0) * 1e3)
-        return dts, state, m
+    CPU) and the state and metrics after the last.  With ``tracer``, each
+    step is fenced by its loss's host fetch and recorded as a
+    ``train-step`` trace of a ``dispatch`` and a ``host-fetch`` span."""
+    cuda = device.type == "cuda"
     events = [(torch.cuda.Event(enable_timing=True),
-               torch.cuda.Event(enable_timing=True)) for _ in range(steps)]
-    for start, end in events:
-        start.record()
+               torch.cuda.Event(enable_timing=True))
+              for _ in range(steps)] if cuda else []
+    dts, m = [], None
+    for i in range(steps):
+        t0 = time.perf_counter()
+        if cuda:
+            events[i][0].record()
         state, m = step(state, batch)
-        end.record()
-    torch.cuda.synchronize()
-    return [s.elapsed_time(e) for s, e in events], state, m
+        t1 = time.perf_counter()
+        if cuda:
+            events[i][1].record()
+        if tracer is not None or not cuda:
+            m["total_loss"].item()
+        t2 = time.perf_counter()
+        if not cuda:
+            dts.append((t2 - t0) * 1e3)
+        if tracer is not None:
+            ctx = tracer.start_request("train-step", ts=t0, model=model)
+            tracer.record_span(ctx, "dispatch", t0, t1)
+            tracer.record_span(ctx, "host-fetch", t1, t2)
+            tracer.finish_request(ctx, ts=t2)
+    if cuda:
+        torch.cuda.synchronize()
+        dts = [s.elapsed_time(e) for s, e in events]
+    return dts, state, m
 
 
-def bench_train(cpu: bool) -> dict:
+def write_profile(path: str, tracer: Tracer, meta: dict) -> None:
+    """The traces' ``tpu-profile/v1`` document at ``path`` (sorted keys,
+    as the JAX bench writes it)."""
+    doc = profile_spans(tracer.export(), roots={"train-step": "train"},
+                        meta=meta)
+    out = Path(path)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    with open(out, "w") as f:
+        json.dump(doc, f, sort_keys=True)
+    print(f"profile -> {path}", file=sys.stderr)
+
+
+def bench_train(cpu: bool, profile_out: str = "") -> dict:
     device = resolve_device("cpu" if cpu else "cuda")
     model, batch, seq, steps = (("llama_tiny", 2, 128, 3) if cpu
                                 else ("llama_1b", 4, 2048, 10))
@@ -110,13 +146,19 @@ def bench_train(cpu: bool) -> dict:
     data = {"tokens": tokens, "targets": torch.roll(tokens, -1, 1)}
     state, m = step(state, data)                       # warm-up
     float(m["total_loss"])
-    dts, state, m = _step_times_ms(step, state, data, steps, device)
+    tracer = Tracer(max_spans=8192) if profile_out else None
+    dts, state, m = _step_times_ms(step, state, data, steps, device,
+                                   tracer, model)
     dt_step = sorted(dts)[len(dts) // 2] / 1e3
     tok_s = batch * seq / dt_step
     n_params = cfg.num_params()
     flops_per_tok = 6 * n_params + 12 * cfg.n_layers * cfg.d_model * seq
     achieved = tok_s * flops_per_tok / 1e12
     name = "cpu" if cpu else torch.cuda.get_device_name(0)
+    if tracer is not None:
+        write_profile(profile_out, tracer, {
+            "source": "kuberay_tpu_torch.bench", "model": model,
+            "batch": batch, "seq": seq, "steps": steps, "device": name})
     peak = None if cpu else peak_tflops(name)
     mfu = achieved / peak if peak else 0.0
     note = (f"vs_baseline is MFU vs {name}'s dense bf16 peak, {peak} "
@@ -184,8 +226,12 @@ def main(argv=None) -> int:
                     help="llama_tiny smoke on the CPU")
     ap.add_argument("--op", action="store_true",
                     help="flash attention forward vs SDPA on the card")
+    ap.add_argument("--profile-out", default="", metavar="PATH",
+                    help="write the timed steps' tpu-profile/v1 document "
+                         "(dispatch and host-fetch spans a step) to PATH")
     args = ap.parse_args(argv)
-    line = bench_attention_op() if args.op else bench_train(args.cpu)
+    line = bench_attention_op() if args.op else \
+        bench_train(args.cpu, args.profile_out)
     print(json.dumps(line), flush=True)
     return 0
 

@@ -14,11 +14,14 @@
   Then tensor-parallel serving: the first 4 ranks (2 when 4 does not
   divide ``n``) form a group of their own and serve ``llama_tiny`` (2 kv
   heads, so tp=4 is tp=2 x tpr=2) through the lockstep engine
-  (``serve/multihost.py``), rank 0 generating 4 tokens.  Rank 0 prints
-  each block's line.  The pipeline block waits for ROADMAP A11; nothing is
-  printed for it.  NCCL needs a card a rank; ``backend="gloo"`` on the
-  card stages the model's collectives through host memory
-  (``spmd.HostStagedGloo``), but not the sp ring's exchange.
+  (``serve/multihost.py``), rank 0 generating 4 tokens.  When 2 divides
+  ``n``, the pipeline block: a seeded 4-layer ``tanh(h @ w)`` stack
+  through ``parallel/pipeline.py::pipeline_apply`` over pp = 2 (fsdp
+  absorbing the rest), 2 microbatches, as the JAX dry run's.  Rank 0
+  prints each block's line.  NCCL needs a card a rank;
+  ``backend="gloo"`` on the card stages the model's collectives and the
+  pipeline's hops through host memory (``spmd.HostStagedGloo``), but not
+  the sp ring's exchange.
 
     python -m kuberay_tpu_torch.entry [N] [--device cpu]
 """
@@ -38,6 +41,7 @@ import torch.distributed as dist
 from kuberay_tpu_torch.models import llama, mixtral
 from kuberay_tpu_torch.parallel import spmd
 from kuberay_tpu_torch.parallel.mesh import MeshSpec
+from kuberay_tpu_torch.parallel.pipeline import pipeline_apply
 from kuberay_tpu_torch.parallel.ring import ring_attention
 from kuberay_tpu_torch.serve.engine import Request, ServeEngine
 from kuberay_tpu_torch.serve.multihost import (
@@ -171,7 +175,21 @@ def _blocks(rank: int, n: int, port: int, dev, backend: str):
         if not bool(torch.isfinite(out).all()):
             raise AssertionError("non-finite ring attention output")
         say(f"dryrun sp ok: ring attention over sp={n}")
-        # The pipeline block (pp) waits for ROADMAP A11.
+        # The pipeline over pp = 2: the JAX dry run's stack and shapes.
+        pp = 2 if n % 2 == 0 else 1
+        if pp > 1:
+            pp_mesh = MeshSpec(pp=pp, fsdp=-1).build(dev.type)
+            stack = {"w": torch.randn(
+                4, 8, 8, generator=torch.Generator(device=dev).manual_seed(3),
+                device=dev) * 0.3}
+            x = torch.randn(4, 8, device=dev, generator=torch.Generator(
+                device=dev).manual_seed(4))
+            with torch.no_grad():
+                y = pipeline_apply(lambda h, lp: torch.tanh(h @ lp["w"]),
+                                   stack, x, pp_mesh, n_microbatches=2)
+            if not bool(torch.isfinite(y).all()):
+                raise AssertionError("non-finite pipeline output")
+            say(f"dryrun pp ok: {pp}-stage pipeline")
         mcfg = mixtral.CONFIGS["mixtral_tiny"]
         ep = 2 if (mcfg.n_experts % 2 == 0 and n % 2 == 0) else 1
         if ep > 1:

@@ -12,7 +12,8 @@ placements mean for the forward and the gradients (the collectives GSPMD
 inserts in the JAX package) is ``parallel/spmd.py``.
 
 Axis names as in the JAX package: ``dp`` (data parallel), ``pp``
-(pipeline, A11), ``fsdp`` (parameters sharded along ``embed``, gathered
+(pipeline stages, ``parallel/pipeline.py``), ``fsdp`` (parameters sharded
+along ``embed``, gathered
 before use), ``tp`` (tensor parallel: heads, mlp and vocabulary), ``sp``
 (the sequence ring below) and ``ep`` (experts).
 

@@ -31,6 +31,24 @@ them, so the collectives match), and the next tokens reach the followers
 in the next plan.  So the RNG key the JAX plan carries is not needed here,
 nor the sampling parameters.
 
+A paged engine's block copies (the KV tiers' demotion and promotion,
+``/v1/kv/export`` and ``/v1/kv/import``) are plans too.  Rank 0 alone
+holds the tier store and decides which blocks move; its
+``_read_blocks`` / ``_write_blocks`` broadcast ``OP_READ_BLOCKS`` or
+``OP_WRITE_BLOCKS`` with the block ids (at most ``max_blocks`` a plan)
+before touching its own pool:
+
+- read: every rank with ``tpr`` index 0 copies its kv heads of the blocks
+  to the host as float32 (a replica sends zeros: its heads are index 0's),
+  and the plan group gathers them to rank 0, which joins them along the
+  kv-head axis in mesh order: ``[L, Hkv, n * block_size, D]``, the bytes
+  one process reads;
+- write: rank 0 scatters each rank the head slice of its ``tp`` index
+  (every replica the same) and each rank writes it into its pool.
+
+The slices are ``[2, L, Hkv / tp, n * block_size, D]`` on every rank, so
+gloo's equal-size gather and scatter hold.
+
 A group of one broadcasts nothing: the same engine serves a one-rank
 group unchanged.
 """
@@ -38,7 +56,7 @@ group unchanged.
 from __future__ import annotations
 
 import datetime
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -48,6 +66,7 @@ from kuberay_tpu_torch.serve.engine import ServeEngine
 from kuberay_tpu_torch.serve.paged_engine import PagedServeEngine
 
 OP_STOP, OP_PREFILL, OP_DECODE, OP_VERIFY = 0, 1, 2, 3
+OP_READ_BLOCKS, OP_WRITE_BLOCKS = 4, 5
 
 # A follower waits in the plan broadcast for as long as rank 0 is idle, so
 # the plan group's timeout is long; a dead rank 0 closes its sockets and
@@ -70,8 +89,10 @@ def _zero_plan(max_len: int, max_slots: int, gamma: int,
     }
     if max_blocks:
         # Paged engines: rank 0 owns the allocator; followers receive the
-        # block tables with every plan.
+        # block tables with every plan, and a block plan's ids.
         plan["tables"] = np.zeros((max_slots, max_blocks), np.int32)
+        plan["bids"] = np.zeros(max_blocks, np.int32)
+        plan["nbids"] = np.zeros(1, np.int32)
     return plan
 
 
@@ -119,6 +140,51 @@ def _broadcast(flat: torch.Tensor, group) -> torch.Tensor:
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _local_blocks_shape(engine, n: int) -> tuple:
+    """``[2, L, Hkv_local, n * block_size, D]``: a rank's slice of ``n``
+    blocks."""
+    L, h, _, d = engine.cache["k"].shape
+    return (2, L, h, n * engine.block_size, d)
+
+
+def gather_blocks(engine, group, bids) -> Optional[np.ndarray]:
+    """Every rank of the plan group, the same ``bids``: each rank's kv
+    heads of the blocks go to rank 0, which returns float32 ``[2, L, Hkv,
+    n * block_size, D]`` over every head (mesh order); the others
+    return None."""
+    lay = engine.layout
+    if lay.index("tpr") == 0:
+        local = engine._read_local(bids)
+    else:                       # a replica: tpr index 0 holds the same
+        local = torch.zeros(_local_blocks_shape(engine, len(bids)))
+    src = dist.get_global_rank(group, 0)
+    if dist.get_rank() != src:
+        dist.gather(local, None, dst=src, group=group)
+        return None
+    parts = [torch.empty_like(local)
+             for _ in range(dist.get_world_size(group))]
+    dist.gather(local, parts, dst=src, group=group)
+    # Group rank j sits at mesh (j // tpr, j % tpr).
+    return torch.cat(parts[::lay.size("tpr")], dim=2).numpy()
+
+
+def scatter_blocks(engine, group, bids, kv: Optional[np.ndarray]) -> None:
+    """Every rank of the plan group, the same ``bids``: rank 0 passes
+    float32 ``[2, L, Hkv, n * block_size, D]``, each rank receives the kv
+    heads of its ``tp`` index and writes them into its pool."""
+    lay = engine.layout
+    local = torch.empty(_local_blocks_shape(engine, len(bids)))
+    src = dist.get_global_rank(group, 0)
+    parts = None
+    if dist.get_rank() == src:
+        heads = torch.from_numpy(np.ascontiguousarray(kv)).chunk(
+            lay.size("tp"), dim=2)
+        parts = [heads[j // lay.size("tpr")].contiguous()
+                 for j in range(dist.get_world_size(group))]
+    dist.scatter(local, parts, src=src, group=group)
+    engine._write_local(bids, local)
 
 
 class MultihostServeEngine(ServeEngine):
@@ -229,8 +295,12 @@ def follower_loop(engine: ServeEngine) -> int:
     ``engine`` is a plain ``ServeEngine`` or ``PagedServeEngine`` built
     with the same arguments as rank 0's ``MultihostServeEngine`` (the
     rank's shards of the same params, the same layout and options), so the
-    shapes and the collectives match.  It creates the plan group first."""
+    shapes and the collectives match.  It creates the plan group first.
+    A follower holds no tier store: rank 0 decides what moves, and a
+    block plan names the blocks to copy."""
     group = plan_group(mesh_ranks(engine.layout))
+    if getattr(engine, "tiers", None) is not None:
+        engine.tiers = None
     plan0 = _plan_shape(engine)
     flat = _pack(plan0)
     steps = 0
@@ -242,6 +312,13 @@ def follower_loop(engine: ServeEngine) -> int:
         steps += 1
         if "tables" in plan:
             engine.tables[:] = plan["tables"]
+        if op in (OP_READ_BLOCKS, OP_WRITE_BLOCKS):
+            bids = plan["bids"][:int(plan["nbids"][0])].tolist()
+            if op == OP_READ_BLOCKS:
+                gather_blocks(engine, group, bids)
+            else:
+                scatter_blocks(engine, group, bids, None)
+            continue
         if op == OP_PREFILL:
             slot, real_len, bucket, start_pos = (int(x)
                                                  for x in plan["scalars"])
@@ -265,4 +342,37 @@ class MultihostPagedServeEngine(MultihostServeEngine, PagedServeEngine):
     over ``PagedServeEngine`` through the shared device funnels (MRO:
     broadcast first, the paged forward second); the block tables ride
     every plan, so followers replay against rank 0's allocator without
-    running one."""
+    running one.  Block reads and writes (the KV tiers, export and
+    import) become block plans, at most ``max_blocks`` blocks each."""
+
+    def _block_plans(self, bids):
+        for i in range(0, len(bids), self.max_blocks):
+            yield list(bids[i:i + self.max_blocks])
+
+    def _send_bids(self, op: int, bids) -> None:
+        padded = np.zeros(self.max_blocks, np.int32)
+        padded[:len(bids)] = bids
+        self._send(op=op, bids=padded, nbids=[len(bids)])
+
+    def _read_blocks(self, bids):
+        if not self._peers:
+            return super()._read_blocks(bids)
+        kv = np.concatenate([self._watched(
+            ("read_blocks",),
+            lambda: self._send_bids(OP_READ_BLOCKS, part),
+            lambda: gather_blocks(self, self._group, part))
+            for part in self._block_plans(bids)], axis=3)
+        return kv[0], kv[1]
+
+    def _write_blocks(self, bids, k, v):
+        if not self._peers:
+            return super()._write_blocks(bids, k, v)
+        bs = self.block_size
+        for j, part in enumerate(self._block_plans(bids)):
+            rows = slice(j * self.max_blocks * bs,
+                         (j * self.max_blocks + len(part)) * bs)
+            kv = np.stack([k[:, :, rows], v[:, :, rows]])
+            self._watched(
+                ("write_blocks",),
+                lambda: self._send_bids(OP_WRITE_BLOCKS, part),
+                lambda: scatter_blocks(self, self._group, part, kv))

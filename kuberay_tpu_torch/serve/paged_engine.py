@@ -49,10 +49,12 @@ quantisation dequantises outermost, around the paged forward.
 
 Tensor parallelism (``layout``, as the dense engine's): the pool holds the
 rank's kv heads and the tables ride every step plan to the followers
-(``serve/multihost.py::MultihostPagedServeEngine``).  Under tp > 1 the KV
-tiers and block export and import are refused (ROADMAP A9b): they read and
-write whole blocks on one process, and the followers would need plan ops
-for a block's demotion, promotion, export and import.
+(``serve/multihost.py::MultihostPagedServeEngine``).  Every block read and
+write goes through ``_read_blocks`` / ``_write_blocks``; under tp > 1 rank
+0's engine turns them into block plans, so that each rank copies its kv
+heads of the blocks and rank 0 gathers or scatters the heads over the
+group.  Rank 0 alone holds the tier store and decides; the payloads and
+the wire bytes are those of one process.
 """
 
 from __future__ import annotations
@@ -73,19 +75,10 @@ from kuberay_tpu_torch.serve.paged_kv import (
     make_paged_forward,
     make_paged_quant_forward,
 )
-from kuberay_tpu_torch.serve.sharding import local_kv_heads, mesh_tp
+from kuberay_tpu_torch.serve.sharding import local_kv_heads
 
 # The KV-block wire payload's element type: float32, little-endian.
 WIRE_DTYPE = np.dtype("<f4")
-
-_TP_BLOCKS = ("{what} under tensor parallelism (tp > 1) is not ported yet "
-              "(ROADMAP A9b): it reads and writes whole blocks on one "
-              "process")
-
-
-def _refuse_under_tp(layout, what: str) -> None:
-    if layout is not None and mesh_tp(layout) > 1:
-        raise ValueError(_TP_BLOCKS.format(what=what))
 
 
 class PagedServeEngine(ServeEngine):
@@ -97,8 +90,6 @@ class PagedServeEngine(ServeEngine):
                  weight_quant: str = "none", donate_params: bool = False,
                  metrics=None, tracer=None, host_blocks: int = 0,
                  spill_blocks: int = 0, layout=None):
-        if host_blocks > 0 or spill_blocks > 0:
-            _refuse_under_tp(layout, "KV tiering (host_blocks, spill_blocks)")
         if (host_blocks > 0 or spill_blocks > 0) and kv_quant != "none":
             raise ValueError(
                 "KV tiering requires kv_quant='none' (tier payloads "
@@ -241,25 +232,37 @@ class PagedServeEngine(ServeEngine):
         idx = np.concatenate([np.arange(b * bs, (b + 1) * bs) for b in bids])
         return torch.from_numpy(idx).to(self.device)
 
-    def _read_blocks(self, bids: Sequence[int]):
-        """The pool rows of ``bids`` as float32 numpy ``[L, Hkv, n *
-        block_size, D]`` K and V: one gather per pool, one device-to-host
-        copy (a sync) for both."""
+    def _read_local(self, bids: Sequence[int]) -> torch.Tensor:
+        """This rank's pool rows of ``bids``: float32 ``[2, L, Hkv_local,
+        n * block_size, D]`` (K then V) on the host; one gather per pool,
+        the cast on the device, one device-to-host copy (a sync)."""
         idx = self._block_rows(bids)
         kv = torch.stack([self.cache[n][:, :, idx, :] for n in ("k", "v")])
-        kv = kv.to(torch.float32).cpu().numpy()
+        return kv.to(torch.float32).cpu()
+
+    def _write_local(self, bids: Sequence[int], kv: torch.Tensor) -> None:
+        """Write float32 ``[2, L, Hkv_local, n * block_size, D]`` into this
+        rank's pool rows of ``bids``, cast to the pool's dtype, in place on
+        the current stream (so before the next step's kernels read
+        them)."""
+        idx = self._block_rows(bids)
+        for n, rows in zip(("k", "v"), kv):
+            pool = self.cache[n]
+            pool[:, :, idx, :] = rows.to(pool.device, pool.dtype)
+
+    def _read_blocks(self, bids: Sequence[int]):
+        """The rows of ``bids`` as float32 numpy ``[L, Hkv, n *
+        block_size, D]`` K and V over every kv head (under tp > 1, rank
+        0's engine gathers them from the group)."""
+        kv = self._read_local(bids).numpy()
         return kv[0], kv[1]
 
     def _write_blocks(self, bids: Sequence[int], k: np.ndarray,
                       v: np.ndarray) -> None:
-        """Write float32 ``[L, Hkv, n * block_size, D]`` K and V into the
-        pool rows of ``bids``, cast to the pool's dtype, in place on the
-        current stream (so before the next step's kernels read them)."""
-        idx = self._block_rows(bids)
-        for n, rows in (("k", k), ("v", v)):
-            pool = self.cache[n]
-            pool[:, :, idx, :] = torch.from_numpy(
-                np.ascontiguousarray(rows)).to(pool.device, pool.dtype)
+        """Write float32 ``[L, Hkv, n * block_size, D]`` K and V over every
+        kv head into the rows of ``bids`` (under tp > 1, rank 0's engine
+        scatters each rank its heads)."""
+        self._write_local(bids, torch.from_numpy(np.stack([k, v])))
 
     def step(self):
         out = super().step()
@@ -509,7 +512,6 @@ class PagedServeEngine(ServeEngine):
         in no tier (a block the pool evicted is served from its host or
         spill copy when tiers are on); ``max_blocks`` > 0 caps the record
         count, so the importer still holds a contiguous prefix."""
-        _refuse_under_tp(self.layout, "KV-block export")
         if self.kv_quant != "none":
             raise NotImplementedError(
                 "KV-block export requires kv_quant='none' (int8 pools "
@@ -561,7 +563,6 @@ class PagedServeEngine(ServeEngine):
         refcount-0 cached; the walk stops at the first chain gap, malformed
         payload or pool exhaustion (match_prefix serves only contiguous
         prefixes).  Returns ``{"imported": n, "skipped": m}``."""
-        _refuse_under_tp(self.layout, "KV-block import")
         if self.kv_quant != "none":
             raise NotImplementedError(
                 "KV-block import requires kv_quant='none'")

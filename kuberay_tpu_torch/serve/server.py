@@ -80,9 +80,10 @@ ready``, beats rank 0 and replays its device calls until STOP.  A follower
 that dies or wedges degrades the group: ``/healthz`` and pending requests
 answer 503, and the app reports DEGRADED to the coordinator (retried until
 delivered).  At shutdown rank 0 drains, ends its engine loop, then
-broadcasts STOP; a follower waits for it through a SIGTERM.  The KV tiers
-and the ``/v1/kv/*`` block transfer are refused under tp > 1 (ROADMAP
-A9b).
+broadcasts STOP; a follower waits for it through a SIGTERM.  Under tp > 1
+the KV tiers (``--host-blocks``, ``--spill-blocks``) and the ``/v1/kv/*``
+block transfer run on rank 0's tier store, each block copy a plan every
+rank replays (``serve/multihost.py``).
 """
 
 from __future__ import annotations
@@ -504,9 +505,8 @@ class ServeFrontend:
                         lambda e: e.import_kv_blocks(prompt, blocks))
                     return self._send(200, counts,
                                       headers=self._load_headers())
-                except (NotImplementedError, ValueError) as e:
-                    # A pool format or a layout (tp > 1) without the
-                    # transfer.
+                except NotImplementedError as e:
+                    # A pool format without the transfer (int8).
                     return self._send(501, {"message": str(e)})
                 except TimeoutError as e:
                     return self._send(503, {"message": str(e)})
@@ -767,7 +767,6 @@ def main(argv=None):
         MultihostServeEngine,
         follower_loop,
     )
-    from kuberay_tpu_torch.serve.paged_engine import _TP_BLOCKS
     from kuberay_tpu_torch.serve.sharding import (
         SERVE_AXES,
         init_sharded_params,
@@ -900,9 +899,6 @@ def main(argv=None):
         # of the plans: they hang in their first collective.
         ap.error(f"multi-host serving requires tp == total chips "
                  f"({world}); got --tp {args.tp}. Use --tp 0 (auto)")
-    if tp > 1 and (args.host_blocks > 0 or args.spill_blocks > 0):
-        ap.error(_TP_BLOCKS.format(what="KV tiering (--host-blocks, "
-                                        "--spill-blocks)"))
     cfg = llama.CONFIGS[args.model]
     try:
         # Every rank refuses a model the mesh cannot split before the

@@ -21,9 +21,11 @@ configs:
 
 - a ``DeviceMesh`` from ``MeshSpec.build`` / ``build_multislice``, one
   process a rank, any of dp, fsdp, tp, sp and ep larger than 1 (pp is
-  A11).  Every rank holds its shard of each leaf as ``param_axes`` and
-  ``DEFAULT_RULES`` place it (Adam's mu and nu follow the params, the
-  counts are replicated: ``_shard_opt_like_params`` in the JAX package),
+  ``parallel/pipeline.py``'s alone, as in the JAX package, which no train
+  step calls).  Every rank holds its shard of each leaf as
+  ``param_axes`` and ``DEFAULT_RULES`` place it (Adam's mu and nu follow
+  the params, the counts are replicated: ``_shard_opt_like_params`` in
+  the JAX package),
   takes its rows of the global batch (over the flattened dp x fsdp index)
   and its sequence shard (over sp), divides its loss sum by the global
   token count, and sums its gradients over the batch's axes

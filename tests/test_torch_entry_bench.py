@@ -11,8 +11,8 @@ vs the coordinator's.
   work; ``chip_smoke.py``'s ``entry`` phase runs it there), tokens 1 x 512,
   float32, within 1e-5.
 - ``dryrun_multichip(8, device="cpu")`` prints every ported block's line,
-  tensor-parallel serving over 4 of the ranks (tp=2 x tpr=2) among them
-  (and none for the pipeline block, A11).
+  tensor-parallel serving over 4 of the ranks (tp=2 x tpr=2) among them,
+  and the pipeline block's line as the JAX dry run prints it.
 - ``ProfileHook`` answers as ``CoordinatorServer``'s hook over start →
   second start → stop → stop, a timer that fires after a newer capture
   began (the generation mismatch), a timer that stops its own capture,
@@ -107,7 +107,8 @@ def test_dryrun_multichip_prints_every_ported_block(capfd):
                 r"dryrun multislice ok: 2 slices x 4 ranks .* loss=\d",
                 r"dryrun serve ok: tp=2 x tpr=2 engine generated 4 tokens"):
         assert len(re.findall(pat, out)) == 1, (pat, out)
-    assert "dryrun pp ok" not in out
+    assert [ln for ln in out.splitlines() if "dryrun pp" in ln] == \
+        ["dryrun pp ok: 2-stage pipeline"]
 
 
 class _Clock:

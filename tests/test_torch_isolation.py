@@ -222,3 +222,39 @@ def test_tp_server_raises_without_a_card(monkeypatch):
     monkeypatch.setenv("TPU_WORKER_HOSTNAMES", "a,b")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         server.main(["--model", "llama_tiny", "--port", "0", "--tp", "2"])
+
+
+LAST_MODULES = ("kuberay_tpu_torch/parallel/pipeline.py",
+                "kuberay_tpu_torch/obs/profile.py",
+                "kuberay_tpu_torch/obs/trace.py")
+
+
+def test_scan_covers_the_pipeline_and_profile_modules_and_their_workers():
+    """The pipeline, the profile and the tracer are in the scan, and the
+    workers of the pipeline and tp-tier tests import nothing of JAX or
+    the JAX package either."""
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    assert set(LAST_MODULES) <= names
+    for name in ("tests/torch_pp_worker.py", "tests/torch_tp_tiers_worker.py"):
+        tree = ast.parse((ROOT / name).read_text())
+        assert not [m for m in _imported_modules(tree)
+                    if m.split(".")[0] in FORBIDDEN], name
+
+
+def test_pipeline_and_profile_catch_nothing():
+    """No ``except`` in the pipeline's hops, the profile or the tracer: a
+    failed exchange raises."""
+    for name in LAST_MODULES:
+        tree = ast.parse((ROOT / name).read_text())
+        assert not [n for n in ast.walk(tree)
+                    if isinstance(n, ast.Try) and n.handlers], name
+
+
+def test_tiered_tp_server_raises_without_a_card(monkeypatch):
+    """``--tp 2 --paged --host-blocks`` is no longer refused at parsing:
+    it reaches the device check."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("TPU_WORKER_HOSTNAMES", "a,b")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        server.main(["--model", "llama_tiny", "--port", "0", "--tp", "2",
+                     "--paged", "--host-blocks", "8"])

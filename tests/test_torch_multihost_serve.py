@@ -18,13 +18,18 @@ plans, and group health, vs the JAX package.
   with equal verdicts, reasons and status; the heartbeat wire both ways
   (a port follower beats a JAX monitor, a JAX follower a port monitor).
 - Refusals with the JAX server's texts: tp other than the slice's size,
-  a tp the model cannot split (before the group's rendezvous), the KV
-  tiers under tp (ROADMAP A9b), ``--decode-impl`` other than ``auto``.
+  a tp the model cannot split (before the group's rendezvous),
+  ``--decode-impl`` other than ``auto``.
+- ``--tp 2 --paged`` with ``--host-blocks`` or ``--spill-blocks`` starts
+  a tiered group: rank 0's ``/stats`` shows the tier, a prompt demotes
+  and resumes from it, and ``/v1/kv/export`` and ``/v1/kv/import`` answer
+  with the group's blocks.
 - ``dryrun_multichip(4)``'s serving block: tp=2 x tpr=2 over 4 CPU ranks.
 - On the card only (``gpu``): the three decode kernels at the local head
   counts of ``llama3_8b`` at tp=2 (16 q / 4 kv heads) and tp=16 (2 / 1).
 """
 
+import base64
 import os
 import re
 import signal
@@ -149,17 +154,20 @@ class _Group:
         except urllib.error.HTTPError as e:
             return e.code, json.loads(e.read())
 
-    def complete(self, prompt, timeout=60.0):
+    def post(self, path, body, timeout=60.0):
         req = urllib.request.Request(
-            self.url + "/v1/completions", method="POST",
-            data=json.dumps({"prompt_tokens": prompt,
-                             "max_tokens": MAX_TOKENS}).encode(),
+            self.url + path, method="POST", data=json.dumps(body).encode(),
             headers={"Content-Type": "application/json"})
         try:
             with urllib.request.urlopen(req, timeout=timeout) as r:
                 return r.status, json.loads(r.read())
         except urllib.error.HTTPError as e:
             return e.code, json.loads(e.read())
+
+    def complete(self, prompt, timeout=60.0):
+        return self.post("/v1/completions", {"prompt_tokens": prompt,
+                                             "max_tokens": MAX_TOKENS},
+                         timeout)
 
     def kill(self):
         for p in self.procs:
@@ -227,16 +235,28 @@ def test_killed_follower_degrades_to_503_without_a_hang(served):
 
 def test_plan_holds_the_jax_fields_rank_0_needs_to_replay():
     """JAX's plan less the RNG key and the sampling parameters (only rank
-    0 samples); every field of the same shape and dtype."""
+    0 samples); every field of the same shape and dtype.  A paged plan
+    also carries a block plan's ids (``bids``, ``max_blocks`` int32, and
+    their count ``nbids``): the JAX engine reads and writes whole blocks
+    of its sharded pool in one process and has no block plans."""
     for args in ((64, 4, 0, 0), (2048, 8, 4, 128)):
         ours, ref = tmh._zero_plan(*args), jmh._zero_plan(*args)
         assert set(ref) - set(ours) == {"key", "temp", "temps"}
-        assert set(ours) <= set(ref)
+        blocks = {"bids", "nbids"} if args[3] else set()
+        assert set(ours) - set(ref) == blocks
         for k, a in ours.items():
+            if k in blocks:
+                continue
             want = np.asarray(ref[k])
             assert a.shape == (want.shape or (1,)) and a.dtype == want.dtype
+        if blocks:
+            assert ours["bids"].shape == (args[3],)
+            assert ours["nbids"].shape == (1,)
+            assert ours["bids"].dtype == ours["nbids"].dtype == np.int32
     assert (tmh.OP_STOP, tmh.OP_PREFILL, tmh.OP_DECODE, tmh.OP_VERIFY) == \
         (jmh.OP_STOP, jmh.OP_PREFILL, jmh.OP_DECODE, jmh.OP_VERIFY)
+    assert len({tmh.OP_STOP, tmh.OP_PREFILL, tmh.OP_DECODE, tmh.OP_VERIFY,
+                tmh.OP_READ_BLOCKS, tmh.OP_WRITE_BLOCKS}) == 6
 
 
 def test_plan_packs_to_one_int32_vector_and_back_bit_for_bit():
@@ -447,14 +467,6 @@ def test_a_tp_the_model_cannot_split_is_refused_before_the_group_starts(
     assert want in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("flag", ["--host-blocks", "--spill-blocks"])
-def test_kv_tiers_under_tp_are_refused_naming_a9b(monkeypatch, capsys, flag):
-    monkeypatch.setenv("TPU_WORKER_HOSTNAMES", "a,b")
-    with pytest.raises(SystemExit):
-        server.main(["--model", "llama_tiny", "--device", "cpu", "--paged",
-                     flag, "8"])
-    err = capsys.readouterr().err
-    assert "A9b" in err and "KV tiering" in err
 
 
 @pytest.mark.parametrize("impl", ["xla", "pallas", "pallas_interpret"])
@@ -464,6 +476,48 @@ def test_decode_impl_other_than_auto_is_refused(capsys, impl):
                      "--decode-impl", impl])
     assert f"--decode-impl {impl}: {server._unported('decode_impl', impl)}" \
         in capsys.readouterr().err
+
+
+# ---------------------------------------------------------------------------
+# the KV tiers and the block endpoints under tp
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("flag,total", [("--host-blocks", "host_blocks_total"),
+                                        ("--spill-blocks",
+                                         "spill_blocks_total")])
+def test_tp_group_builds_a_tiered_engine(served, flag, total):
+    """``--tp 2 --paged`` with a tier starts (the flag was refused before
+    the block plans): rank 0's ``/stats`` shows the tier,
+    it serves JAX's tp=2 tokens, ``/v1/kv/export`` returns the prompt's 5
+    blocks as ``[L, Hkv, 8, D]`` float32 payloads over every kv head,
+    ``/v1/kv/import`` of them finds them resident, and the group stops
+    together."""
+    g = _Group(2, "--tp", "2", "--paged", "--block-size", "8", flag, "8",
+               "--checkpoint-dir", served["dir"])
+    try:
+        g.wait_for(1, "serve follower 1/2 ready")
+        g.wait_for(0, "serving llama_tiny")
+        code, stats = g.get("/stats")
+        assert code == 200 and stats[total] == 8
+        got = [g.complete(p) for p in PROMPTS]
+        assert [b["tokens"] for _, b in got] == served["tokens"]
+        body = {"prompt_tokens": PROMPTS[2]}
+        code, exp = g.post("/v1/kv/export", body)
+        assert code == 200 and exp["block_size"] == 8
+        assert [b["index"] for b in exp["blocks"]] == list(range(5))
+        wire = CFG.n_layers * CFG.n_kv_heads * 8 * CFG.head_dim * 4
+        assert all(len(base64.b64decode(b[n])) == wire
+                   for b in exp["blocks"] for n in ("k", "v"))
+        code, counts = g.post("/v1/kv/import",
+                              {**body, "blocks": exp["blocks"]})
+        assert (code, counts) == (200, {"imported": 0, "skipped": 5})
+        for p in g.procs:
+            p.send_signal(signal.SIGTERM)
+        codes = [p.wait(timeout=60) for p in g.procs]
+    finally:
+        g.kill()
+    assert codes == [0, 0], (g.output(0), g.output(1))
+    assert "serve follower 1/2: STOP after" in g.output(1)
 
 
 # ---------------------------------------------------------------------------
@@ -477,6 +531,9 @@ def test_dryrun_serves_over_four_cpu_ranks(capfd):
     assert len(re.findall(
         r"dryrun serve ok: tp=2 x tpr=2 engine generated 4 tokens",
         out)) == 1, out
+    # The pipeline block's line, as the JAX dry run prints it at 4.
+    assert [ln for ln in out.splitlines() if "dryrun pp" in ln] == \
+        ["dryrun pp ok: 2-stage pipeline"]
 
 
 # ---------------------------------------------------------------------------

@@ -25,8 +25,9 @@ JAX package's seed-0 params:
   ``tests/test_tp_serving.py``'s prompts (and one sharing three blocks
   with another, for the paged prefix cache); every follower replays each
   device call of rank 0; each rank's cache holds its kv heads;
-- the refusals under tp > 1: the KV tiers and block export and import
-  (ROADMAP A9b).
+- under tp > 1 the bf16 paged engine takes the KV tiers and block export
+  and import (``test_torch_tp_tiers.py`` runs them), and the int8 pool
+  refuses them with the JAX engine's texts.
 
 The JAX engines run their decode on the XLA path (``decode_impl="xla"``).
 """
@@ -358,9 +359,32 @@ def test_speculation_drafts_under_tp(runs):
     assert int(runs["outs"][0]["chunk_spec_drafted"]) > 0
 
 
+def _jax_int8_refusal(what: str) -> str:
+    """The JAX paged engine's text for an int8 pool's tiers, export or
+    import."""
+    kw = dict(max_slots=SLOTS, max_len=MAX_LEN, block_size=BS,
+              kv_quant="int8", decode_impl="xla")
+    params = jllama.init_params(CFG, jax.random.PRNGKey(0))
+    try:
+        if what == "tiers":
+            JPagedEngine(CFG, params, host_blocks=8, **kw)
+        else:
+            eng = JPagedEngine(CFG, params, **kw)
+            if what == "export":
+                eng.export_kv_blocks(PROMPTS[3])
+            else:
+                eng.import_kv_blocks(PROMPTS[3], [])
+    except (ValueError, NotImplementedError) as e:
+        return str(e)
+    raise AssertionError(f"the JAX int8 engine took {what}")
+
+
 @pytest.mark.parametrize("what", ["tiers", "export", "import"])
 def test_block_paths_are_refused_under_tp_naming_a9b(runs, what):
-    for name in ("paged", "paged_int8"):
-        for r in range(2 if what == "tiers" else 1):
-            msg = str(runs["outs"][r][f"{name}_{what}_refused"])
-            assert "A9b" in msg and "tp > 1" in msg
+    """Under tp > 1 the bf16 pool takes the KV tiers and block export and
+    import; the int8 pool refuses them with the JAX engine's texts (the
+    ROADMAP A9b refusal of both pools is gone)."""
+    want = _jax_int8_refusal(what)
+    for r in range(2 if what == "tiers" else 1):
+        assert str(runs["outs"][r][f"paged_{what}_refused"]) == ""
+        assert str(runs["outs"][r][f"paged_int8_{what}_refused"]) == want

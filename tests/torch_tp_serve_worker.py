@@ -13,7 +13,8 @@ their shards
 of the converted params and run the lockstep engines: rank 0 a
 ``MultihostServeEngine`` (or its paged twin) on the task's greedy
 prompts, the others ``follower_loop``.  Rank 0 writes each request's
-tokens and its device-call count, every follower the calls it replayed;
+tokens and its device-call count (the block plans of a paged engine's
+export among them), every follower the calls it replayed;
 every rank its engine's cache shapes and, with int8 weights, its local
 scales.  Every rank also writes each param and cache leaf's chunk
 (offsets and sizes) on the tp=2 and tp=4 meshes, whether its
@@ -38,6 +39,8 @@ from kuberay_tpu_torch.models.convert import params_from_jax
 from kuberay_tpu_torch.serve import kv_cache
 from kuberay_tpu_torch.serve.engine import Request, ServeEngine
 from kuberay_tpu_torch.serve.multihost import (
+    OP_READ_BLOCKS,
+    OP_WRITE_BLOCKS,
     MultihostPagedServeEngine,
     MultihostServeEngine,
     follower_loop,
@@ -155,25 +158,38 @@ def engines_task(rank, inp, out, task):
         kw = dict(max_slots=task["max_slots"], max_len=task["max_len"],
                   device="cpu", layout=lay, **var.get("kw", {}))
         if var.get("paged"):
-            # The KV tiers are refused under tp > 1 (ROADMAP A9b).
+            # The KV tiers under tp > 1: refused for an int8 pool only
+            # ("" where the engine builds).
             try:
                 follower_cls(cfg, params, host_blocks=8, **kw)
+                out[f"{name}_tiers_refused"] = np.array("")
             except ValueError as e:
                 out[f"{name}_tiers_refused"] = np.array(str(e))
         if rank == 0:
             eng = lead_cls(cfg, params, **kw)
+            block_plans = []
+            real_send = eng._send
+
+            def send(**updates):
+                if int(np.asarray(updates["op"]).ravel()[0]) in (
+                        OP_READ_BLOCKS, OP_WRITE_BLOCKS):
+                    block_plans.append(updates["op"])
+                real_send(**updates)
+            eng._send = send
             for i, p in enumerate(prompts):
                 eng.add_request(Request(f"r{i}", p,
                                         max_new_tokens=task["max_new"]))
             got = {r.request_id: r.tokens for r in eng.run()}
             if var.get("paged"):
+                # Block export and import: refused for an int8 pool only.
                 for what in ("export", "import"):
                     try:
                         if what == "export":
                             eng.export_kv_blocks(prompts[3])
                         else:
                             eng.import_kv_blocks(prompts[3], [])
-                    except ValueError as e:
+                        out[f"{name}_{what}_refused"] = np.array("")
+                    except NotImplementedError as e:
                         out[f"{name}_{what}_refused"] = np.array(str(e))
             eng.stop()
             for i in range(len(prompts)):
@@ -181,7 +197,7 @@ def engines_task(rank, inp, out, task):
             st = eng.stats
             out[f"{name}_calls"] = np.array(
                 st["prefills"] + st["decode_steps"]
-                + eng.spec_stats["verify_steps"])
+                + eng.spec_stats["verify_steps"] + len(block_plans))
             out[f"{name}_drafted"] = np.array(eng.spec_stats["drafted"])
         else:
             eng = follower_cls(cfg, params, **kw)
