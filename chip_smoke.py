@@ -14,6 +14,14 @@
    (yardstick only) with CUDA events, eagerly and replayed from a CUDA
    graph (device time without the host's launch cost), and computes each
    kernel's bound.
+   RMSNorm's backward (``rmsnorm_bwd``: the Triton row kernel and the
+   partials sum) at every training shape (8192, 4096, 2048 and 300 rows
+   of 2048, 4096 x 4096, 64 x 8192), dx and dw against ``rmsnorm_bwd_ref``
+   in the flash kernels' element-wise and norm limits, two calls bit for
+   bit, dx alone, dw alone, a strided and an expanded g; timed beside the
+   plain chain (autograd through ``rmsnorm_ref``) and ``F.rms_norm``'s
+   backward, the partials sum alone beside ``sum``; an empty Triton
+   kernel's time (the launch floor) beside the 8-row forward's.
    The int8 decode kernel likewise (S 8, M 2048, 32 q / 8 kv heads of 128
    with lens 0..2048; M 1000; D 64 group 1), against its plain version
    (dequantise to bf16, then dense) and against the same attention with
@@ -161,7 +169,8 @@
    ``mixtral_train``: ``mixtral.loss_fn`` forward and backward (no
    optimizer) at the same widths, 4 layers, B 2 x S 2048, full remat,
    chunked CE 8192, three steps: finite loss and gradients, the aux
-   losses, 8 flash forwards, 4 dK/dV, 4 dQ and 17 RMSNorms a step.
+   losses, 8 flash forwards, 4 dK/dV, 4 dQ, 17 RMSNorms and 9 RMSNorm
+   backwards (each a row kernel and a partials sum) a step.
    Tensor-parallel serving (``serve_tp``, on the llama3_8b weights
    before they are freed): the bf16, int8 and paged decode kernels at a
    tp rank's local head counts, 16 q / 4 kv heads (tp=2) and 2 / 1
@@ -218,9 +227,11 @@
    expected loss of unit-variance random logits, which is what the
    scaled init gives), the fixed batch's loss falls by at least 0.5, and
    the launch counts per step are exactly 32 flash forwards (16 layers,
-   run again under full remat), 16 dK/dV, 16 dQ and 65 RMSNorms.  With
+   run again under full remat), 16 dK/dV, 16 dQ, 65 RMSNorms and 33
+   RMSNorm backwards (a row kernel and a partials sum each).  With
    ``--profile``, one more fixed-batch step runs under torch.profiler:
-   device time by kernel name and the device's idle share.
+   device time by kernel name, the device's idle share, and one device
+   kernel of each RMSNorm backward kernel's name a launch.
    Then long-context training: llama_1b at full width and depth with
    attn_impl="ring_rdma", B 2 x S 4096 on LocalRing(4) (the sp ring's 4
    ranks on this card), 8 fixed-batch steps of make_sharded_train_fns
@@ -229,7 +240,8 @@
    loss falls by at least 0.5, and the launch counts per step are exactly
    32 ring forwards (one a layer, run again under full remat), 160 dK/dV
    and 160 dQ (one each per causal block of the ring's 4 ranks, 16
-   layers), no flash forward and 65 RMSNorms.  With ``--profile``, one more step likewise.
+   layers), no flash forward, 65 RMSNorms and 33 RMSNorm backwards.  With
+   ``--profile``, one more step likewise.
 5. Train to serve (``train_to_serve``): llama_1b, 4 x 2048, bf16 masters,
    checkpoints in a temporary directory whose free space (printed) must
    hold three saves of about 6.85 GB, with a coordinator recorder on
@@ -287,9 +299,9 @@
    each param leaf's change over the run (its sharded checkpoint, read
    back whole by ``load_params_for_serving``, less the seed's params)
    to the reference's change within MESH_DELTA_RTOL of its norm; every
-   rank launches 8 flash forwards, 4 dK/dV, 4 dQ and 17 RMSNorms a
-   step.  Prints each rank's peak memory, the step times, the launches
-   and the readings.
+   rank launches 8 flash forwards, 4 dK/dV, 4 dQ, 17 RMSNorms and 9
+   RMSNorm backwards a step.  Prints each rank's peak memory, the step
+   times, the launches and the readings.
 8. ``pipeline``: ``parallel/pipeline.py::pipeline_apply`` over llama_1b's
    16 layers (``llama._layer``) at full width as 2 stages of 8, one
    process a stage sharing the card over gloo (the hops through pinned
@@ -297,12 +309,15 @@
    backward of ``(out.float() ** 2).sum()``: each rank's output bit for
    bit the same layers applied microbatch by microbatch in its process,
    its stage's gradients within 2^-7 in norm of that run's (the other
-   stage's rows zero), 32 flash forwards, 32 dK/dV, 32 dQ and 64
-   RMSNorms a rank a step; prints the launches and step ms.
+   stage's rows zero), 32 flash forwards, 32 dK/dV, 32 dQ, 64 RMSNorms
+   and 64 RMSNorm backwards a rank a step; prints the launches and step
+   ms.
    ``bench_profile``: ``python -m kuberay_tpu_torch.bench --profile-out
    PATH`` as a process: its stdout line with the bench's keys, and a
    ``tpu-profile/v1`` document with one ``train`` record a timed step,
-   each of ``dispatch`` and ``host-fetch``, and the bench's meta.
+   each of ``dispatch`` and ``host-fetch``, and the bench's meta.  The
+   bench, here and in ``bench``, prints its kernel launches at exit,
+   held to the launcher's per step for its warm-up and timed steps.
 9. Prints each phase's wall seconds and the total, then the kernels'
    JSON line, and as the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -381,6 +396,7 @@ from kuberay_tpu_torch.utils.metrics import MetricsRegistry
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_S = 3.35e12          # H100 SXM device memory rate
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core peak
+F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
 RMS_ATOL = 1.6e-2
 # Flash and decode kernels vs plain, element by element against the element's own
 # magnitude, since |out| and |grad| fall with the number of keys a row
@@ -464,18 +480,19 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def graph_ms(fn, iters: int) -> float:
+def graph_ms(fn, iters: int, stream=None) -> float:
     """Mean device time of one call without the host's launch cost:
     ``iters`` calls captured in one CUDA graph, replayed between CUDA
-    events."""
-    side = torch.cuda.Stream()
+    events.  ``stream``: warm up and capture on it (an autograd graph
+    built on that stream, so that its backward may be captured)."""
+    side = stream or torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(3):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         for _ in range(iters):
             fn()
     graph.replay()
@@ -548,7 +565,10 @@ def check_rmsnorm(gen: torch.Generator) -> dict:
     """RMSNorm at decode (8 rows), ragged and prefill row counts of the 8B
     serving path, llama_1b's at entry() (512 rows), at a pipeline
     microbatch (2048 rows) and at mesh_train's halved batch (4096 rows),
-    and llama_1b's training shape (4 x 2048 rows of 2048)."""
+    and llama_1b's training shape (4 x 2048 rows of 2048); then the
+    backward at every training shape (``check_rmsnorm_bwd``) and the
+    launch floor: an empty Triton kernel's time beside the 8-row
+    forward's."""
     shapes = []
     for rows, d in ((1, D_MODEL), (8, D_MODEL), (300, D_MODEL),
                     (2048, D_MODEL), (512, 2048), (2048, 2048),
@@ -572,13 +592,181 @@ def check_rmsnorm(gen: torch.Generator) -> dict:
             **bound(nbytes, flops)})
         print(f"rmsnorm rows={rows} d={d}: {json.dumps(shapes[-1])}",
               flush=True)
-    return {"shapes": shapes, "main": shapes[1], "train": shapes[-1]}
+    bwd, dw_sum = check_rmsnorm_bwd(gen)
+    floor = launch_floor()
+    floor["rmsnorm_8_rows_graph_ms"] = shapes[1]["graph_ms"]
+    print(f"launch floor: {json.dumps(floor)}", flush=True)
+    return {"shapes": shapes, "main": shapes[1], "train": shapes[-1],
+            "bwd": bwd, "dw_sum": dw_sum, "launch_floor": floor,
+            "resources": rn.resources()}
 
 
-def bound(nbytes: float, flops: float) -> dict:
+# RMSNorm's backward at every training shape: llama_1b's step (B 4 x S
+# 2048), mesh_train's halved batch, a pipeline microbatch, a ragged row
+# count, mixtral_train's d 4096 (B 2 x S 2048) and llama3_70b's d 8192.
+RMS_BWD_SHAPES = ((8192, 2048), (4096, 2048), (2048, 2048), (300, 2048),
+                  (4096, 4096), (64, 8192))
+
+
+def rms_bwd_inputs(gen: torch.Generator, rows: int, d: int) -> tuple:
+    """bf16 x (uniform in [-1, 1]), w (in [0.5, 1.5]) and g (normal)."""
+    x = (torch.rand(rows, d, generator=gen, device="cuda") * 2 - 1
+         ).bfloat16()
+    w = (torch.rand(d, generator=gen, device="cuda") + 0.5).bfloat16()
+    g = torch.randn(rows, d, generator=gen, device="cuda").bfloat16()
+    return x, w, g
+
+
+def rms_bwd_check(x, w, g) -> dict:
+    """``rmsnorm_bwd`` against ``rmsnorm_bwd_ref``: dx and dw within
+    ``local_err``'s limits, two calls bit for bit, one row-kernel and one
+    partials-sum launch a call; dx alone and dw alone, g read through the
+    strides of a wider buffer and g expanded from one row (stride 0), each
+    within the same limits, the strided g with no copy."""
+    before = (rn.bwd_launches, rn.bwd_dw_launches)
+    dx, dw = rn.rmsnorm_bwd(x, w, g)
+    dx2, dw2 = rn.rmsnorm_bwd(x, w, g)
+    launched = [rn.bwd_launches - before[0], rn.bwd_dw_launches - before[1]]
+    rx, rw = rn.rmsnorm_bwd_ref(x, w, g)
+    only_dx = rn.rmsnorm_bwd(x, w, g, need_dw=False)
+    only_dw = rn.rmsnorm_bwd(x, w, g, need_dx=False)
+    wide = torch.zeros(x.shape[0], 2 * x.shape[1], dtype=g.dtype,
+                       device=g.device)
+    wide[:, :x.shape[1]] = g
+    copies = rn.bwd_g_copies
+    strided = rn.rmsnorm_bwd(x, w, wide[:, :x.shape[1]])
+    strided_copies = rn.bwd_g_copies - copies
+    expanded = g[:1].expand_as(g)
+    ex, ew = rn.rmsnorm_bwd(x, w, expanded)
+    rex, rew = rn.rmsnorm_bwd_ref(x, w, expanded)
+    torch.cuda.synchronize()
+    rec = {"dx": local_err(dx, rx), "dw": local_err(dw, rw),
+           "bits_equal": bits_equal(dx, dx2) and bits_equal(dw, dw2),
+           "launches": launched,
+           "dx_alone": local_err(only_dx[0], rx),
+           "dw_alone": local_err(only_dw[1], rw),
+           "alone_none": only_dx[1] is None and only_dw[0] is None,
+           "strided": {"dx": local_err(strided[0], rx),
+                       "dw": local_err(strided[1], rw),
+                       "bits_equal": bits_equal(strided[0], dx) and
+                       bits_equal(strided[1], dw),
+                       "copies": strided_copies},
+           "expanded": {"dx": local_err(ex, rex), "dw": local_err(ew, rew)}}
+    rec["max_abs_err"] = max(rec["dx"]["max_abs_err"],
+                             rec["dw"]["max_abs_err"])
+    errs = [rec["dx"], rec["dw"], rec["dx_alone"], rec["dw_alone"],
+            rec["strided"]["dx"], rec["strided"]["dw"],
+            rec["expanded"]["dx"], rec["expanded"]["dw"]]
+    rec["ok"] = all(within_local(e) for e in errs) and rec["bits_equal"] \
+        and launched == [2, 2] and rec["alone_none"] and \
+        strided_copies == 0
+    return rec
+
+
+def rms_bwd_bound(x: torch.Tensor) -> dict:
+    """x and g read and dx written once, w read and dw written once; 11
+    float32 operations an element against the card's float32 rate."""
+    return bound(3 * x.numel() * x.element_size() + 2 * x.shape[-1] * 2,
+                 11 * x.numel(), F32_FLOPS)
+
+
+def rms_bwd_timings(x, w, g) -> dict:
+    """``timings`` of the backward: the wrapper (both launches); the plain
+    chain, autograd through ``rmsnorm_ref`` with its recompute (the port's
+    backward before its kernel); ``F.rms_norm``'s backward alone after
+    one forward, that forward and its leaves made on the stream its
+    graph is captured on."""
+    d = x.shape[-1]
+
+    def kernel():
+        return rn.rmsnorm_bwd(x, w, g)
+
+    def plain():
+        xx, ww = (t.detach().requires_grad_() for t in (x, w))
+        with torch.enable_grad():
+            return torch.autograd.grad(rn.rmsnorm_ref(xx, ww), (xx, ww), g)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side), torch.enable_grad():
+        xx, ww = (t.detach().requires_grad_() for t in (x, w))
+        y = F.rms_norm(xx, (d,), ww, 1e-5)
+    torch.cuda.current_stream().wait_stream(side)
+
+    def library():
+        return torch.autograd.grad(y, (xx, ww), g, retain_graph=True)
+
+    return {"ms": cuda_ms(kernel, 200), "host_ms": host_ms(kernel, 200),
+            "graph_ms": graph_ms(kernel, 200),
+            "plain_ms": cuda_ms(plain, 20),
+            "plain_graph_ms": graph_ms(plain, 20),
+            "library_ms": cuda_ms(library, 200),
+            "library_graph_ms": graph_ms(library, 200, side),
+            "library_of": "F.rms_norm's backward (torch.autograd.grad "
+                          "after one forward)"}
+
+
+def check_rmsnorm_bwd(gen: torch.Generator) -> tuple:
+    """``rms_bwd_check`` at every RMS_BWD_SHAPES shape (fails unless
+    ok); times of the wrapper (both launches), of the plain chain (autograd
+    through ``rmsnorm_ref``, the recompute included: the port's backward
+    before its kernel) and of ``F.rms_norm``'s backward after one forward,
+    eagerly and from a CUDA graph, with the bound; the partials sum alone
+    at each shape's [P, d] against its plain version."""
+    shapes, sums = [], []
+    for rows, d in RMS_BWD_SHAPES:
+        x, w, g = rms_bwd_inputs(gen, rows, d)
+        rec = rms_bwd_check(x, w, g)
+        if not rec["ok"]:
+            raise AssertionError(f"rmsnorm_bwd rows={rows} d={d}: {rec}")
+        rec.update(rows=rows, d=d, plan=rn.bwd_plan(rows, x.device),
+                   **rms_bwd_timings(x, w, g), **rms_bwd_bound(x))
+        rec["bound_share"] = rec["bound_ms"] / rec["graph_ms"]
+        shapes.append(rec)
+        print(f"rmsnorm_bwd rows={rows} d={d}: {json.dumps(rec)}",
+              flush=True)
+        parts = torch.randn(rec["plan"][0], d, generator=gen, device="cuda")
+        got = rn.rmsnorm_dw_sum(parts, torch.bfloat16)
+        want = parts.sum(0).bfloat16()
+        err = local_err(got, want)
+        if not within_local(err) or \
+                not bits_equal(got, rn.rmsnorm_dw_sum(parts, torch.bfloat16)):
+            raise AssertionError(f"rmsnorm_dw_sum {tuple(parts.shape)}: "
+                                 f"{err}")
+        sums.append({"parts": rec["plan"][0], "d": d, **err,
+                     **timings(lambda: rn.rmsnorm_dw_sum(parts,
+                                                         torch.bfloat16),
+                               lambda: parts.sum(0).bfloat16(), None,
+                               200, 200),
+                     **bound(parts.numel() * 4 + d * 2, parts.numel(),
+                             F32_FLOPS)})
+        del x, w, g, parts
+    torch.cuda.empty_cache()
+    return {"shapes": shapes, "main": shapes[0]}, \
+        {"shapes": sums, "main": sums[0]}
+
+
+def _empty_kernel_body(x_ptr):
+    pass
+
+
+def launch_floor() -> dict:
+    """An empty Triton kernel of one program: its time from a CUDA graph
+    and eagerly, the least any Triton launch costs on either path."""
+    import triton
+    kernel = triton.jit(_empty_kernel_body)
+    x = torch.empty(1, device="cuda")
+    launch = lambda: kernel[(1,)](x)  # noqa: E731
+    return {"empty_triton_graph_ms": graph_ms(launch, 200),
+            "empty_triton_ms": cuda_ms(launch, 200),
+            "empty_triton_host_ms": host_ms(launch, 200)}
+
+
+def bound(nbytes: float, flops: float, peak: float = BF16_FLOPS) -> dict:
     """The least time the card could take: bytes over the memory rate or
-    operations over the bf16 tensor-core peak, whichever is larger."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / BF16_FLOPS
+    operations over ``peak`` (the bf16 tensor-core peak unless named),
+    whichever is larger."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / peak
     return {"bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -1331,7 +1519,8 @@ def check_ring(gen: torch.Generator) -> dict:
     print(f"ring whole B={B} S={S}: {json.dumps(whole)}", flush=True)
     blocks = RING_SP * (RING_SP + 1) // 2
     want = {"ring_attention_fwd": 1, "flash_bwd_dkv": blocks,
-            "flash_bwd_dq": blocks, "flash_fwd": 0, "rmsnorm": 0}
+            "flash_bwd_dq": blocks, "flash_fwd": 0, "rmsnorm": 0,
+            "rmsnorm_bwd": 0, "rmsnorm_bwd_dw": 0}
     if whole["launches"] != want or not (
             all(within_local(e) for e in whole["flash_attention"].values())
             and within_local(whole["plain_ring"]["out"])
@@ -1389,7 +1578,8 @@ def train_ring(seed: int = 0, profile: bool = False) -> dict:
     blocks = RING_SP * (RING_SP + 1) // 2        # causal blocks a layer
     per_step = {"ring_attention_fwd": 2 * L,      # remat: fwd twice
                 "flash_fwd": 0, "flash_bwd_dkv": L * blocks,
-                "flash_bwd_dq": L * blocks, "rmsnorm": 2 * 2 * L + 1}
+                "flash_bwd_dq": L * blocks, "rmsnorm": 2 * 2 * L + 1,
+                "rmsnorm_bwd": 2 * L + 1, "rmsnorm_bwd_dw": 2 * L + 1}
     tc = ts.TrainConfig(learning_rate=3e-4, warmup_steps=1,
                         decay_steps=RING_STEPS)
     init, step, shardings = ts.make_sharded_train_fns(
@@ -1415,8 +1605,10 @@ def train_ring(seed: int = 0, profile: bool = False) -> dict:
         run["grad_norm"].append(float(m["grad_norm"]))
         run["step_ms"].append((time.perf_counter() - t0) * 1e3)
     launches = train_counts()
+    run["rmsnorm_bwd_g_copies"] = rn.bwd_g_copies
     if profile:
         run["profile"] = profile_step(step, state, batch)
+        check_profiled(run, per_step, "train ring")
     want = {k: n * RING_STEPS for k, n in per_step.items()}
     expect = math.log(cfg.vocab_size) + 0.5
     run.update(model="llama_1b", attn_impl=cfg.attn_impl, batch=RING_B,
@@ -2531,6 +2723,7 @@ def mixtral_train(smi: str, seed: int = 0) -> dict:
                      for leaf in param_leaves(params))
         steps.append({"ms": ms, **{k: v.item() for k, v in m.items()},
                       "grads_finite": finite, "launches": launches,
+                      "rmsnorm_bwd_g_copies": rn.bwd_g_copies,
                       "moe_host_syncs": moe.host_syncs})
         if launches != per_step or not finite or \
                 not all(math.isfinite(v) for k, v in steps[-1].items()
@@ -2563,6 +2756,7 @@ def param_leaves(params) -> list:
 
 def reset_counts() -> None:
     rn.launches = da.launches = da.launches_quant = pa.launches = 0
+    rn.bwd_launches = rn.bwd_dw_launches = rn.bwd_g_copies = 0
     fa.fwd_launches = fa.bwd_dkv_launches = fa.bwd_dq_launches = 0
     ra.launches = 0
     moe.host_syncs = 0
@@ -2589,6 +2783,8 @@ def train_counts() -> dict:
     return {"flash_fwd": fa.fwd_launches,
             "flash_bwd_dkv": fa.bwd_dkv_launches,
             "flash_bwd_dq": fa.bwd_dq_launches, "rmsnorm": rn.launches,
+            "rmsnorm_bwd": rn.bwd_launches,
+            "rmsnorm_bwd_dw": rn.bwd_dw_launches,
             "ring_attention_fwd": ra.launches}
 
 
@@ -2608,13 +2804,15 @@ def profile_step(step, state, batch) -> dict:
         _, m = step(state, batch)
         float(m["loss"])
         wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name, spans = {}, []
+    by_name, spans, named = {}, [], dict.fromkeys(RMS_BWD_KERNELS, 0)
     for ev in prof.events():
         if ev.device_type != DeviceType.CUDA:
             continue
         a, b = ev.time_range.start, ev.time_range.end
         by_name[ev.name] = by_name.get(ev.name, 0.0) + (b - a) / 1e3
         spans.append((a, b))
+        for key, kernel in RMS_BWD_KERNELS.items():
+            named[key] += kernel in ev.name
     busy, end = 0.0, None
     for a, b in sorted(spans):
         if end is None or a > end:
@@ -2626,14 +2824,30 @@ def profile_step(step, state, batch) -> dict:
             "device_ms_total": sum(by_name.values()),
             "kernel_events": len(spans),
             "idle_share": (1 - busy_ms / wall_ms) if spans else None,
+            "kernels_by_name": named,
             "top_kernels_ms": sorted(by_name.items(),
                                      key=lambda kv: -kv[1])[:25]}
+
+
+# The backward's kernels by their name in a profile, by launch counter.
+RMS_BWD_KERNELS = {"rmsnorm_bwd": "_rmsnorm_bwd_body",
+                   "rmsnorm_bwd_dw": "_rmsnorm_dw_body"}
+
+
+def check_profiled(run: dict, per_step: dict, what: str) -> None:
+    """A profiled step's device kernels named after the backward's, one
+    each a launch the step counts."""
+    named = run["profile"]["kernels_by_name"]
+    if any(named[k] != per_step[k] for k in RMS_BWD_KERNELS):
+        raise AssertionError(f"{what}: profiled kernels {named}, expected "
+                             f"{ {k: per_step[k] for k in RMS_BWD_KERNELS} }")
 
 
 def train_per_step(L: int) -> dict:
     """Kernel launches of one llama training step through the launcher."""
     return {"flash_fwd": 2 * L, "flash_bwd_dkv": L, "flash_bwd_dq": L,
             "rmsnorm": 2 * 2 * L + 1,              # full remat: fwd twice
+            "rmsnorm_bwd": 2 * L + 1, "rmsnorm_bwd_dw": 2 * L + 1,
             "ring_attention_fwd": 0}
 
 
@@ -2655,6 +2869,7 @@ def train(seed: int = 0, profile: bool = False) -> dict:
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = train_counts()
+    copies = rn.bwd_g_copies
     print(buf.getvalue(), end="", flush=True)
     steps = [re.fullmatch(r"step (\d+) loss (\S+) tok/s (\d+)", ln)
              for ln in buf.getvalue().splitlines() if ln.startswith("step ")]
@@ -2675,6 +2890,7 @@ def train(seed: int = 0, profile: bool = False) -> dict:
     run = {"argv": argv, "wall_s": wall_s, "losses": losses, "tok_s": tok_s,
            "step_ms": [tokens / t * 1e3 for t in tok_s],
            "launches": launches, "launches_per_step": per_step,
+           "rmsnorm_bwd_g_copies": copies,
            "max_memory_allocated_gb": launcher_peak}
 
     # One fixed batch, f32 masters: the loss must fall.
@@ -2702,9 +2918,11 @@ def train(seed: int = 0, profile: bool = False) -> dict:
         fixed["step_ms"].append((time.perf_counter() - t0) * 1e3)
     fixed_launches = train_counts()
     fixed["launches"] = fixed_launches
+    fixed["rmsnorm_bwd_g_copies"] = rn.bwd_g_copies
     fixed["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
     if profile:
         fixed["profile"] = profile_step(step, state, batch)
+        check_profiled(fixed, per_step, "train")
     print(f"fixed batch (f32 masters): {json.dumps(fixed)}", flush=True)
     vals = fixed["loss"] + fixed["grad_norm"]
     if not all(math.isfinite(x) for x in vals) or \
@@ -3190,20 +3408,56 @@ BENCH_DETAIL_KEYS = {"model", "params", "batch", "seq", "steps",
 BENCH_TOLERANCE = 0.10
 
 
-def bench(train_step_ms: float, smi: str) -> dict:
-    """``python -m kuberay_tpu_torch.bench`` as a process: its JSON line
-    (the JAX bench's keys), and its median step (CUDA events) within 10% of
-    the ``train`` phase's steady launcher step at the same shape."""
+# ``python -m kuberay_tpu_torch.bench`` with its kernel launch counts and
+# the backward's g copies printed to stderr at exit.
+BENCH_WITH_COUNTS = (
+    "import atexit, json, runpy, sys\n"
+    "from kuberay_tpu_torch.ops import attention as fa\n"
+    "from kuberay_tpu_torch.ops import rmsnorm as rn\n"
+    "atexit.register(lambda: print('kernel launches ' + json.dumps(\n"
+    "    {'flash_fwd': fa.fwd_launches,\n"
+    "     'flash_bwd_dkv': fa.bwd_dkv_launches,\n"
+    "     'flash_bwd_dq': fa.bwd_dq_launches, 'rmsnorm': rn.launches,\n"
+    "     'rmsnorm_bwd': rn.bwd_launches,\n"
+    "     'rmsnorm_bwd_dw': rn.bwd_dw_launches,\n"
+    "     'rmsnorm_bwd_g_copies': rn.bwd_g_copies}), file=sys.stderr,\n"
+    "    flush=True))\n"
+    "runpy.run_module('kuberay_tpu_torch.bench', run_name='__main__',\n"
+    "                 alter_sys=True)\n")
+
+
+def run_bench(args: list, what: str) -> tuple:
+    """The bench as a process with ``args``: (its stdout's last line, its
+    launch counts, its wall seconds, its stderr).  Fails unless it exits 0
+    and launched the training kernels exactly as the launcher's steps do,
+    for its warm-up and timed steps."""
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    out = subprocess.run([sys.executable, "-m", "kuberay_tpu_torch.bench"],
+    out = subprocess.run([sys.executable, "-c", BENCH_WITH_COUNTS, *args],
                          cwd=ROOT, capture_output=True, text=True,
                          timeout=600)
     wall_s = time.perf_counter() - t0
     if out.returncode != 0:
-        raise AssertionError(f"bench: rc {out.returncode}\n{out.stdout}\n"
+        raise AssertionError(f"{what}: rc {out.returncode}\n{out.stdout}\n"
                              f"{out.stderr[-4000:]}")
     line = json.loads(out.stdout.strip().splitlines()[-1])
+    counts = json.loads([ln for ln in out.stderr.splitlines()
+                         if ln.startswith("kernel launches ")][-1]
+                        [len("kernel launches "):])
+    per_step = train_per_step(llama.CONFIGS["llama_1b"].n_layers)
+    steps = 1 + line["detail"]["steps"]                # the warm-up too
+    want = {k: per_step[k] * steps for k in counts if k in per_step}
+    if {k: counts[k] for k in want} != want:
+        raise AssertionError(f"{what}: launches {counts} != {want}")
+    return line, counts, wall_s, out.stderr
+
+
+def bench(train_step_ms: float, smi: str) -> dict:
+    """``python -m kuberay_tpu_torch.bench`` as a process: its JSON line
+    (the JAX bench's keys), its launches exactly the launcher's a step,
+    and its median step (CUDA events) within 10% of the ``train`` phase's
+    steady launcher step at the same shape."""
+    line, counts, wall_s, _ = run_bench([], "bench")
     print(f"bench: {json.dumps(line)}", flush=True)
     d = line["detail"]
     if set(line) != BENCH_KEYS or set(d) != BENCH_DETAIL_KEYS:
@@ -3212,7 +3466,7 @@ def bench(train_step_ms: float, smi: str) -> dict:
     rel = step_ms / train_step_ms - 1
     run = {"line": line, "step_ms": step_ms,
            "train_phase_step_ms": train_step_ms, "relative": rel,
-           "wall_s": wall_s, "card": smi}
+           "launches": counts, "wall_s": wall_s, "card": smi}
     print(f"bench step {step_ms:.2f} ms (CUDA events) against the train "
           f"phase's steady {train_step_ms:.2f} ms (host clock): {rel:+.3f}; "
           f"{smi}", flush=True)
@@ -3265,7 +3519,7 @@ def entry_phase(smi: str, seed: int = 8) -> dict:
     ms = cuda_ms(lambda: fn(params, tokens), 5, warmup=1)
     want = {"flash_fwd": cfg.n_layers, "flash_bwd_dkv": 0,
             "flash_bwd_dq": 0, "rmsnorm": 2 * cfg.n_layers + 1,
-            "ring_attention_fwd": 0}
+            "rmsnorm_bwd": 0, "rmsnorm_bwd_dw": 0, "ring_attention_fwd": 0}
     run = {"shape": list(logits.shape), "dtype": str(logits.dtype),
            "vs_plain": rec, "random_tokens": rand_rec,
            "launches": launches, "forward_ms": ms, "card": smi}
@@ -3391,8 +3645,10 @@ MESH_RANK = (
     "print('rank result ' + json.dumps({'rc': rc,\n"
     "    'peak_gb': torch.cuda.max_memory_allocated() / 1e9,\n"
     "    'flash_fwd': fa.fwd_launches, 'flash_bwd_dkv': fa.bwd_dkv_launches,\n"
-    "    'flash_bwd_dq': fa.bwd_dq_launches, 'rmsnorm': rn.launches}),\n"
-    "    flush=True)\n")
+    "    'flash_bwd_dq': fa.bwd_dq_launches, 'rmsnorm': rn.launches,\n"
+    "    'rmsnorm_bwd': rn.bwd_launches,\n"
+    "    'rmsnorm_bwd_dw': rn.bwd_dw_launches,\n"
+    "    'rmsnorm_bwd_g_copies': rn.bwd_g_copies}), flush=True)\n")
 # (name, launcher flags, per-rank env): fsdp and tp on one slice of two
 # workers (fsdp absorbs what --tp leaves), dp as two slices of one worker.
 MESH_LAYOUTS = (
@@ -3522,6 +3778,8 @@ def mesh_train(smi: str) -> dict:
                                * 1e3 for m in steps if m],
                    "peak_gb": [r["peak_gb"] for r in ranks],
                    "launches": [{k: r[k] for k in want} for r in ranks],
+                   "rmsnorm_bwd_g_copies": [r["rmsnorm_bwd_g_copies"]
+                                            for r in ranks],
                    "collectives": staged}
             bad = []
             if len(delta) != len(seed):
@@ -4390,7 +4648,9 @@ PP_RANK = (
     "def counts():\n"
     "    return {'flash_fwd': fa.fwd_launches,\n"
     "            'flash_bwd_dkv': fa.bwd_dkv_launches,\n"
-    "            'flash_bwd_dq': fa.bwd_dq_launches, 'rmsnorm': rn.launches}\n"
+    "            'flash_bwd_dq': fa.bwd_dq_launches, 'rmsnorm': rn.launches,\n"
+    "            'rmsnorm_bwd': rn.bwd_launches,\n"
+    "            'rmsnorm_bwd_dw': rn.bwd_dw_launches}\n"
     "def step(stack):\n"
     "    out = pipeline_apply(layer, stack, x, mesh, n_microbatches=n_micro)\n"
     "    (out.float() ** 2).sum().backward()\n"
@@ -4399,7 +4659,8 @@ PP_RANK = (
     "stack = fresh()\n"
     "torch.cuda.synchronize()\n"
     "fa.fwd_launches = fa.bwd_dkv_launches = fa.bwd_dq_launches = 0\n"
-    "rn.launches = 0\n"
+    "rn.launches = rn.bwd_launches = rn.bwd_dw_launches = 0\n"
+    "rn.bwd_g_copies = 0\n"
     "t0 = time.perf_counter()\n"
     "out = step(stack)\n"
     "torch.cuda.synchronize()\n"
@@ -4424,6 +4685,7 @@ PP_RANK = (
     "    stack[k].grad[rows.stop:]]).any()) for k in stack)\n"
     "print('rank result ' + json.dumps({\n"
     "    'rank': rank, 'step_ms': step_ms, 'launches': launches,\n"
+    "    'rmsnorm_bwd_g_copies': rn.bwd_g_copies,\n"
     "    'out_bits_equal': bool(torch.equal(out, ref)),\n"
     "    'out_finite': bool(torch.isfinite(out).all()),\n"
     "    'out_max_abs_diff': (out.float() - ref.float()).abs().max().item(),\n"
@@ -4472,7 +4734,8 @@ def pipeline_phase(smi: str) -> dict:
         ranks.append(json.loads(lines[-1][len("rank result "):]))
     per = llama.CONFIGS["llama_1b"].n_layers // PP_STAGES * PP_MICRO
     want = {"flash_fwd": per, "flash_bwd_dkv": per, "flash_bwd_dq": per,
-            "rmsnorm": 2 * per}
+            "rmsnorm": 2 * per, "rmsnorm_bwd": 2 * per,
+            "rmsnorm_bwd_dw": 2 * per}
     run = {"stages": PP_STAGES, "microbatches": PP_MICRO,
            "shape": [PP_B, PP_S], "wall_s": wall_s, "ranks": ranks,
            "launches_per_rank": want,
@@ -4494,18 +4757,11 @@ def bench_profile(smi: str) -> dict:
     """``python -m kuberay_tpu_torch.bench --profile-out PATH`` as a
     process: its stdout line has the bench's keys, and the document is
     ``tpu-profile/v1`` with one ``train`` record a timed step, each
-    holding ``dispatch`` and ``host-fetch``, and the bench's meta."""
-    torch.cuda.empty_cache()
+    holding ``dispatch`` and ``host-fetch``, and the bench's meta; its
+    launches exactly the launcher's a step."""
     path = Path(tempfile.mkdtemp(prefix="bench-profile-")) / "profile.json"
-    t0 = time.perf_counter()
-    out = subprocess.run([sys.executable, "-m", "kuberay_tpu_torch.bench",
-                          "--profile-out", str(path)], cwd=ROOT,
-                         capture_output=True, text=True, timeout=600)
-    wall_s = time.perf_counter() - t0
-    if out.returncode != 0:
-        raise AssertionError(f"bench --profile-out: rc {out.returncode}\n"
-                             f"{out.stdout}\n{out.stderr[-4000:]}")
-    line = json.loads(out.stdout.strip().splitlines()[-1])
+    line, counts, wall_s, stderr = run_bench(["--profile-out", str(path)],
+                                             "bench --profile-out")
     doc = json.loads(path.read_text())
     shutil.rmtree(path.parent, ignore_errors=True)
     d = line["detail"]
@@ -4517,7 +4773,7 @@ def bench_profile(smi: str) -> dict:
                                               "fraction")}
                      for k, v in kinds.items()},
            "step_ms": d["batch"] * d["seq"] / line["value"] * 1e3,
-           "card": smi}
+           "launches": counts, "card": smi}
     print(f"bench_profile: {json.dumps(run)}", flush=True)
     meta_want = {"source": "kuberay_tpu_torch.bench", "model": "llama_1b",
                  "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": d["steps"],
@@ -4527,7 +4783,7 @@ def bench_profile(smi: str) -> dict:
             doc.get("meta") != meta_want or train.get("traces") != d["steps"] \
             or set(kinds) != {"dispatch", "host-fetch"} or \
             any(k["count"] != d["steps"] for k in kinds.values()) or \
-            f"profile -> {path}" not in out.stderr:
+            f"profile -> {path}" not in stderr:
         raise AssertionError(f"bench --profile-out: {run}")
     return run
 
@@ -4669,6 +4925,8 @@ def main(argv=None) -> None:
                **{name: run["launches"] for name, run in options.items()},
                "mixtral_train": moe_train["launches"],
                "train": trn["launcher"]["launches"],
+               "bench": bnch["launches"],
+               "bench_profile": bprof["launches"],
                "train_ring": trn_ring["launches"],
                "train_ckpt": handoff["launcher"]["launches"],
                "serve_ckpt": handoff["server"]["launches"],
@@ -4689,6 +4947,9 @@ def main(argv=None) -> None:
                 "library_ms": m["library_ms"],
                 **({"library_of": m["library_of"]} if "library_of" in m
                    else {}),
+                **({"graph_ms": m["graph_ms"],
+                    "library_graph_ms": m["library_graph_ms"]}
+                   if name.startswith("rmsnorm") else {}),
                 **({"graph_ms": m["graph_ms"], "tflops": m["tflops"],
                     "graph_tflops": m["graph_tflops"],
                     "resources": hopper[name]}
@@ -4703,6 +4964,10 @@ def main(argv=None) -> None:
     kernels = {"kernels": [
         entry("rmsnorm", "triton", "kuberay_tpu_torch/ops/rmsnorm.py",
               "kuberay_tpu/ops/rmsnorm.py:27", rms),
+        entry("rmsnorm_bwd", "triton", "kuberay_tpu_torch/ops/rmsnorm.py",
+              "kuberay_tpu/ops/rmsnorm.py:90", rms["bwd"]),
+        entry("rmsnorm_bwd_dw", "triton", "kuberay_tpu_torch/ops/rmsnorm.py",
+              "kuberay_tpu/ops/rmsnorm.py:90", rms["dw_sum"]),
         entry("decode_attention", "cuda",
               "kuberay_tpu_torch/csrc/decode_attention.cu",
               "kuberay_tpu/ops/decode_attention.py:150", dec),

@@ -1,20 +1,37 @@
-"""Fused RMSNorm: a Triton kernel for CUDA tensors, plain torch on the CPU.
+"""Fused RMSNorm: Triton kernels for CUDA tensors, plain torch on the CPU.
 
-Replaces ``kuberay_tpu/ops/rmsnorm.py::_rmsnorm_kernel`` (via
-``rmsnorm_pallas``).  ``rmsnorm`` is differentiable: its forward is the
-kernel, and its backward recomputes through ``rmsnorm_ref`` under autograd,
-as the JAX package takes the vjp of ``rmsnorm_xla`` (``_rmsnorm_bwd``); the
-JAX package has no backward kernel, so neither has the port.
+Forward.  Replaces ``kuberay_tpu/ops/rmsnorm.py::_rmsnorm_kernel`` (via
+``rmsnorm_pallas``).  Bound on an H100: bytes.  The kernel reads x and the
+weight once and writes y once (2 * rows * d * 2 B + d * 2 B for bf16); at
+the 8B decode shape (8 rows, d = 4096) that is 131 KB, about 0.04 us at
+3.35 TB/s, so a launch costs far more than the work.  Design: one program
+per row holds the whole row in registers (d = 4096 at 8 warps is 16 values
+a thread), reduces the mean square in float32 and writes the scaled row in
+one pass; the column block is the next power of two and masked, so any row
+count and any d take the kernel (the TPU kernel instead fell back to XLA
+for row counts its block did not divide).
 
-Bound on an H100: bytes.  The kernel reads x and the weight once and writes
-y once (2 * rows * d * 2 B + d * 2 B for bf16); at the 8B decode shape
-(8 rows, d = 4096) that is 131 KB, about 0.04 us at 3.35 TB/s, so a launch
-costs far more than the work.  Design: one program per row holds the whole
-row in registers (d = 4096 at 8 warps is 16 values a thread), reduces the
-mean square in float32 and writes the scaled row in one pass; the column
-block is the next power of two and masked, so any row count and any d
-take the kernel (the TPU kernel instead fell back to XLA for row counts
-its block did not divide).
+Backward.  The JAX package takes the vjp of ``rmsnorm_xla`` inside its
+``custom_vjp`` (``_rmsnorm_bwd``), which XLA fuses; the port computes that
+vjp in closed form, all in float32, per row:
+
+    r = rsqrt(mean(x^2) + eps),  x^ = x r,  gw = g w,  c = mean(gw x^)
+    dx = r (gw - x^ c)                      (in x.dtype)
+    dw = sum over rows of g x^              (in weight.dtype)
+
+``rmsnorm_bwd_ref`` is that in plain torch; ``rmsnorm_bwd`` launches two
+Triton kernels.  Bound: bytes, x and g read and dx written once (3 * rows
+* d * 2 B for bf16) plus w and dw; 100.7 MB at llama_1b's 8192 x 2048,
+0.030 ms at 3.35 TB/s.  Design: P programs (a few per SM) each walk a
+fixed run of rows with w in registers, write each row's dx and add g x^
+into a float32 [d] accumulator held in registers, then store it as their
+row of a [P, d] float32 partials buffer; a second launch sums the P
+partials per column in a fixed order.  No floating-point atomics, so dw is
+the same bits from call to call (the order depends on the shape and the
+card's SM count alone).  The gradient g may arrive strided (tp's
+``copy_to``, a pipeline hop, an expanded ``sum()`` gradient): any layout
+that views as [rows, d] is read through its strides, and only one that
+does not is copied (``bwd_g_copies``).
 """
 
 from __future__ import annotations
@@ -24,9 +41,21 @@ import threading
 import torch
 
 launches = 0           # kernel launches on CUDA tensors, for run-time checks
+bwd_launches = 0       # backward row-kernel launches
+bwd_dw_launches = 0    # backward partials-sum launches
+bwd_g_copies = 0       # gradients copied to a [rows, d] layout first
+
+# Backward programs per SM: each keeps w and its accumulator in registers,
+# so a few resident programs an SM keep enough row loads in flight.
+PROGRAMS_PER_SM = 4
+# The partials sum loads one [P, DW_TILE / P] tile a program (P rounded up
+# to a power of two) and reduces it down the column.
+DW_TILE = 8192
 
 _lock = threading.Lock()
-_kernel = None
+_jitted = {}
+_sm_counts = {}
+_compiled = {}         # variant name -> Triton's compiled kernel
 
 
 def rmsnorm_ref(x: torch.Tensor, weight: torch.Tensor,
@@ -36,6 +65,21 @@ def rmsnorm_ref(x: torch.Tensor, weight: torch.Tensor,
     var = (xf * xf).mean(dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * weight.float()).to(x.dtype)
+
+
+def rmsnorm_bwd_ref(x: torch.Tensor, weight: torch.Tensor, g: torch.Tensor,
+                    eps: float = 1e-5):
+    """Plain PyTorch version of the backward, the closed form above:
+    (dx in ``x.dtype``, dw in ``weight.dtype``)."""
+    d = x.shape[-1]
+    xf, gf = x.float(), g.float()
+    r = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    xhat = xf * r
+    gw = gf * weight.float()
+    c = (gw * xhat).mean(dim=-1, keepdim=True)
+    dx = (r * (gw - xhat * c)).to(x.dtype)
+    dw = (gf * xhat).reshape(-1, d).sum(dim=0).to(weight.dtype)
+    return dx, dw
 
 
 def _rmsnorm_kernel_body(x_ptr, w_ptr, o_ptr, n_cols, eps,
@@ -52,17 +96,81 @@ def _rmsnorm_kernel_body(x_ptr, w_ptr, o_ptr, n_cols, eps,
              (y * w).to(o_ptr.dtype.element_ty), mask=mask)
 
 
-def _get_kernel():
-    """JIT-wrap the kernel on first launch.  ``triton`` is imported here,
-    never at module import (the CPU tests import this module without it);
-    the kernel body resolves ``tl`` from this module's globals."""
-    global _kernel, tl
+def _rmsnorm_bwd_body(x_ptr, w_ptr, g_ptr, dx_ptr, part_ptr, n_rows, n_cols,
+                      g_stride_row, g_stride_col, rows_per, eps,
+                      BLOCK: tl.constexpr, WRITE_DX: tl.constexpr,  # noqa
+                      ACC_DW: tl.constexpr):  # noqa: F821
+    pid = tl.program_id(0)
+    cols = tl.arange(0, BLOCK)
+    mask = cols < n_cols
+    w = tl.load(w_ptr + cols, mask=mask, other=0.0).to(tl.float32)
+    acc = tl.zeros((BLOCK,), dtype=tl.float32)
+    first = pid.to(tl.int64) * rows_per
+    for i in range(0, tl.minimum(rows_per, n_rows - first)):
+        row = first + i
+        x = tl.load(x_ptr + row * n_cols + cols, mask=mask,
+                    other=0.0).to(tl.float32)
+        g = tl.load(g_ptr + row * g_stride_row + cols * g_stride_col,
+                    mask=mask, other=0.0).to(tl.float32)
+        r = tl.rsqrt(tl.sum(x * x, axis=0) / n_cols + eps)
+        xhat = x * r
+        if WRITE_DX:
+            gw = g * w
+            c = tl.sum(gw * xhat, axis=0) / n_cols
+            tl.store(dx_ptr + row * n_cols + cols,
+                     (r * (gw - xhat * c)).to(dx_ptr.dtype.element_ty),
+                     mask=mask)
+        if ACC_DW:
+            acc += g * xhat
+    if ACC_DW:
+        tl.store(part_ptr + pid.to(tl.int64) * n_cols + cols, acc,
+                 mask=mask)
+
+
+def _rmsnorm_dw_body(part_ptr, dw_ptr, n_parts, n_cols,
+                     PARTS: tl.constexpr, COLS: tl.constexpr):  # noqa: F821
+    cols = tl.program_id(0) * COLS + tl.arange(0, COLS)
+    parts = tl.arange(0, PARTS)
+    mask = (parts[:, None] < n_parts) & (cols[None, :] < n_cols)
+    p = tl.load(part_ptr + parts[:, None] * n_cols + cols[None, :],
+                mask=mask, other=0.0)
+    tl.store(dw_ptr + cols, tl.sum(p, axis=0).to(dw_ptr.dtype.element_ty),
+             mask=cols < n_cols)
+
+
+def _jit(body):
+    """JIT-wrap a kernel body on its first launch.  ``triton`` is imported
+    here, never at module import (the CPU tests import this module without
+    it); the bodies resolve ``tl`` from this module's globals."""
+    global tl
     with _lock:
-        if _kernel is None:
+        if body not in _jitted:
             import triton
             import triton.language as tl  # noqa: F811
-            _kernel = triton.jit(_rmsnorm_kernel_body)
-        return _kernel
+            _jitted[body] = triton.jit(body)
+        return _jitted[body]
+
+
+def resources() -> dict:
+    """Registers a thread and spills of every kernel variant launched so
+    far, by variant name, from Triton's compiled kernels."""
+    return {name: {"registers": getattr(k, "n_regs", None),
+                   "spills": getattr(k, "n_spills", None)}
+            for name, k in sorted(_compiled.items())}
+
+
+def _check(x: torch.Tensor, weight: torch.Tensor, what: str) -> int:
+    """d, after the wrappers' device, shape and dtype checks."""
+    if x.device.type != "cuda" or weight.device != x.device:
+        raise ValueError(f"{what}: x on {x.device}, weight on "
+                         f"{weight.device}; both must be on one CUDA device")
+    d = x.shape[-1]
+    if weight.shape != (d,):
+        raise ValueError(f"{what}: weight shape {tuple(weight.shape)} "
+                         f"!= ({d},)")
+    if x.dtype not in (torch.bfloat16, torch.float16, torch.float32):
+        raise TypeError(f"{what}: unsupported dtype {x.dtype}")
+    return d
 
 
 def rmsnorm_fwd(x: torch.Tensor, weight: torch.Tensor,
@@ -72,15 +180,7 @@ def rmsnorm_fwd(x: torch.Tensor, weight: torch.Tensor,
     global launches
     if x.device.type == "cpu":
         return rmsnorm_ref(x, weight, eps)
-    if x.device.type != "cuda" or weight.device != x.device:
-        raise ValueError(f"rmsnorm: x on {x.device}, weight on "
-                         f"{weight.device}; both must be on one CUDA device")
-    d = x.shape[-1]
-    if weight.shape != (d,):
-        raise ValueError(f"rmsnorm: weight shape {tuple(weight.shape)} "
-                         f"!= ({d},)")
-    if x.dtype not in (torch.bfloat16, torch.float16, torch.float32):
-        raise TypeError(f"rmsnorm: unsupported dtype {x.dtype}")
+    d = _check(x, weight, "rmsnorm")
     x2 = x.reshape(-1, d)
     if not x2.is_contiguous():
         raise ValueError("rmsnorm: x must be contiguous")
@@ -90,10 +190,106 @@ def rmsnorm_fwd(x: torch.Tensor, weight: torch.Tensor,
     if rows:
         import triton
         block = triton.next_power_of_2(d)
-        _get_kernel()[(rows,)](x2, w, out, d, eps, BLOCK=block,
-                               num_warps=8 if block >= 2048 else 4)
+        warps = 8 if block >= 2048 else 4
+        _compiled[f"rmsnorm BLOCK={block} warps={warps}"] = \
+            _jit(_rmsnorm_kernel_body)[(rows,)](x2, w, out, d, eps,
+                                                BLOCK=block, num_warps=warps)
         launches += 1
     return out.reshape(x.shape)
+
+
+def bwd_plan(rows: int, device: torch.device) -> tuple:
+    """(programs, rows a program) of the backward's row kernel: about
+    PROGRAMS_PER_SM programs an SM, each a contiguous run of rows."""
+    if device.index not in _sm_counts:
+        _sm_counts[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    per = max(1, -(-rows // (PROGRAMS_PER_SM * _sm_counts[device.index])))
+    return -(-rows // per), per
+
+
+def bwd_warps(block: int) -> int:
+    """Warps of the backward's row kernel for a row block of ``block``
+    columns: at most 16 values of each row tensor a thread, spill-free up
+    to 8192 columns (``tools/rmsnorm_bwd_probe.py`` reads the registers
+    and spills of each variant and times the alternatives)."""
+    return 16 if block >= 8192 else 8 if block >= 2048 else 4
+
+
+def _as_rows(g: torch.Tensor, rows: int, d: int) -> torch.Tensor:
+    """g as [rows, d], through its strides where it views so, else a
+    contiguous copy (counted in ``bwd_g_copies``)."""
+    global bwd_g_copies
+    g2 = g.reshape(rows, d)
+    if g2.data_ptr() != g.data_ptr():
+        bwd_g_copies += 1
+    return g2
+
+
+def rmsnorm_dw_sum(partials: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """dw from the row kernel's [P, d] float32 partials: each column's P
+    values summed in one fixed order, in ``dtype``."""
+    global bwd_dw_launches
+    if partials.device.type == "cpu":
+        return partials.sum(dim=0).to(dtype)
+    if partials.device.type != "cuda" or partials.dtype != torch.float32 \
+            or partials.dim() != 2 or not partials.is_contiguous():
+        raise ValueError(f"rmsnorm_dw_sum: partials {partials.dtype} "
+                         f"{tuple(partials.shape)} on {partials.device}")
+    import triton
+    n_parts, d = partials.shape
+    parts = triton.next_power_of_2(n_parts)
+    if parts > DW_TILE:
+        raise ValueError(f"rmsnorm_dw_sum: {n_parts} partials > {DW_TILE}")
+    dw = torch.empty(d, dtype=dtype, device=partials.device)
+    cols = min(triton.next_power_of_2(d), DW_TILE // parts)
+    _compiled[f"rmsnorm_dw_sum PARTS={parts} COLS={cols}"] = \
+        _jit(_rmsnorm_dw_body)[(triton.cdiv(d, cols),)](
+            partials, dw, n_parts, d, PARTS=parts, COLS=cols, num_warps=8)
+    bwd_dw_launches += 1
+    return dw
+
+
+def rmsnorm_bwd(x: torch.Tensor, weight: torch.Tensor, g: torch.Tensor,
+                eps: float = 1e-5, need_dx: bool = True,
+                need_dw: bool = True):
+    """(dx, dw) of ``rmsnorm`` at x for the output gradient g, each None
+    where not needed.  CPU tensors take ``rmsnorm_bwd_ref``; CUDA tensors
+    launch the Triton kernels or raise."""
+    global bwd_launches
+    if x.device.type == "cpu":
+        dx, dw = rmsnorm_bwd_ref(x, weight, g, eps)
+        return dx if need_dx else None, dw if need_dw else None
+    d = _check(x, weight, "rmsnorm_bwd")
+    if g.shape != x.shape or g.device != x.device:
+        raise ValueError(f"rmsnorm_bwd: g {tuple(g.shape)} on {g.device}, "
+                         f"x {tuple(x.shape)} on {x.device}")
+    rows = x.numel() // d if d else 0
+    x2 = x.reshape(rows, d).contiguous()
+    dx = torch.empty(x.shape, dtype=x.dtype, device=x.device) \
+        if need_dx else None
+    if not need_dw:
+        dw = None
+    elif not rows:
+        dw = torch.zeros_like(weight)
+    if rows and (need_dx or need_dw):
+        import triton
+        g2 = _as_rows(g, rows, d)
+        programs, per = bwd_plan(rows, x.device)
+        part = torch.empty(programs if need_dw else 1, d,
+                           dtype=torch.float32, device=x.device)
+        block = triton.next_power_of_2(d)
+        warps = bwd_warps(block)
+        _compiled[f"rmsnorm_bwd BLOCK={block} dx={int(need_dx)} "
+                  f"dw={int(need_dw)} warps={warps}"] = \
+            _jit(_rmsnorm_bwd_body)[(programs,)](
+                x2, weight.contiguous(), g2, x2 if dx is None else dx, part,
+                rows, d, g2.stride(0), g2.stride(1), per, eps, BLOCK=block,
+                WRITE_DX=need_dx, ACC_DW=need_dw, num_warps=warps)
+        bwd_launches += 1
+        if need_dw:
+            dw = rmsnorm_dw_sum(part, weight.dtype)
+    return dx, dw
 
 
 class _RMSNorm(torch.autograd.Function):
@@ -107,14 +303,10 @@ class _RMSNorm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, weight = ctx.saved_tensors
-        with torch.enable_grad():
-            xx = x.detach().requires_grad_(ctx.needs_input_grad[0])
-            ww = weight.detach().requires_grad_(ctx.needs_input_grad[1])
-            y = rmsnorm_ref(xx, ww, ctx.eps)
-            wanted = [t for t in (xx, ww) if t.requires_grad]
-            grads = iter(torch.autograd.grad(y, wanted, g))
-        return (next(grads) if xx.requires_grad else None,
-                next(grads) if ww.requires_grad else None, None)
+        dx, dw = rmsnorm_bwd(x, weight, g, ctx.eps,
+                             need_dx=ctx.needs_input_grad[0],
+                             need_dw=ctx.needs_input_grad[1])
+        return dx, dw, None
 
 
 def rmsnorm(x: torch.Tensor, weight: torch.Tensor,
@@ -122,8 +314,9 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor,
     """RMSNorm over the last axis.  x: [..., d]; weight: [d].
 
     CPU tensors take ``rmsnorm_ref``; CUDA tensors launch the Triton
-    kernel or raise.  Differentiable in x and weight; without a gradient
-    to record (the serving path) it calls the forward directly."""
+    kernel or raise.  Differentiable in x and weight (the backward:
+    ``rmsnorm_bwd``); without a gradient to record (the serving path) it
+    calls the forward directly."""
     if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad):
         return _RMSNorm.apply(x, weight, eps)
     return rmsnorm_fwd(x, weight, eps)
