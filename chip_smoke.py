@@ -14,6 +14,13 @@
    (yardstick only) with CUDA events, eagerly and replayed from a CUDA
    graph (device time without the host's launch cost), and computes each
    kernel's bound.
+   RMSNorm's forward (the CUDA kernel of ``csrc/rmsnorm.cu``) at every
+   serving and training row count, then at odd cases (``RMS_ODD``: rows 0
+   and 1, d 4100 and 1000, f16, f32, a weight dtype unlike x's, an x view
+   not 16-byte aligned, a row past the register path), each also a second
+   call bit for bit, with its launch plan and its instantiation's
+   registers, shared memory and spills from ptxas (a spill in any of the
+   36 instantiations fails the run).
    RMSNorm's backward (``rmsnorm_bwd``: the Triton row kernel and the
    partials sum) at every training shape (8192, 4096, 2048 and 300 rows
    of 2048, 4096 x 4096, 64 x 8192), dx and dw against ``rmsnorm_bwd_ref``
@@ -21,7 +28,8 @@
    bit, dx alone, dw alone, a strided and an expanded g; timed beside the
    plain chain (autograd through ``rmsnorm_ref``) and ``F.rms_norm``'s
    backward, the partials sum alone beside ``sum``; an empty Triton
-   kernel's time (the launch floor) beside the 8-row forward's.
+   kernel's and an empty CUDA kernel's time and host enqueue (the launch
+   floors) beside the 8-row forward's.
    The int8 decode kernel likewise (S 8, M 2048, 32 q / 8 kv heads of 128
    with lens 0..2048; M 1000; D 64 group 1), against its plain version
    (dequantise to bf16, then dense) and against the same attention with
@@ -561,14 +569,73 @@ def within_local(rec: dict) -> bool:
     return rec["worst"] <= 1.0 and rec["norm_rel"] <= FLASH_NORM_TOL
 
 
-def check_rmsnorm(gen: torch.Generator) -> dict:
+# RMSNorm's forward beyond the main shapes: (name, rows, d, x dtype, w
+# dtype, offset in values of x's start into a larger buffer).  Row counts
+# 0 and 1, widths no 16-byte unit divides (4100, and 1000 at 300 rows),
+# f16, f32, weights in another dtype than x's (float32 masters' casts),
+# an x view not 16-byte aligned, and a row past the register path (40000
+# values: the kernel's loop).  Drawn from a generator of their own, so
+# the later checks' inputs stay as they were.
+RMS_ODD = (("rows0", 0, 4096, torch.bfloat16, torch.bfloat16, 0),
+           ("rows1_d1000", 1, 1000, torch.bfloat16, torch.bfloat16, 0),
+           ("d4100", 8, 4100, torch.bfloat16, torch.bfloat16, 0),
+           ("d1000", 300, 1000, torch.bfloat16, torch.bfloat16, 0),
+           ("f16", 8, 4096, torch.float16, torch.float16, 0),
+           ("f32", 300, 2048, torch.float32, torch.float32, 0),
+           ("x_bf16_w_f32", 8, 4096, torch.bfloat16, torch.float32, 0),
+           ("x_f32_w_bf16", 64, 2048, torch.float32, torch.bfloat16, 0),
+           ("x_f16_w_bf16", 8, 4096, torch.float16, torch.bfloat16, 0),
+           ("offset", 8, 4096, torch.bfloat16, torch.bfloat16, 3),
+           ("d40000", 2, 40000, torch.bfloat16, torch.bfloat16, 0))
+RMS_SEED = 16
+# The forward kernel's instantiations in the build log: x and w dtype
+# codes, values a unit, units a thread in registers.
+RMS_KERNEL = r"rmsnorm_fwd_kernelILi(\d)ELi(\d)ELi(\d+)ELi(\d+)E"
+
+
+def rms_resources(libs) -> dict:
+    """Registers, static shared memory and spills of every instantiation
+    of the RMSNorm forward kernel, by ``rms_plan``'s variant key, from
+    ptxas.  Fails unless all 36 (3 x dtypes, 3 w dtypes, 2 unit widths, 2
+    register depths) are there without a spill."""
+    out = {}
+    for name, r in ptxas_report(libs).items():
+        m = re.search(RMS_KERNEL, name)
+        if m:
+            out["x{}w{}v{}n{}".format(*m.groups())] = dict(r)
+    if len(out) != 36 or any(r.get("spill_stores", 1) or
+                             r.get("spill_loads", 1) or "registers" not in r
+                             for r in out.values()):
+        raise AssertionError(f"rmsnorm_fwd_kernel: ptxas report {out} "
+                             f"(expected 36 instantiations, no spills)")
+    return out
+
+
+def rms_plan(x: torch.Tensor, w: torch.Tensor) -> dict:
+    """The plan ``rmsnorm_fwd`` launches for x and w (after a call), and
+    the kernel instantiation it runs (one CTA a row)."""
+    entry = rn.plans()[(x.shape, x.dtype, w.shape, w.dtype, x.device,
+                        w.device)]
+    args = rn.launch_args(entry, x.data_ptr(), w.data_ptr(), 0)
+    plan = dict(zip(("x_dtype", "w_dtype", "vec", "threads", "nv", "pdl"),
+                    args))
+    nv = plan["nv"]
+    plan["variant"] = "x{}w{}v{}n{}".format(
+        args[0], args[1], args[2], 1 if nv <= 1 else rn.MAX_NV)
+    return plan
+
+
+def check_rmsnorm(gen: torch.Generator, res: dict) -> dict:
     """RMSNorm at decode (8 rows), ragged and prefill row counts of the 8B
     serving path, llama_1b's at entry() (512 rows), at a pipeline
     microbatch (2048 rows) and at mesh_train's halved batch (4096 rows),
-    and llama_1b's training shape (4 x 2048 rows of 2048); then the
-    backward at every training shape (``check_rmsnorm_bwd``) and the
-    launch floor: an empty Triton kernel's time beside the 8-row
-    forward's."""
+    and llama_1b's training shape (4 x 2048 rows of 2048): the CUDA
+    kernel against ``rmsnorm_ref`` within RMS_ATOL, a second call bit for
+    bit, timed beside the plain version and ``F.rms_norm``, with its plan
+    and its instantiation's registers (``res``, from ``rms_resources``);
+    the same checks (untimed) at every RMS_ODD case; then the backward at
+    every training shape (``check_rmsnorm_bwd``) and the launch floor:
+    empty Triton and CUDA kernels beside the 8-row forward."""
     shapes = []
     for rows, d in ((1, D_MODEL), (8, D_MODEL), (300, D_MODEL),
                     (2048, D_MODEL), (512, 2048), (2048, 2048),
@@ -578,27 +645,62 @@ def check_rmsnorm(gen: torch.Generator) -> dict:
              ).bfloat16()
         w = (torch.rand(d, generator=gen, device="cuda") + 0.5
              ).bfloat16()
-        err = max_err(rn.rmsnorm(x, w), rn.rmsnorm_ref(x, w))
-        if not err <= RMS_ATOL:
+        y = rn.rmsnorm(x, w)
+        err = max_err(y, rn.rmsnorm_ref(x, w))
+        if not err <= RMS_ATOL or not bits_equal(y, rn.rmsnorm(x, w)):
             raise AssertionError(f"rmsnorm rows={rows} d={d}: max abs err "
-                                 f"{err} > {RMS_ATOL}")
+                                 f"{err} > {RMS_ATOL}, or two calls differ")
         nbytes = 2 * x.numel() * x.element_size() + w.numel() * 2
         flops = 4 * x.numel()
+        plan = rms_plan(x, w)
         shapes.append({
-            "rows": rows, "d": d, "max_abs_err": err,
+            "rows": rows, "d": d, "max_abs_err": err, "plan": plan,
+            "resources": res[plan["variant"]],
             **timings(lambda: rn.rmsnorm(x, w),
                       lambda: rn.rmsnorm_ref(x, w),
                       lambda: F.rms_norm(x, (d,), w, 1e-5), 200, 200),
             **bound(nbytes, flops)})
         print(f"rmsnorm rows={rows} d={d}: {json.dumps(shapes[-1])}",
               flush=True)
+    odd = check_rmsnorm_odd(res)
     bwd, dw_sum = check_rmsnorm_bwd(gen)
     floor = launch_floor()
     floor["rmsnorm_8_rows_graph_ms"] = shapes[1]["graph_ms"]
+    floor["rmsnorm_8_rows_host_ms"] = shapes[1]["host_ms"]
     print(f"launch floor: {json.dumps(floor)}", flush=True)
     return {"shapes": shapes, "main": shapes[1], "train": shapes[-1],
-            "bwd": bwd, "dw_sum": dw_sum, "launch_floor": floor,
+            "odd": odd, "bwd": bwd, "dw_sum": dw_sum, "launch_floor": floor,
             "resources": rn.resources()}
+
+
+def check_rmsnorm_odd(res: dict) -> list:
+    """The forward at every RMS_ODD case against ``rmsnorm_ref`` within
+    RMS_ATOL, in x's dtype and shape, one launch a call with rows, a
+    second call bit for bit; each case's plan and registers."""
+    gen = torch.Generator(device="cuda").manual_seed(RMS_SEED)
+    out = []
+    for name, rows, d, xdt, wdt, off in RMS_ODD:
+        base = torch.rand(rows * d + off, generator=gen, device="cuda")
+        x = (base * 2 - 1).to(xdt)[off:].view(rows, d)
+        w = (torch.rand(d, generator=gen, device="cuda") + 0.5).to(wdt)
+        before = rn.launches
+        y = rn.rmsnorm(x, w)
+        launched = rn.launches - before
+        err = max_err(y, rn.rmsnorm_ref(x, w)) if rows else 0.0
+        if y.dtype != xdt or y.shape != x.shape or not err <= RMS_ATOL or \
+                launched != (1 if rows else 0) or \
+                not bits_equal(y, rn.rmsnorm(x, w)):
+            raise AssertionError(f"rmsnorm {name}: {y.dtype} "
+                                 f"{tuple(y.shape)}, max abs err {err}, "
+                                 f"{launched} launches, or two calls "
+                                 f"differ")
+        rec = {"name": name, "rows": rows, "d": d, "max_abs_err": err}
+        if rows:
+            rec["plan"] = rms_plan(x, w)
+            rec["resources"] = res[rec["plan"]["variant"]]
+        out.append(rec)
+        print(f"rmsnorm {name}: {json.dumps(rec)}", flush=True)
+    return out
 
 
 # RMSNorm's backward at every training shape: llama_1b's step (B 4 x S
@@ -751,15 +853,27 @@ def _empty_kernel_body(x_ptr):
 
 
 def launch_floor() -> dict:
-    """An empty Triton kernel of one program: its time from a CUDA graph
-    and eagerly, the least any Triton launch costs on either path."""
+    """An empty Triton kernel of one program and an empty CUDA kernel of
+    one warp launched through ctypes as the RMSNorm forward is: their
+    time from a CUDA graph and eagerly, and their host enqueue, the least
+    any launch costs by either route."""
     import triton
     kernel = triton.jit(_empty_kernel_body)
     x = torch.empty(1, device="cuda")
     launch = lambda: kernel[(1,)](x)  # noqa: E731
+    empty = rn._fn("rmsnorm_empty")
+
+    def launch_cuda():
+        err = empty(torch._C._cuda_getCurrentRawStream(0))
+        if err:
+            raise RuntimeError(f"empty kernel launch failed: cudaError {err}")
+
     return {"empty_triton_graph_ms": graph_ms(launch, 200),
             "empty_triton_ms": cuda_ms(launch, 200),
-            "empty_triton_host_ms": host_ms(launch, 200)}
+            "empty_triton_host_ms": host_ms(launch, 200),
+            "empty_cuda_graph_ms": graph_ms(launch_cuda, 200),
+            "empty_cuda_ms": cuda_ms(launch_cuda, 200),
+            "empty_cuda_host_ms": host_ms(launch_cuda, 200)}
 
 
 def bound(nbytes: float, flops: float, peak: float = BF16_FLOPS) -> dict:
@@ -3540,7 +3654,7 @@ def entry_phase(smi: str, seed: int = 8) -> dict:
 
 PROFILE_STEPS = 8
 DECODE_KERNEL = "dense_decode_kernel"
-RMSNORM_KERNEL = "_rmsnorm_kernel_body"
+RMSNORM_KERNEL = "rmsnorm_fwd_kernel"
 
 
 def profile_phase(cfg, params, smi: str, seed: int = 7) -> dict:
@@ -4827,9 +4941,12 @@ def main(argv=None) -> None:
           flush=True)
     decode_res = decode_resources(libs)
     print(f"decode kernels (ptxas): {json.dumps(decode_res)}", flush=True)
+    rms_res = rms_resources(libs)
+    print(f"rmsnorm forward kernels (ptxas): {json.dumps(rms_res)}",
+          flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rms = timed("check_rmsnorm", check_rmsnorm, gen)
+    rms = timed("check_rmsnorm", check_rmsnorm, gen, rms_res)
     dec = timed("check_decode", check_decode, gen)
     decq = timed("check_decode_quant", check_decode_quant, gen)
     paged = timed("check_paged", check_paged, gen)
@@ -4962,7 +5079,7 @@ def main(argv=None) -> None:
                    if name in decode_res else {})}
 
     kernels = {"kernels": [
-        entry("rmsnorm", "triton", "kuberay_tpu_torch/ops/rmsnorm.py",
+        entry("rmsnorm", "cuda", "kuberay_tpu_torch/csrc/rmsnorm.cu",
               "kuberay_tpu/ops/rmsnorm.py:27", rms),
         entry("rmsnorm_bwd", "triton", "kuberay_tpu_torch/ops/rmsnorm.py",
               "kuberay_tpu/ops/rmsnorm.py:90", rms["bwd"]),
@@ -4990,7 +5107,7 @@ def main(argv=None) -> None:
     (out_dir / "chip_smoke.json").write_text(json.dumps({
         "device": kind, "nvidia_smi": smi, "torch": torch.__version__,
         "build_s": build_s, "hopper_resources": hopper,
-        "decode_resources": decode_res,
+        "decode_resources": decode_res, "rmsnorm_resources": rms_res,
         "build_log": {p.name: p.with_suffix(".log").read_text()
                       for p in libs},
         "rmsnorm": rms, "decode_attention": dec,

@@ -1,15 +1,23 @@
-"""Fused RMSNorm: Triton kernels for CUDA tensors, plain torch on the CPU.
+"""Fused RMSNorm: a CUDA forward and Triton backward kernels for CUDA
+tensors, plain torch on the CPU.
 
 Forward.  Replaces ``kuberay_tpu/ops/rmsnorm.py::_rmsnorm_kernel`` (via
-``rmsnorm_pallas``).  Bound on an H100: bytes.  The kernel reads x and the
-weight once and writes y once (2 * rows * d * 2 B + d * 2 B for bf16); at
-the 8B decode shape (8 rows, d = 4096) that is 131 KB, about 0.04 us at
-3.35 TB/s, so a launch costs far more than the work.  Design: one program
-per row holds the whole row in registers (d = 4096 at 8 warps is 16 values
-a thread), reduces the mean square in float32 and writes the scaled row in
-one pass; the column block is the next power of two and masked, so any row
-count and any d take the kernel (the TPU kernel instead fell back to XLA
-for row counts its block did not divide).
+``rmsnorm_pallas``) with the hand-written kernel of ``csrc/rmsnorm.cu``
+(built by ``ops/_build.py``, called through ctypes).  Bound on an H100:
+bytes at the training shape (x read and y written once, 2 * rows * d * 2 B
+for bf16: 67 MB at llama_1b's 8192 x 2048, 0.020 ms at 3.35 TB/s); at the
+8B decode shape (8 rows, d = 4096, 131 KB) the launch and one memory round
+trip, not bytes.  Design (the source's header has the details, and
+``tools/rmsnorm_fwd_probe.py`` the measurements that chose it): one CTA a
+row, each row cut in 16-byte units, about UNITS_A_THREAD of them a
+thread, launched with programmatic dependent launch.  ``fwd_plan``
+computes the launch from d and x's dtype; the checks and the plan are
+cached by shapes, dtypes and devices, so a repeated call costs the host
+little more than the launch.  The row's sum runs in one fixed order, so a
+call repeats bit for bit.  Any row count and any d take the kernel: where
+x, out or w is not aligned for a unit, or d is not a multiple of one, the
+same kernel reads one value at a time (the TPU kernel instead fell back
+to XLA for row counts its block did not divide).
 
 Backward.  The JAX package takes the vjp of ``rmsnorm_xla`` inside its
 ``custom_vjp`` (``_rmsnorm_bwd``), which XLA fuses; the port computes that
@@ -37,10 +45,13 @@ does not is copied (``bwd_g_copies``).
 from __future__ import annotations
 
 import threading
+from typing import NamedTuple
 
 import torch
 
-launches = 0           # kernel launches on CUDA tensors, for run-time checks
+from kuberay_tpu_torch.ops._build import FLOAT, INT, PTR, bind
+
+launches = 0           # forward kernel launches on CUDA tensors
 bwd_launches = 0       # backward row-kernel launches
 bwd_dw_launches = 0    # backward partials-sum launches
 bwd_g_copies = 0       # gradients copied to a [rows, d] layout first
@@ -52,10 +63,33 @@ PROGRAMS_PER_SM = 4
 # to a power of two) and reduces it down the column.
 DW_TILE = 8192
 
+# The forward's launch plan (``fwd_plan``; tools/rmsnorm_fwd_probe.py sweeps
+# it): a thread takes about UNITS_A_THREAD 16-byte units of a row, one CTA
+# a row.  PDL: launch with programmatic dependent launch.
+UNITS_A_THREAD = 2
+PDL = True
+MAX_THREADS = 512      # csrc/rmsnorm.cu's MAX_THREADS and MAX_NV
+MAX_NV = 2             # units a thread holds in registers (more: a loop)
+
+# The C entry point of csrc/<LIBRARY>.cu and its ctypes argtypes
+# (tests/test_torch_abi.py holds them to the C signature).
+LIBRARY = "rmsnorm"
+ARGTYPES = {
+    # x, w, out; rows, d, x dtype, w dtype, vec, threads, nv, pdl; eps;
+    # the stream
+    "rmsnorm_fwd": [PTR] * 3 + [INT] * 8 + [FLOAT, PTR],
+    # the stream (an empty kernel: the launch floor)
+    "rmsnorm_empty": [PTR],
+}
+_fn = bind(LIBRARY, ARGTYPES)
+_DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
+
 _lock = threading.Lock()
 _jitted = {}
 _sm_counts = {}
 _compiled = {}         # variant name -> Triton's compiled kernel
+_plans = {}            # shapes, dtypes, devices -> ``fwd_entry``
+_launch = None         # the C entry point, once loaded
 
 
 def rmsnorm_ref(x: torch.Tensor, weight: torch.Tensor,
@@ -80,20 +114,6 @@ def rmsnorm_bwd_ref(x: torch.Tensor, weight: torch.Tensor, g: torch.Tensor,
     dx = (r * (gw - xhat * c)).to(x.dtype)
     dw = (gf * xhat).reshape(-1, d).sum(dim=0).to(weight.dtype)
     return dx, dw
-
-
-def _rmsnorm_kernel_body(x_ptr, w_ptr, o_ptr, n_cols, eps,
-                         BLOCK: tl.constexpr):  # noqa: F821
-    row = tl.program_id(0).to(tl.int64)
-    cols = tl.arange(0, BLOCK)
-    mask = cols < n_cols
-    x = tl.load(x_ptr + row * n_cols + cols, mask=mask,
-                other=0.0).to(tl.float32)
-    var = tl.sum(x * x, axis=0) / n_cols
-    y = x * tl.rsqrt(var + eps)
-    w = tl.load(w_ptr + cols, mask=mask, other=0.0).to(tl.float32)
-    tl.store(o_ptr + row * n_cols + cols,
-             (y * w).to(o_ptr.dtype.element_ty), mask=mask)
 
 
 def _rmsnorm_bwd_body(x_ptr, w_ptr, g_ptr, dx_ptr, part_ptr, n_rows, n_cols,
@@ -173,29 +193,116 @@ def _check(x: torch.Tensor, weight: torch.Tensor, what: str) -> int:
     return d
 
 
+class FwdPlan(NamedTuple):
+    """The forward's launch, one CTA a row: ``vec`` values a unit (16 bytes
+    of x, or 1), ``threads`` a CTA, ``nv`` units a thread."""
+    vec: int
+    threads: int
+    nv: int
+
+
+def fwd_plan(d: int, itemsize: int = 2, aligned: bool = True) -> FwdPlan:
+    """The forward's launch for rows of d >= 1 ``itemsize``-byte values.
+    ``aligned``: x, out and w start on 16-byte (for w, a whole unit's)
+    boundaries; with d a multiple of 16 / itemsize a unit is 16 bytes of
+    x, else one value.  Threads: the power of two (32-512) at or above a
+    row's units over UNITS_A_THREAD."""
+    full = 16 // itemsize
+    vec = full if aligned and d % full == 0 else 1
+    units = d // vec
+    want = -(-units // UNITS_A_THREAD)
+    threads = min(MAX_THREADS, max(32, 1 << (want - 1).bit_length()))
+    return FwdPlan(vec, threads, -(-units // threads))
+
+
+def thread_units(plan: FwdPlan, d: int, tid: int) -> list:
+    """The units of its row that thread ``tid`` loads and stores, as
+    ``csrc/rmsnorm.cu`` maps them (past MAX_NV units a thread its loop
+    takes the same units)."""
+    units = d // plan.vec
+    return [u for j in range(plan.nv)
+            if (u := tid + j * plan.threads) < units]
+
+
+class FwdEntry(NamedTuple):
+    """What a forward call needs beyond its pointers: ``rows`` and ``d``,
+    ``walign`` (the bytes w's start must be a multiple of for full units),
+    and the C entry point's plan arguments (x dtype code to pdl) for
+    aligned starts (``full``) and for others (``one``); None where d is 0.
+    """
+    rows: int
+    d: int
+    walign: int
+    full: tuple
+    one: tuple
+
+
+def fwd_entry(rows: int, d: int, x_dtype: torch.dtype,
+              w_dtype: torch.dtype) -> FwdEntry:
+    """The forward's entry for x [rows, d] in x_dtype and w in w_dtype."""
+    if not d:
+        return FwdEntry(rows, d, 16, None, None)
+    head = (_DTYPES[x_dtype], _DTYPES[w_dtype])
+    full, one = (fwd_plan(d, x_dtype.itemsize, aligned)
+                 for aligned in (True, False))
+    return FwdEntry(rows, d, max(16, full.vec * w_dtype.itemsize),
+                    head + (*full, int(PDL)), head + (*one, int(PDL)))
+
+
+def _fwd_entry(x: torch.Tensor, weight: torch.Tensor) -> FwdEntry:
+    """``fwd_entry`` for x and weight, after the wrapper's checks."""
+    d = _check(x, weight, "rmsnorm")
+    if weight.dtype not in _DTYPES:
+        raise TypeError(f"rmsnorm: unsupported weight dtype {weight.dtype}")
+    return fwd_entry(x.numel() // d if d else 0, d, x.dtype, weight.dtype)
+
+
+def launch_args(entry: FwdEntry, xp: int, wp: int, op: int) -> tuple:
+    """The entry's plan arguments for x, w and out starting at xp, wp and
+    op."""
+    return entry.one if (xp | op) & 15 or wp % entry.walign else entry.full
+
+
+def plans() -> dict:
+    """Every entry the wrapper holds, by (x shape, x dtype, w shape, w
+    dtype, x device, w device)."""
+    return dict(_plans)
+
+
 def rmsnorm_fwd(x: torch.Tensor, weight: torch.Tensor,
                 eps: float = 1e-5) -> torch.Tensor:
     """The forward alone.  CPU tensors take ``rmsnorm_ref``; CUDA tensors
-    launch the Triton kernel or raise."""
-    global launches
-    if x.device.type == "cpu":
+    launch the kernel of ``csrc/rmsnorm.cu`` or raise.  The checks and the
+    plan are cached by shapes, dtypes and devices, so a repeated call costs
+    the host little more than the launch."""
+    global launches, _launch
+    dev = x.device
+    if dev.type == "cpu":
         return rmsnorm_ref(x, weight, eps)
-    d = _check(x, weight, "rmsnorm")
-    x2 = x.reshape(-1, d)
-    if not x2.is_contiguous():
-        raise ValueError("rmsnorm: x must be contiguous")
-    w = weight.contiguous()
-    out = torch.empty_like(x2)
-    rows = x2.shape[0]
-    if rows:
-        import triton
-        block = triton.next_power_of_2(d)
-        warps = 8 if block >= 2048 else 4
-        _compiled[f"rmsnorm BLOCK={block} warps={warps}"] = \
-            _jit(_rmsnorm_kernel_body)[(rows,)](x2, w, out, d, eps,
-                                                BLOCK=block, num_warps=warps)
+    key = (x.shape, x.dtype, weight.shape, weight.dtype, dev, weight.device)
+    entry = _plans.get(key)
+    if entry is None:
+        entry = _plans[key] = _fwd_entry(x, weight)
+    if not x.is_contiguous():
+        x2 = x.reshape(-1, entry.d)
+        if not x2.is_contiguous():
+            raise ValueError("rmsnorm: x must be contiguous")
+        return rmsnorm_fwd(x2, weight, eps).reshape(x.shape)
+    if not weight.is_contiguous():
+        weight = weight.contiguous()
+    out = torch.empty_like(x)
+    if entry.rows:
+        xp, wp, op = x.data_ptr(), weight.data_ptr(), out.data_ptr()
+        if _launch is None:
+            _launch = _fn("rmsnorm_fwd")
+        err = _launch(xp, wp, op, entry.rows, entry.d,
+                      *launch_args(entry, xp, wp, op), eps,
+                      torch._C._cuda_getCurrentRawStream(dev.index))
+        if err:
+            raise RuntimeError(f"rmsnorm kernel launch failed: cudaError "
+                               f"{err} (entry {entry})")
         launches += 1
-    return out.reshape(x.shape)
+    return out
 
 
 def bwd_plan(rows: int, device: torch.device) -> tuple:
@@ -313,7 +420,7 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor,
             eps: float = 1e-5) -> torch.Tensor:
     """RMSNorm over the last axis.  x: [..., d]; weight: [d].
 
-    CPU tensors take ``rmsnorm_ref``; CUDA tensors launch the Triton
+    CPU tensors take ``rmsnorm_ref``; CUDA tensors launch the CUDA
     kernel or raise.  Differentiable in x and weight (the backward:
     ``rmsnorm_bwd``); without a gradient to record (the serving path) it
     calls the forward directly."""

@@ -568,7 +568,7 @@ class ServeFrontend:
                     return self._stream_completion(
                         prompt, max_tokens, temperature,
                         body.get("eos_token"), timeout, top_p, top_k,
-                        stop_ids, trace, resp_headers)
+                        stop_ids, trace)
                 resp = frontend.submit(
                     prompt, max_tokens=max_tokens, temperature=temperature,
                     eos_token=body.get("eos_token"), timeout=timeout,
@@ -589,12 +589,14 @@ class ServeFrontend:
 
             def _stream_completion(self, prompt, max_tokens, temperature,
                                    eos_token, timeout, top_p, top_k,
-                                   stop_token_ids, trace, resp_headers):
+                                   stop_token_ids, trace):
                 """Chunked NDJSON: one {"tokens": [...]} line per engine
                 emission, then a final line with the finish reason, or
                 {"error": ...} if the request died mid-stream.  Rejection
                 is decided before the headers go out, so an overloaded or
-                degraded stream gets the blocking path's 503."""
+                degraded stream gets a 503.  As the JAX server's, neither
+                reply carries the load headers or the traceparent echo:
+                only Content-Type and Transfer-Encoding on the 200."""
                 gen = frontend.submit_stream(
                     prompt, max_tokens=max_tokens, temperature=temperature,
                     eos_token=eos_token, timeout=timeout, top_p=top_p,
@@ -603,13 +605,10 @@ class ServeFrontend:
                 if first is None:
                     gen.close()
                     return self._send(503,
-                                      {"message": "overloaded or timed out"},
-                                      headers=resp_headers)
+                                      {"message": "overloaded or timed out"})
                 self.send_response(200)
                 self.send_header("Content-Type", "application/x-ndjson")
                 self.send_header("Transfer-Encoding", "chunked")
-                for k, v in resp_headers.items():
-                    self.send_header(k, v)
                 self.end_headers()
 
                 def emit(doc) -> bool:

@@ -20,9 +20,10 @@ from kuberay_tpu_torch.ops import attention as fa
 from kuberay_tpu_torch.ops import decode_attention as da
 from kuberay_tpu_torch.ops import paged_attention as pa
 from kuberay_tpu_torch.ops import ring_attention as ra
+from kuberay_tpu_torch.ops import rmsnorm as rn
 
 CSRC = Path(__file__).resolve().parents[1] / "kuberay_tpu_torch" / "csrc"
-MODULES = (fa, ra, da, pa)
+MODULES = (fa, ra, da, pa, rn)
 _ENTRY = re.compile(r'extern\s+"C"\s+(\w+)\s+(\w+)\s*\(([^)]*)\)')
 _KIND = {ctypes.c_void_p: "ptr", ctypes.c_int: "int",
          ctypes.c_float: "float"}

@@ -140,7 +140,7 @@ def test_decode_matches_xla_on_live_slots(dtype, Hq, Hkv, M):
 
 @pytest.mark.gpu
 def test_kernels_match_plain_on_card():
-    """On the card: the Triton RMSNorm and the CUDA decode kernels vs
+    """On the card: the CUDA RMSNorm and decode kernels vs
     their plain versions at the Llama-3-8B decode shapes, also on lens at
     split boundaries, every slot full and lens 1 beside full slots, against
     the split-and-merge model too; two calls give the same bits; the merge

@@ -1,6 +1,7 @@
 """PyTorch port, the serve surface over real HTTP on a CPU engine:
 streaming NDJSON (chunked framing, tokens equal to the blocking path's
-and the JAX server's, runs under speculation, 503 before the headers),
+and the JAX server's, runs under speculation, 503 before the headers, the
+JAX server's header set on the streamed 200 and 503),
 ``/metrics`` (the JAX server's names and types for the same stats, the
 request-phase histograms), ``traceparent`` parsed as the JAX package
 parses it and echoed, the engine's spans, and the server's new flags."""
@@ -71,7 +72,8 @@ def _stop(srv, frontend):
 @pytest.fixture(scope="module")
 def servers(trees):
     """The port's dense server (and one with speculation, and one that
-    admits nothing), and the JAX server, each with a metrics registry."""
+    admits nothing), and the JAX server (and one that admits nothing),
+    each dense one with a metrics registry."""
     jp, tp = trees
     fes = {
         "torch": tserver.ServeFrontend(teng.ServeEngine(
@@ -84,6 +86,8 @@ def servers(trees):
         "jax": jserver.ServeFrontend(jeng.ServeEngine(
             JCFG, jp, max_slots=2, max_len=64,
             metrics=jmetrics.MetricsRegistry())),
+        "jax_full": jserver.ServeFrontend(jeng.ServeEngine(
+            JCFG, jp, max_slots=2, max_len=64), max_queue=0),
     }
     started = {k: fe.serve_background() for k, fe in fes.items()}
     yield {k: url for k, (_, url) in started.items()}, fes
@@ -155,7 +159,9 @@ def test_ndjson_chunked_framing(servers):
     assert headers["Content-Type"] == "application/x-ndjson"
     assert headers["Transfer-Encoding"] == "chunked"
     assert "Content-Length" not in headers
-    assert headers["X-TPU-Queue-Depth"].isdigit()
+    # As the JAX server's stream: no load headers (they ride the blocking
+    # replies only).
+    assert "X-TPU-Queue-Depth" not in headers
     assert all(c.endswith(b"\n") and c.count(b"\n") == 1 for c in chunks)
     docs = [json.loads(c) for c in chunks]
     assert all(set(d) == {"tokens"} for d in docs[:-1])
@@ -248,6 +254,34 @@ def test_overload_is_503_before_headers(servers, stream):
     assert e.value.code == 503
     assert e.value.headers["Content-Type"] == "application/json"
     assert json.loads(e.value.read())["message"] == "overloaded or timed out"
+
+
+def _reply_header_names(url, body, headers=None):
+    """(status, sorted header names) of one POST, an error reply's too."""
+    try:
+        status, got, _ = _post(url, body, headers)
+    except urllib.error.HTTPError as e:
+        status, got = e.code, dict(e.headers)
+        e.read()
+    return status, sorted(got)
+
+
+@pytest.mark.parametrize("traceparent", [TRACEPARENT, None])
+@pytest.mark.parametrize("port,ref,status", [
+    ("torch", "jax", 200), ("full", "jax_full", 503)])
+def test_stream_header_names_equal_jax(servers, port, ref, status,
+                                       traceparent):
+    """A streamed request's reply, served and overloaded, carries the
+    JAX server's header names: Content-Type and Transfer-Encoding on the
+    200, a bare 503, neither with load headers or a traceparent echo."""
+    urls, _ = servers
+    body = {"prompt_tokens": [4, 4, 4], "max_tokens": 2, "stream": True}
+    hdrs = {"traceparent": traceparent} if traceparent else None
+    got = _reply_header_names(urls[port], body, hdrs)
+    want = _reply_header_names(urls[ref], body, hdrs)
+    assert got == want and got[0] == status
+    assert not any(n.startswith("X-TPU-") or n == "traceparent"
+                   for n in got[1])
 
 
 # -- /metrics ----------------------------------------------------------------
@@ -352,7 +386,9 @@ def test_traceparent_adopted_and_echoed(servers, header, echo):
             urls["torch"], {"prompt_tokens": [4, 4, 4], "max_tokens": 2,
                             "stream": stream},
             headers={"traceparent": header} if header else None)
-        assert headers.get("traceparent") == echo
+        # The blocking reply echoes it; a stream, as the JAX server's,
+        # does not (its trace is still adopted: the exemplar below).
+        assert headers.get("traceparent") == (None if stream else echo)
     if echo:
         _, _, text = _get(urls["torch"], "/metrics")
         assert '# {trace_id="4bf92f3577b34da6a3ce929d0e0e4736"}' in text
