@@ -79,6 +79,12 @@ def peak_tflops(name: str) -> Optional[float]:
     return None
 
 
+def flops_per_token(cfg, n_params: int, seq: int) -> float:
+    """Training FLOPs a token: 6 N for the weights' products, forward and
+    backward, and 12 L d S for attention's (as the JAX bench counts)."""
+    return 6.0 * n_params + 12.0 * cfg.n_layers * cfg.d_model * seq
+
+
 def _step_times_ms(step, state, batch, steps: int, device,
                    tracer: Optional[Tracer] = None, model: str = ""):
     """Each step's time (CUDA events on the card, the host clock on the
@@ -152,8 +158,7 @@ def bench_train(cpu: bool, profile_out: str = "") -> dict:
     dt_step = sorted(dts)[len(dts) // 2] / 1e3
     tok_s = batch * seq / dt_step
     n_params = cfg.num_params()
-    flops_per_tok = 6 * n_params + 12 * cfg.n_layers * cfg.d_model * seq
-    achieved = tok_s * flops_per_tok / 1e12
+    achieved = tok_s * flops_per_token(cfg, n_params, seq) / 1e12
     name = "cpu" if cpu else torch.cuda.get_device_name(0)
     if tracer is not None:
         write_profile(profile_out, tracer, {

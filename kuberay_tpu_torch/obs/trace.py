@@ -13,6 +13,18 @@ the port calls).
   exports the same spans every time.  ``SpanStore`` bounds what is kept,
   dropping fast successful spans first; ``span_tree`` nests an export by
   parent link.
+- ``span(ctx, name, **attrs)``, on both tracers, times a block of code on
+  the calling thread: the engines' step spans and the train step's
+  phases.  ``Tracer.span`` records it under the innermost span open on
+  this thread (else under ``ctx``, else as the root of a new trace), with
+  attr ``cpu_s``, the thread's CPU seconds inside it.  While a
+  ``torch.profiler`` capture runs, both tracers also enter
+  ``record_function(name)``, so the capture holds the same intervals as
+  ``user_annotation`` events on the device trace's clock; otherwise the
+  no-op tracer's span is one check and a shared null context.
+
+The clock is ``time.perf_counter`` unless one is given, the clock of
+``torch.profiler``'s captures and of a benchmark's host stamps.
 
 The JAX tracer's reconcile chains (``context_for``, ``queued``,
 ``reconcile``, ``span``) trace the control plane, which the port does not
@@ -21,10 +33,17 @@ run; they are not copied.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import threading
 import time
 from typing import Any, Dict, List, Optional
+
+import torch
+
+# True while a torch.profiler capture runs (a C call, about 60 ns).
+_capturing = torch._C._autograd._profiler_enabled
+_NULL = contextlib.nullcontext()
 
 
 class TraceContext:
@@ -72,9 +91,15 @@ class TraceContext:
 
 
 class NoopTracer:
-    """The default tracer: the engine's span hooks cost one call."""
+    """The default tracer: the engine's span hooks cost one call; a
+    ``span`` is a profiler range while a capture runs, else nothing."""
 
     enabled = False
+    now = staticmethod(time.perf_counter)
+
+    def span(self, ctx: Optional[TraceContext], name: str, **attrs):
+        return torch.profiler.record_function(name) if _capturing() \
+            else _NULL
 
     def record_span(self, ctx: Optional[TraceContext], name: str,
                     start: float, end: float, parent_id: str = "",
@@ -201,19 +226,91 @@ def span_tree(spans: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
     return roots
 
 
+class _OpenSpan:
+    """``Tracer.span``'s context manager: the span goes to the store when
+    it closes (an exception marks it ``error``)."""
+
+    __slots__ = ("tracer", "ctx", "name", "attrs", "span", "stack", "cpu0",
+                 "range")
+
+    def __init__(self, tracer: "Tracer", ctx: Optional[TraceContext],
+                 name: str, attrs: Dict[str, Any]):
+        self.tracer, self.ctx, self.name, self.attrs = tracer, ctx, name, attrs
+        self.range = None
+
+    def __enter__(self) -> Span:
+        tr = self.tracer
+        stack = self.stack = tr._stack()
+        if stack:
+            trace_id, parent_id = stack[-1].trace_id, stack[-1].span_id
+            self.ctx = None             # the parent is no request root
+            span_id = tr._next_span_id()
+        elif self.ctx is not None:
+            trace_id, parent_id = self.ctx.trace_id, self.ctx.span_id
+            span_id = tr._next_span_id()
+        else:
+            trace_id, span_id = tr._next_ids()
+            parent_id = ""
+        self.span = Span(trace_id, span_id, parent_id, self.name, tr._now(),
+                         attrs=self.attrs)
+        stack.append(self.span)
+        if _capturing():
+            self.range = torch.profiler.record_function(self.name)
+            self.range.__enter__()
+        self.cpu0 = time.thread_time()
+        return self.span
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        sp, tr = self.span, self.tracer
+        sp.attrs["cpu_s"] = time.thread_time() - self.cpu0
+        if self.range is not None:
+            self.range.__exit__(exc_type, exc, tb)
+        sp.end = tr._now()
+        if exc_type is not None:
+            sp.status = "error"
+            sp.error = f"{exc_type.__name__}: {exc}"
+        self.stack.pop()
+        tr.store.add(sp)
+        if self.ctx is not None:
+            tr._extend_root(sp.parent_id, sp.end)
+        return False
+
+
 class Tracer(NoopTracer):
     """The real tracer: one trace a request, recorded with explicit
     contexts (the HTTP thread and the engine loop share no thread-local
-    state).  ``clock``: anything with ``.now()``; wall time by default."""
+    state), and ``span`` blocks nested on the thread that runs them.
+    ``clock``: anything with ``.now()``; ``time.perf_counter`` by
+    default."""
 
     enabled = True
 
     def __init__(self, clock=None, max_spans: int = 8192):
-        self._now = clock.now if clock is not None else time.time
+        self._now = clock.now if clock is not None else time.perf_counter
         self.store = SpanStore(max_spans)
         self._lock = threading.Lock()
         self._ids = itertools.count(1)
         self._roots: Dict[str, Span] = {}       # open root span_id -> Span
+        self._local = threading.local()
+
+    def now(self) -> float:
+        return self._now()
+
+    def _stack(self) -> List[Span]:
+        """The spans open on the calling thread, outermost first."""
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        return stack
+
+    def span(self, ctx: Optional[TraceContext], name: str,
+             **attrs) -> _OpenSpan:
+        return _OpenSpan(self, ctx, name, attrs)
+
+    def _next_ids(self):
+        """A new trace's id and its root span's."""
+        with self._lock:
+            return f"t{next(self._ids):06d}", f"s{next(self._ids):06d}"
 
     def _next_span_id(self) -> str:
         with self._lock:

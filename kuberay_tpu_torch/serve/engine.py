@@ -27,7 +27,17 @@ Options, as in the JAX engine:
   request-phase histogram ``tpu_serve_request_duration_seconds`` (queue,
   prefill, decode, and the TTFT);
 - ``tracer``: requests that carry a ``TraceContext`` get engine-queue,
-  prefill, kv-alloc and decode spans (the no-op tracer by default);
+  prefill, kv-alloc and decode spans (the no-op tracer by default).  Every
+  ``step()`` is a trace of its own: an ``engine-step`` root over
+  ``step-admit`` (or ``step-chunk``) and ``step-decode`` (its verify pass
+  under ``step-verify``), and inside those the device funnels' enqueue
+  and sync spans (``prefill-``, ``decode-``, ``verify-enqueue`` /
+  ``-sync``) and the token emission (``decode-emit``, ``verify-emit``);
+  ``decode-enqueue`` carries ``step``, what ``decode_steps`` reads once
+  that decode step is done.
+  Under a ``torch.profiler`` capture each is also a profiler range, with
+  either tracer.  Span stamps, request arrivals and phase marks are on
+  the tracer's clock (``time.perf_counter``);
 - ``layout``: tensor parallelism (the JAX engine's ``mesh=``), this
   rank's serving layout (``serve/sharding.py``).  ``params`` are then the
   rank's shards, the cache holds the rank's kv heads, int8 weights are
@@ -227,7 +237,6 @@ class ServeEngine:
         self._spec_index: List[Optional[NgramIndex]] = [None] * max_slots
         self.metrics = metrics
         self._tracer = tracer if tracer is not None else NOOP_TRACER
-        self._now = time.time
         if metrics is not None:
             metrics.describe(
                 "tpu_serve_request_duration_seconds",
@@ -267,6 +276,11 @@ class ServeEngine:
         self.decode_s = 0.0
         self.verify_tokens = 0       # tokens emitted by verify steps
         self.verify_s = 0.0
+
+    def _now(self) -> float:
+        """A span stamp, on the tracer's clock (read at every call: tests
+        swap the tracer after construction)."""
+        return self._tracer.now()
 
     # ------------------------------------------------------------------
     # device steps
@@ -353,12 +367,18 @@ class ServeEngine:
         """Prefill ``real_len`` new tokens of one request into one slot at
         cache offset ``start_pos`` (past a prefix served from cache);
         returns its first generated token."""
-        logits = self._prefill_logits(padded, slot, real_len, start_pos)
-        sample = self._sample if self._filters_on(samp) else self._sample_plain
-        samp_t = torch.from_numpy(samp).to(self.device)[None]
-        noise = self._noise(logits[:, 0], samp[None])
+        tr = self._tracer
+        with tr.span(None, "prefill-enqueue"):
+            logits = self._prefill_logits(padded, slot, real_len, start_pos)
+            sample = self._sample if self._filters_on(samp) \
+                else self._sample_plain
+            samp_t = torch.from_numpy(samp).to(self.device)[None]
+            noise = self._noise(logits[:, 0], samp[None])
+            tok = sample(logits[:, 0], samp_t, noise)
+        with tr.span(None, "prefill-sync"):
+            tok = int(tok[0])
         self.prefills += 1
-        return int(sample(logits[:, 0], samp_t, noise)[0])
+        return tok
 
     @torch.no_grad()
     def _decode_call(self, last: np.ndarray, temps: np.ndarray,
@@ -366,11 +386,16 @@ class ServeEngine:
         """One decode step for every slot (inactive ones write nothing)."""
         t0 = time.perf_counter()
         dev = self.device
-        logits = self._decode_logits(last, mask)
-        sample = self._sample if self._filters_on(temps) else self._sample_plain
-        noise = self._noise(logits[:, 0], temps)
-        toks = sample(logits[:, 0], torch.from_numpy(temps).to(dev), noise)
-        toks = toks.cpu().numpy()
+        tr = self._tracer
+        with tr.span(None, "decode-enqueue", step=self.decode_steps + 1):
+            logits = self._decode_logits(last, mask)
+            sample = self._sample if self._filters_on(temps) \
+                else self._sample_plain
+            noise = self._noise(logits[:, 0], temps)
+            toks = sample(logits[:, 0], torch.from_numpy(temps).to(dev),
+                          noise)
+        with tr.span(None, "decode-sync"):
+            toks = toks.cpu().numpy()
         self.decode_steps += 1
         self.decode_tokens += int(mask.sum())
         self.decode_s += time.perf_counter() - t0
@@ -387,13 +412,17 @@ class ServeEngine:
         sampled0 [B]: position 0 sampled, for sampling slots)."""
         t0 = time.perf_counter()
         dev = self.device
-        logits = self._verify_logits(toks, ntok, mask)
-        greedy = logits.argmax(-1)
-        sample = self._sample if self._filters_on(temps) else self._sample_plain
-        noise = self._noise(logits[:, 0], temps)
-        sampled0 = sample(logits[:, 0], torch.from_numpy(temps).to(dev),
-                          noise)
-        greedy, sampled0 = greedy.cpu().numpy(), sampled0.cpu().numpy()
+        tr = self._tracer
+        with tr.span(None, "verify-enqueue"):
+            logits = self._verify_logits(toks, ntok, mask)
+            greedy = logits.argmax(-1)
+            sample = self._sample if self._filters_on(temps) \
+                else self._sample_plain
+            noise = self._noise(logits[:, 0], temps)
+            sampled0 = sample(logits[:, 0], torch.from_numpy(temps).to(dev),
+                              noise)
+        with tr.span(None, "verify-sync"):
+            greedy, sampled0 = greedy.cpu().numpy(), sampled0.cpu().numpy()
         self.spec_stats["verify_steps"] += 1
         self.verify_s += time.perf_counter() - t0
         return greedy, sampled0
@@ -472,7 +501,7 @@ class ServeEngine:
         self._req_phase_ts.pop(req.request_id, None)
         self._finished.append(Response(
             req.request_id, [], "cancelled",
-            prompt_len=len(req.prompt_tokens), created=self._now()))
+            prompt_len=len(req.prompt_tokens), created=time.time()))
 
     # -- request-phase latency -------------------------------------------
 
@@ -542,25 +571,33 @@ class ServeEngine:
         With ``prefill_chunk`` set, at most one chunk of prompt runs per
         step, even on the step where an admission's last chunk lands, and
         a decode pass runs in between."""
-        chunked_this_step = False
-        if self._inflight is not None:
-            self._chunk_step()
-            chunked_this_step = True
-        while self.queue and self._inflight is None \
-                and not chunked_this_step:
-            free = next((i for i, r in enumerate(self.active) if r is None),
-                        None)
-            if free is None:
-                break
-            req = self.queue.pop(0)
-            if self.prefill_chunk > 0:
-                if self._begin_chunked(req, free) is None:
-                    continue        # cancelled outright; the slot is free
-                break               # one chunk per step
-            if not self._admit(req, free):
-                break               # blocked (the paged engine's memory)
-        if self.num_active:
-            self._decode_all()
+        tr = self._tracer
+        with tr.span(None, "engine-step"):
+            chunked_this_step = False
+            if self._inflight is not None:
+                with tr.span(None, "step-chunk"):
+                    self._chunk_step()
+                chunked_this_step = True
+            while self.queue and self._inflight is None \
+                    and not chunked_this_step:
+                free = next((i for i, r in enumerate(self.active)
+                             if r is None), None)
+                if free is None:
+                    break
+                req = self.queue.pop(0)
+                if self.prefill_chunk > 0:
+                    with tr.span(None, "step-chunk"):
+                        began = self._begin_chunked(req, free)
+                    if began is None:
+                        continue    # cancelled outright; the slot is free
+                    break           # one chunk per step
+                with tr.span(None, "step-admit"):
+                    admitted = self._admit(req, free)
+                if not admitted:
+                    break           # blocked (the paged engine's memory)
+            if self.num_active:
+                with tr.span(None, "step-decode"):
+                    self._decode_all()
         out, self._finished = self._finished, []
         return out
 
@@ -637,7 +674,8 @@ class ServeEngine:
         ts = self._req_phase_ts.get(req.request_id) or {}
         arrival = self._arrival.pop(req.request_id, None)
         # The first-token stamp, where there is one, is the TTFT's instant
-        # too, so the span tree, the observation and its exemplar agree.
+        # too, so the span tree and the observation agree (the exemplar is
+        # stamped with wall time, as exposition wants).
         now = ts.get("first_token", self._now())
         ttft = (now - arrival) if arrival is not None else None
         self._ttft[slot] = ttft
@@ -646,8 +684,7 @@ class ServeEngine:
                 "tpu_serve_request_duration_seconds", ttft,
                 {"phase": "ttft"}, buckets=SERVE_LATENCY_BUCKETS,
                 exemplar=(req.trace.trace_id if req.trace is not None
-                          else None),
-                exemplar_ts=now)
+                          else None))
         if req.trace is not None and arrival is not None:
             admitted = ts.get("admitted", arrival)
             self._tracer.record_span(req.trace, "engine-queue",
@@ -685,16 +722,18 @@ class ServeEngine:
             drafting = sum(1 for d in drafts if d)
             if drafting and drafting >= max(1, self.num_active) * \
                     self.SPEC_MIN_DRAFT_FRACTION:
-                return self._spec_decode_all(last, temps, mask, drafts)
+                with self._tracer.span(None, "step-verify"):
+                    return self._spec_decode_all(last, temps, mask, drafts)
         toks = self._decode_call(last, temps, mask)
-        for i, req in enumerate(self.active):
-            if req is None:
-                continue
-            self.lens[i] += 1
-            self.generated[i].append(int(toks[i]))
-            self.budget[i] -= 1
-            self._emit_tokens(req, [int(toks[i])])
-            self._maybe_finish(i)
+        with self._tracer.span(None, "decode-emit"):
+            for i, req in enumerate(self.active):
+                if req is None:
+                    continue
+                self.lens[i] += 1
+                self.generated[i].append(int(toks[i]))
+                self.budget[i] -= 1
+                self._emit_tokens(req, [int(toks[i])])
+                self._maybe_finish(i)
 
     # -- speculative decoding ----------------------------------------------
 
@@ -738,40 +777,41 @@ class ServeEngine:
             toks[i, 1:1 + len(d)] = d
             ntok[i] = (1 + len(d)) if mask[i] > 0 else 0
         greedy, sampled0 = self._verify_call(toks, ntok, temps, mask)
-        for i, req in enumerate(self.active):
-            if req is None:
-                continue
-            if req.temperature > 0:
-                emitted = [int(sampled0[i])]
-            else:
-                # Longest-prefix acceptance: greedy[i, j] checks draft[j]
-                # and is the correction (or bonus) token where it stops.
-                emitted = []
-                for j in range(len(drafts[i]) + 1):
-                    emitted.append(int(greedy[i, j]))
-                    if j >= len(drafts[i]) or greedy[i, j] != drafts[i][j]:
+        with self._tracer.span(None, "verify-emit"):
+            for i, req in enumerate(self.active):
+                if req is None:
+                    continue
+                if req.temperature > 0:
+                    emitted = [int(sampled0[i])]
+                else:
+                    # Longest-prefix acceptance: greedy[i, j] checks draft[j]
+                    # and is the correction (or bonus) token where it stops.
+                    emitted = []
+                    for j in range(len(drafts[i]) + 1):
+                        emitted.append(int(greedy[i, j]))
+                        if j >= len(drafts[i]) or greedy[i, j] != drafts[i][j]:
+                            break
+                    self.spec_stats["drafted"] += len(drafts[i])
+                    self.spec_stats["accepted"] += len(emitted) - 1
+                    if drafts[i]:
+                        if len(emitted) > 1:
+                            self._spec_miss[i] = 0
+                        else:
+                            self._spec_miss[i] += 1
+                            if self._spec_miss[i] >= self.SPEC_MISS_LIMIT:
+                                self._spec_cooldown[i] = self.SPEC_PROBE_EVERY
+                take: List[int] = []
+                for t in emitted:
+                    take.append(t)
+                    self.budget[i] -= 1
+                    if self.budget[i] <= 0 or self._is_stop(req, t) \
+                            or self.lens[i] + len(take) + 1 >= self.max_len:
                         break
-                self.spec_stats["drafted"] += len(drafts[i])
-                self.spec_stats["accepted"] += len(emitted) - 1
-                if drafts[i]:
-                    if len(emitted) > 1:
-                        self._spec_miss[i] = 0
-                    else:
-                        self._spec_miss[i] += 1
-                        if self._spec_miss[i] >= self.SPEC_MISS_LIMIT:
-                            self._spec_cooldown[i] = self.SPEC_PROBE_EVERY
-            take: List[int] = []
-            for t in emitted:
-                take.append(t)
-                self.budget[i] -= 1
-                if self.budget[i] <= 0 or self._is_stop(req, t) \
-                        or self.lens[i] + len(take) + 1 >= self.max_len:
-                    break
-            self.lens[i] += len(take)
-            self.generated[i].extend(take)
-            self.verify_tokens += len(take)
-            self._emit_tokens(req, take)
-            self._maybe_finish(i)
+                self.lens[i] += len(take)
+                self.generated[i].extend(take)
+                self.verify_tokens += len(take)
+                self._emit_tokens(req, take)
+                self._maybe_finish(i)
 
     @staticmethod
     def _is_stop(req: Request, tok: int) -> bool:
@@ -807,7 +847,7 @@ class ServeEngine:
         self._phase_observe(req.request_id)
         self._finished.append(Response(
             req.request_id, list(self.generated[slot]), reason,
-            prompt_len=len(req.prompt_tokens), created=now,
+            prompt_len=len(req.prompt_tokens), created=time.time(),
             ttft_s=self._ttft[slot]))
         self.active[slot] = None
         self.generated[slot] = []

@@ -25,7 +25,9 @@ the lead a ``train_step`` event each log interval, in the JAX launcher's
 event format; a coordinator that goes away stops the posting, not the
 run.  Worker 0 serves the ``tpu_train_*`` gauges as Prometheus text on
 ``TPU_TRAIN_METRICS_PORT`` (default ``PORT_METRICS``; 0 turns it off).
-MFU needs ``TPU_PEAK_TFLOPS``, the card's peak.
+MFU counts 6 N + 12 L d S FLOPs a token, as the bench does, against the
+card's dense bf16 peak (``bench.peak_tflops`` of the device's name);
+``TPU_PEAK_TFLOPS``, where set, overrides the peak.
 
 The card is the default; ``--device cpu`` runs the plain paths.
 
@@ -61,6 +63,7 @@ import torch
 
 import torch.distributed as dist
 
+from kuberay_tpu_torch.bench import flops_per_token, peak_tflops
 from kuberay_tpu_torch.models import llama
 from kuberay_tpu_torch.parallel import spmd
 from kuberay_tpu_torch.parallel.mesh import MeshSpec
@@ -206,17 +209,31 @@ def _start_metrics_server(port: int):
     return reg, srv
 
 
+def card_peak_tflops(device: torch.device, env=None) -> float:
+    """The peak the MFU gauge divides by: ``TPU_PEAK_TFLOPS`` where set,
+    else the card's dense bf16 peak by its name (0 on the CPU or for a
+    card the table lacks: no gauge)."""
+    e = os.environ if env is None else env
+    if e.get("TPU_PEAK_TFLOPS"):
+        return float(e["TPU_PEAK_TFLOPS"])
+    if device.type != "cuda":
+        return 0.0
+    return peak_tflops(torch.cuda.get_device_name(device)) or 0.0
+
+
 @dataclasses.dataclass
 class _Telemetry:
     """What the loop reports to, and about: the coordinator's event
     client (None when off or gone), the Prometheus registry (worker 0),
-    the job's name, the model's global size, the card's peak and the
-    number of cards (one a process)."""
+    the job's name, the model's global size, the FLOPs a token trains
+    (6 N + 12 L d S), the card's peak and the number of cards (one a
+    process)."""
 
     events: Optional[coordinator_client.CoordinatorClient]
     prom: Optional[MetricsRegistry]
     job_id: str
     n_params: int
+    flops_per_token: float
     peak_tflops: float
     device_count: int = 1
 
@@ -286,14 +303,16 @@ def _train(args, ident: WorkerIdentity, device: torch.device) -> int:
         try:
             if ident.worker_id == 0 and ident.slice_id == 0 and mport > 0:
                 prom, prom_srv = _start_metrics_server(mport)
+            n_params = spmd.global_numel(
+                state["params"], model_of(cfg).param_axes(cfg), layout)
             tel = _Telemetry(
                 events=events, prom=prom,
                 job_id=os.environ.get("TPU_JOB_ID", "train"),
-                n_params=spmd.global_numel(
-                    state["params"], model_of(cfg).param_axes(cfg), layout),
-                peak_tflops=float(os.environ.get("TPU_PEAK_TFLOPS", "0")),
+                n_params=n_params, peak_tflops=card_peak_tflops(device),
                 device_count=dist.get_world_size()
-                if dist.is_initialized() else 1)
+                if dist.is_initialized() else 1,
+                flops_per_token=flops_per_token(cfg, n_params,
+                                                args.seq_len))
             if args.checkpoint_dir:
                 writer = ckpt.CheckpointWriter(args.checkpoint_dir,
                                                shardings=shardings)
@@ -396,8 +415,9 @@ def _train_loop(args, ident, state, step_fn, loader, writer, tel,
                 tel.prom.set_gauge("tpu_train_step_seconds",
                                    dt / args.log_every)
                 if tel.peak_tflops > 0:
-                    # 6 N flops a token (forward and backward), per card.
-                    achieved = 6.0 * tel.n_params * tok_s / 1e12 / max(
+                    # 6 N + 12 L d S flops a token (forward and backward:
+                    # the weights' products and attention's), per card.
+                    achieved = tel.flops_per_token * tok_s / 1e12 / max(
                         1, tel.device_count)
                     tel.prom.set_gauge("tpu_train_mfu",
                                        achieved / tel.peak_tflops)

@@ -34,6 +34,14 @@ configs:
   shards;
 - a ``LocalRing``: every sp rank on one device (the long-context path on
   one card), parameters replicated.
+
+While a ``torch.profiler`` capture runs, every step is a
+``train-iteration`` range over ``train-forward`` (the compute cast and
+the loss, once a microbatch), ``train-backward`` (``autograd.grad``),
+``train-grad-sync`` (under a layout) and ``train-optimizer`` (the global
+norm, ``AdamW.update``, ``apply_updates``): the no-op tracer's spans
+(``obs/trace.py``), so the capture's device time splits by phase.
+Outside a capture they cost one check each.
 """
 
 from __future__ import annotations
@@ -45,6 +53,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from kuberay_tpu_torch.models import llama, mixtral
+from kuberay_tpu_torch.obs.trace import NOOP_TRACER
 from kuberay_tpu_torch.parallel import spmd
 from kuberay_tpu_torch.parallel.mesh import ring_of
 
@@ -213,9 +222,11 @@ def _compute_cast(cfg, tc: TrainConfig, params):
 
 
 def _value_and_grad(loss_fn: Callable, params, batch):
-    leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
-    loss, aux = loss_fn(leaves, batch)
-    grads = torch.autograd.grad(loss, tree_leaves(leaves))
+    with NOOP_TRACER.span(None, "train-forward"):
+        leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        loss, aux = loss_fn(leaves, batch)
+    with NOOP_TRACER.span(None, "train-backward"):
+        grads = torch.autograd.grad(loss, tree_leaves(leaves))
     it = iter(grads)
     return (loss.detach(), {k: v.detach() for k, v in aux.items()}), \
         tree_map(lambda _: next(it), leaves)
@@ -267,21 +278,24 @@ def _make_step(cfg: llama.LlamaConfig, tc: TrainConfig, optimizer: AdamW,
                                  b["tokens"], b["targets"], b.get("mask"),
                                  tc.z_loss, mesh=mesh)
 
-        if layout is not None:
-            batch = layout.local_batch(batch, rows=not rows_local)
-        (l, metrics), grads = _value_and_grad_accum(
-            loss, state["params"], batch, tc.grad_accum,
-            None if layout is None else layout.sum_batch)
-        if layout is None:
-            norm = global_norm(grads)
-        else:
-            grads = layout.grad_sync(grads, axes)
-            l = layout.sum_batch(l)
-            metrics = {k: layout.sum_batch(v) for k, v in metrics.items()}
-            norm = layout.global_norm(grads, axes)
-        updates, new_opt = optimizer.update(grads, state["opt_state"],
-                                            state["params"], norm)
-        new_params = apply_updates(state["params"], updates)
+        with NOOP_TRACER.span(None, "train-iteration"):
+            if layout is not None:
+                batch = layout.local_batch(batch, rows=not rows_local)
+            (l, metrics), grads = _value_and_grad_accum(
+                loss, state["params"], batch, tc.grad_accum,
+                None if layout is None else layout.sum_batch)
+            if layout is not None:
+                with NOOP_TRACER.span(None, "train-grad-sync"):
+                    grads = layout.grad_sync(grads, axes)
+                    l = layout.sum_batch(l)
+                    metrics = {k: layout.sum_batch(v)
+                               for k, v in metrics.items()}
+            with NOOP_TRACER.span(None, "train-optimizer"):
+                norm = global_norm(grads) if layout is None \
+                    else layout.global_norm(grads, axes)
+                updates, new_opt = optimizer.update(
+                    grads, state["opt_state"], state["params"], norm)
+                new_params = apply_updates(state["params"], updates)
         metrics["grad_norm"] = norm
         metrics["total_loss"] = l
         return {"step": state["step"] + 1, "params": new_params,

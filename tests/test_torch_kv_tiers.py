@@ -26,7 +26,7 @@ from kuberay_tpu.serve.engine import Request as JRequest
 from kuberay_tpu.utils.metrics import MetricsRegistry as JMetricsRegistry
 from kuberay_tpu_torch.models import llama as tllama
 from kuberay_tpu_torch.models.convert import params_from_jax
-from kuberay_tpu_torch.obs.trace import TraceContext
+from kuberay_tpu_torch.obs.trace import NoopTracer, TraceContext
 from kuberay_tpu_torch.serve import kv_tiers as tkt
 from kuberay_tpu_torch.serve.engine import Request
 from kuberay_tpu_torch.serve.paged_engine import PagedServeEngine
@@ -54,8 +54,9 @@ def trees():
     return jp, params_from_jax(TCFG, jax.tree.map(np.asarray, jp), "cpu")
 
 
-class Recorder:
-    """A port tracer that records (span name, attributes)."""
+class Recorder(NoopTracer):
+    """A port tracer that records (span name, attributes) of the request
+    spans (its step spans are the no-op tracer's)."""
 
     enabled = True
 
