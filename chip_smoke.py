@@ -388,6 +388,7 @@ from kuberay_tpu_torch.serve.engine import (
     prompt_lookup_draft,
 )
 from kuberay_tpu_torch.serve.kv_cache import (
+    _cached_attention,
     base_forward_for,
     forward_with_cache,
     init_kv_cache,
@@ -1316,7 +1317,14 @@ FLASH_SHAPES = (("llama_1b", 4, 2048, 2048, 16, 8, 128, True),
                 ("mesh_tp2", 4, 2048, 2048, 8, 4, 128, True),
                 ("ring_diag", 2, 1024, 1024, 16, 8, 128, True),
                 ("ring_past", 2, 1024, 1024, 16, 8, 128, False),
-                ("pipeline_mb", 1, 2048, 2048, 16, 8, 128, True))
+                ("pipeline_mb", 1, 2048, 2048, 16, 8, 128, True),
+                # Serving prefills at Mistral-7B's heads: the smallest
+                # buckets (below the forward's 128-row q tile), the
+                # largest, and a chunk past a cached prefix (Sq < Skv).
+                ("serve_b32", 1, 32, 32, 32, 8, 128, True),
+                ("serve_b64", 1, 64, 64, 32, 8, 128, True),
+                ("serve_b4096", 1, 4096, 4096, 32, 8, 128, True),
+                ("serve_offset", 1, 512, 1536, 32, 8, 128, True))
 
 
 def visible_pairs(B, Sq, Skv, Hq, causal=True) -> int:
@@ -1757,7 +1765,8 @@ def post(url: str, body: dict, timeout: float = 600.0):
 def serve_counts() -> dict:
     return {"rmsnorm": rn.launches, "decode_attention": da.launches,
             "decode_attention_quant": da.launches_quant,
-            "paged_decode_attention": pa.launches}
+            "paged_decode_attention": pa.launches,
+            "flash_fwd": fa.fwd_launches}
 
 
 def decode_peaks(engine) -> dict:
@@ -1852,6 +1861,7 @@ def drive(engine, prompts, repeat: int, same_as_batch: bool) -> dict:
             same_as_batch and tokens[0] != first):
         raise AssertionError(f"repeats differ: {tokens} (batch: {first})")
     check_rmsnorm_launches(engine, launches, stats)
+    check_flash_prefills(engine, launches, stats)
     generated = stats["decode_tokens"] + stats["verify_tokens"]
     forwards = stats["decode_steps"] + stats["verify_steps"]
     return {"batch_wall_s": batch_s,
@@ -1879,6 +1889,19 @@ def check_rmsnorm_launches(engine, launches: dict, stats: dict) -> None:
     if stats["decode_steps"] == 0 or \
             launches["rmsnorm"] != (2 * engine.cfg.n_layers + 1) * forwards:
         raise AssertionError(f"rmsnorm launches {launches} (stats {stats})")
+
+
+def check_flash_prefills(engine, launches: dict, stats: dict) -> None:
+    """Every prefill (each chunk counted) over a bf16 cache was routed to
+    the flash forward kernel and none over the int8 cache
+    (``prefill_kernel``, counted by the forwards where they take the
+    route), and the kernel's own counter saw L launches for each of them.
+    Verify steps (rows at different offsets) launch none."""
+    want = stats["prefills"] if engine.kv_quant == "none" else 0
+    if stats["prefill_kernel"] != want or \
+            launches["flash_fwd"] != engine.cfg.n_layers * want:
+        raise AssertionError(f"flash prefill launches {launches} (stats "
+                             f"{stats})")
 
 
 def expect_decode_kernel(run: dict, kernel: str, n_layers: int) -> None:
@@ -2058,7 +2081,8 @@ def check_against_recompute(cfg, params, prompt, served,
                             experts=None) -> dict:
     """Greedy tokens served through the cache (prefill + decode kernel)
     vs one no-cache bf16 forward of prompt + served tokens (multi-token
-    plain attention): each served token must be the reference's argmax, or
+    plain attention, ``_cached_attention``, not the served prefill's flash
+    kernel): each served token must be the reference's argmax, or
     within ``margin_frac`` of the largest |logit| below its max logit.
     With ``other`` (tokens served for the same prompt another time), the
     first position where the two differ and the reference's logits of
@@ -2099,7 +2123,8 @@ def check_against_recompute(cfg, params, prompt, served,
         with torch.no_grad():
             logits, _ = forward(cfg, params, seq, cache,
                                 torch.zeros(1, dtype=torch.long,
-                                            device="cuda"))
+                                            device="cuda"),
+                                attention=_cached_attention)
     finally:
         mixtral.route = real_route
     rows = logits[0, len(prompt) - 1:T - 1]                 # predicts served
@@ -2220,8 +2245,9 @@ def serve_option(name: str, cfg, params, smi: str, paged: bool,
     with the serving options (``prefill_chunk``, ``speculative``,
     ``weight_quant``, ``kv_quant``) behind the HTTP frontend: ``drive``'s
     checks, the decode kernel's launch identity (32 a decode step; prefill
-    chunks and verify steps run the plain multi-query attention and launch
-    none), at least one verify step with speculation, every served token
+    chunks launch the flash forward, 32 a chunk over a bf16 cache, and
+    verify steps run the plain multi-query attention and launch
+    neither), at least one verify step with speculation, every served token
     of the batch and of the repeat against the no-cache recompute of the
     function served, with int8 weights the decode steps' memory bound,
     and on ``shared_prefix`` traffic the prefix hits."""
@@ -2415,6 +2441,7 @@ def serve_surface(cfg, params, smi: str, seed: int = 3) -> dict:
             streamed != body["tokens"]:
         raise AssertionError(f"stream {docs} != blocking {body}")
     check_rmsnorm_launches(engine, launches, stats)
+    check_flash_prefills(engine, launches, stats)
     expect_decode_kernel({"engine": stats, "launches": launches},
                          "decode_attention", cfg.n_layers)
     series = {}
@@ -2587,6 +2614,7 @@ def serve_tiers(cfg, params, smi: str, seed: int = 5) -> dict:
         raise AssertionError(f"promoted repeat {rep['tokens']} != warm "
                              f"wave {warm['tokens']}")
     check_rmsnorm_launches(engine, launches, final)
+    check_flash_prefills(engine, launches, final)
     expect_decode_kernel({"engine": final, "launches": launches},
                          "paged_decode_attention", cfg.n_layers)
     checks = [check_against_recompute(cfg, params, p, t, other=r)
@@ -2746,8 +2774,10 @@ def serve_disagg(cfg, params, smi: str, seed: int = 6) -> dict:
     if rows[1]["resident"] != SHARED // BLOCK_SIZE:
         raise AssertionError(f"the shared prefix was not resident: {rows}")
     both = {k: sum(st[k] for st in stats.values())
-            for k in ("prefills", "decode_steps", "verify_steps")}
+            for k in ("prefills", "prefill_kernel", "decode_steps",
+                      "verify_steps")}
     check_rmsnorm_launches(engines["decode"], launches, both)
+    check_flash_prefills(engines["decode"], launches, both)
     expect_decode_kernel({"engine": both, "launches": launches},
                          "paged_decode_attention", cfg.n_layers)
     engine_ms = {k: [(len(o) if isinstance(o, list) else o["imported"], ms)

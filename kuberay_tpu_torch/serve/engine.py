@@ -80,6 +80,7 @@ from kuberay_tpu_torch.serve.kv_cache import (
     base_forward_for,
     forward_with_cache,
     init_kv_cache,
+    live_forwards,
     make_quantized_forward,
     tree_map,
 )
@@ -271,6 +272,7 @@ class ServeEngine:
         # Device-call counters and decode wall time (host clock around
         # work that ends in a device sync), read through ``stats``.
         self.prefills = 0            # prefill forwards (chunks counted)
+        self.prefill_kernel = 0      # of those, routed to the flash kernel
         self.decode_steps = 0
         self.decode_tokens = 0
         self.decode_s = 0.0
@@ -328,10 +330,11 @@ class ServeEngine:
     @torch.no_grad()
     def _prefill_logits(self, padded: np.ndarray, slot: int, real_len: int,
                         start_pos: int = 0) -> torch.Tensor:
-        """The prefill's logits [1, 1, V] at its last real token."""
+        """The prefill's logits [1, 1, V] at its last real token.
+        ``start`` stays on the host: the forward reads the prefix length
+        from it (``live_prefix``) without waiting on the device."""
         tokens = torch.from_numpy(padded).to(self.device, torch.long)[None]
-        start = torch.full((1,), start_pos, dtype=torch.long,
-                           device=self.device)
+        start = torch.full((1,), start_pos, dtype=torch.long)
         idx = torch.tensor([real_len - 1], device=self.device)
         return self._prefill_forward(tokens, slot, start, real_len, idx)
 
@@ -369,7 +372,9 @@ class ServeEngine:
         returns its first generated token."""
         tr = self._tracer
         with tr.span(None, "prefill-enqueue"):
+            routed = live_forwards()
             logits = self._prefill_logits(padded, slot, real_len, start_pos)
+            routed = live_forwards() - routed
             sample = self._sample if self._filters_on(samp) \
                 else self._sample_plain
             samp_t = torch.from_numpy(samp).to(self.device)[None]
@@ -378,6 +383,7 @@ class ServeEngine:
         with tr.span(None, "prefill-sync"):
             tok = int(tok[0])
         self.prefills += 1
+        self.prefill_kernel += routed
         return tok
 
     @torch.no_grad()
@@ -551,6 +557,7 @@ class ServeEngine:
         return {"queue_depth": len(self.queue),
                 "active_slots": self.num_active,
                 "prefills": self.prefills,
+                "prefill_kernel": self.prefill_kernel,
                 "decode_steps": self.decode_steps,
                 "decode_tokens": self.decode_tokens,
                 "decode_s": self.decode_s,

@@ -22,23 +22,29 @@ over ``(tp, tpr)``.  Every rank of the group issues the same collectives
 in the same order; the cache holds the rank's kv heads only.
 
 Per step the model reaches two kernels: ``ops/rmsnorm.py`` (2 per layer +
-the final norm) and, for one-token steps, a decode-attention kernel (one
-per layer): ``decode_attention`` for the bf16 cache,
+the final norm) and one attention kernel a layer.  One-token steps take a
+decode-attention kernel: ``decode_attention`` for the bf16 cache,
 ``decode_attention_quant`` for the int8 cache, ``paged_decode_attention``
-for the paged pool.  Multi-token (prefill) attention is plain torch, as it
-is plain XLA in the reference.
+for the paged pool.  One row of more than one token over a bf16 cache (a
+prefill, a prefill chunk, a one-slot verify) takes the flash forward
+kernel over the row's live columns (``_live_attention``; the dense and
+the paged layouts both route to it, by ``live_prefix``).  The other
+multi-token calls (rows at different offsets, the int8 cache) are plain
+torch over the whole cache, as they are plain XLA in the reference.
 """
 
 from __future__ import annotations
 
 import functools
 import math
+import threading
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from kuberay_tpu_torch.models.mixtral import MixtralConfig, moe_ffn_dropless
+from kuberay_tpu_torch.ops.attention import flash_fwd
 from kuberay_tpu_torch.ops.decode_attention import (
     decode_attention,
     decode_attention_quant,
@@ -165,6 +171,58 @@ def _cached_attention(q, ck, cv, lens, q_positions):
     p = torch.softmax(s, dim=-1).to(cv.dtype)
     out = torch.einsum("bngtm,bmnd->btngd", p.float(), cv.float())
     return out.reshape(B, T, Hq, D).to(q.dtype)
+
+
+# Forwards routed to ``_live_attention``, on this thread (an engine reads
+# what its own prefill forward added: ``ServeEngine.prefill_kernel``).
+_routed = threading.local()
+
+
+def live_forwards() -> int:
+    """Forwards this thread has routed to ``_live_attention``."""
+    return getattr(_routed, "n", 0)
+
+
+def _flash_cache(cache) -> bool:
+    """A bf16 cache (the flash forward kernel's dtype), not the int8 one."""
+    k = cache["k"]
+    return isinstance(k, torch.Tensor) and k.dtype == torch.bfloat16
+
+
+def live_prefix(tokens: torch.Tensor, cache,
+                start: torch.Tensor) -> Optional[int]:
+    """The attention route of a forward of ``tokens`` [B, T] at ``start``
+    [B] against ``cache``.  One row of more than one token over a bf16
+    cache takes ``_live_attention`` over its first ``start`` cached columns
+    and the new K/V: this returns that prefix length, read from ``start``
+    before it goes to the device (no sync where the caller keeps it on the
+    host), and counts the forward in ``live_forwards``.  Otherwise None:
+    rows at different offsets (a verify step over every slot) keep
+    ``_cached_attention``, the int8 cache ``_cached_attention_quant_multi``.
+    """
+    B, T = tokens.shape
+    if B != 1 or T == 1 or not _flash_cache(cache):
+        return None
+    _routed.n = live_forwards() + 1
+    return int(start[0])
+
+
+def live_columns(prefix: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
+    """[1, start + T, Hkv, D]: the row's cached prefix (its first
+    ``start`` columns, [1, start, Hkv, D]) then the new K or V (after
+    RoPE); at ``start`` 0 the new K or V itself, with no copy."""
+    return new if prefix.shape[1] == 0 else torch.cat([prefix, new], 1)
+
+
+def _live_attention(q, k_live, v_live, lens, q_positions):
+    """One row's T > 1 new queries (q [1, T, Hq, D], contiguous) over its
+    live columns (``live_columns``) through the flash forward kernel, the
+    lse discarded.  The kernel's bottom-right causal alignment gives query
+    row r (position start + r) exactly the keys <= start + r, the columns
+    ``_cached_attention``'s mask keeps; bucket padding rows lie after
+    every real row, so no real row sees them.  CPU tensors take
+    ``flash_fwd_ref``."""
+    return flash_fwd(q, k_live, v_live, causal=True)[0]
 
 
 def _cached_attention_quant_multi(q, ckv, cvv, lens, q_positions):
@@ -311,7 +369,9 @@ def forward_with_cache(cfg, params: Dict[str, Any], tokens: torch.Tensor,
     new K/V (kk/vv [B, T, Hkv, D]) into that layer's cache ck/cv in place
     and returns what ``attention(q, k_view, v_view, lens, positions)``
     reads; the defaults are the dense cache's insert and
-    ``_cached_attention``.  ``ffn(cfg, h, lp, token_mask)`` is the
+    ``_cached_attention``, or, where ``live_prefix`` routes the call, the
+    insert and ``_live_attention`` over the row's first ``start`` cached
+    columns and the new K/V.  ``ffn(cfg, h, lp, token_mask)`` is the
     feed-forward block (default: the dense SwiGLU).  ``layout``: this
     rank's serving layout (``serve/sharding.py``), with ``params`` and
     ``cache`` its shards; None for one process.  Returns (float32 logits
@@ -319,20 +379,25 @@ def forward_with_cache(cfg, params: Dict[str, Any], tokens: torch.Tensor,
     """
     B, T = tokens.shape
     dev = tokens.device
+    s0 = live_prefix(tokens, cache, start) \
+        if kv_update is None and attention is None else None
     start = start.to(device=dev, dtype=torch.long)
     positions = start[:, None] + torch.arange(T, device=dev)[None, :]
     lens = (start + T).to(torch.int32)
     if write_mask is None:
         write_mask = torch.ones(B, device=dev)
     if attention is None:
-        attention = _cached_attention
+        attention = _cached_attention if s0 is None else _live_attention
     if ffn is None:
         ffn = _dense_ffn
     if kv_update is None:
         def kv_update(ck, cv, kk, vv):
             _insert_kv(ck, cv, kk, vv, positions, start, write_mask, T,
                        token_mask)
-            return ck, cv
+            if s0 is None:
+                return ck, cv
+            return (live_columns(ck[:, :s0], kk),
+                    live_columns(cv[:, :s0], vv))
     cos, sin = _rope_tables(cfg.head_dim, cfg.max_seq_len,
                             float(cfg.rope_theta), torch.device(dev))
     # Bucket padding past a cached prefix may run past the tables; those

@@ -11,8 +11,12 @@ Port of ``kuberay_tpu/serve/paged_kv.py``:
   another request, so only real tokens of writable rows are written (torch
   has no ``mode="drop"``: the gated rows are selected before the write);
 - decode reads the pool through the block tables in the paged CUDA kernel
-  (``ops/paged_attention.py``); prefill gathers per-request views after
-  the write, so a call's attention sees its own K/V;
+  (``ops/paged_attention.py``); a one-row multi-token call (prefill, a
+  prefill chunk) runs the flash forward kernel over the row's live
+  columns, the blocks that cover its cached prefix followed by the new
+  K/V (``kv_cache.py::_live_attention``); other multi-token calls gather
+  per-request views after the write, so a call's attention sees its own
+  K/V;
 - the int8 pool keeps one float32 scale per (head, position) and feeds
   the dense int8 decode kernel through gathered, made-contiguous views, as
   the JAX package does;
@@ -41,7 +45,10 @@ from kuberay_tpu_torch.ops.paged_attention import (
 )
 from kuberay_tpu_torch.serve.kv_cache import (
     _cached_attention_quant_multi,
+    _live_attention,
     forward_with_cache,
+    live_columns,
+    live_prefix,
     quantize_kv,
 )
 from kuberay_tpu_torch.serve.prefix import block_hashes as _prefix_block_hashes
@@ -273,6 +280,18 @@ def quant_view(pool: Dict, tables, block_size: int, contiguous: bool):
     return {k: v.contiguous() for k, v in out.items()} if contiguous else out
 
 
+def prefix_view(pool: torch.Tensor, tables: torch.Tensor, block_size: int,
+                n: int) -> torch.Tensor:
+    """[Hkv, P, D] pool + one row's [1, max_blocks] table -> [1, n, Hkv,
+    D]: the row's first ``n`` logical positions, gathered through only the
+    blocks that cover them (no gather at ``n`` 0)."""
+    if n == 0:
+        return pool.new_empty(1, 0, pool.shape[0], pool.shape[2])
+    nb = -(-n // block_size)
+    flat = flat_indices(tables[:, :nb], block_size)[:, :n].long()
+    return pool[:, flat].permute(1, 2, 0, 3)
+
+
 def _write_plan(tokens, block_tables, start, write_mask, token_mask,
                 block_size):
     """Which new K/V rows are written where: (row, token) indices of the
@@ -308,15 +327,19 @@ def make_paged_forward(block_size: int, base_forward=None, layout=None):
     pool, so write targets must be disjoint across rows — they are, since
     each live block has one writer and prefix-shared blocks are never
     written.  Decode (T == 1) hands the raw pool and tables to the paged
-    kernel; prefill gathers per-request views after the write and runs the
-    dense masked attention on them.  ``layout``: a tp rank's serving
-    layout, passed to the base forward (the pool holds local heads).
+    kernel; one row of T > 1 tokens (``live_prefix``) runs
+    ``_live_attention`` over its cached prefix's blocks and the new K/V;
+    other multi-token calls gather per-request views after the write and
+    run the dense masked attention on them.  ``layout``: a tp rank's
+    serving layout, passed to the base forward (the pool holds local
+    heads).
     """
     base = base_forward or forward_with_cache
 
     def fwd(cfg, params, tokens, cache, block_tables, start,
             write_mask=None, token_mask=None, logits_index=None):
         T = tokens.shape[1]
+        s0 = live_prefix(tokens, cache, start)
         start = start.to(device=tokens.device, dtype=torch.long)
         tables = block_tables.to(device=tokens.device, dtype=torch.int32)
         b, t, phys = _write_plan(tokens, tables, start, write_mask,
@@ -327,6 +350,11 @@ def make_paged_forward(block_size: int, base_forward=None, layout=None):
             _scatter(cv, vv[b, t], phys)
             if T == 1:
                 return ck, cv             # native: attention gets the pool
+            if s0 is not None:
+                return (live_columns(prefix_view(ck, tables, block_size, s0),
+                                     kk),
+                        live_columns(prefix_view(cv, tables, block_size, s0),
+                                     vv))
             return (gather_view(ck, tables, block_size),
                     gather_view(cv, tables, block_size))
 
@@ -334,10 +362,11 @@ def make_paged_forward(block_size: int, base_forward=None, layout=None):
             return paged_decode_attention(q[:, 0].contiguous(), pk, pv,
                                           lens, tables, block_size)[:, None]
 
+        attention = decode if T == 1 else \
+            None if s0 is None else _live_attention
         return base(cfg, params, tokens, cache, start, write_mask,
                     token_mask=token_mask, logits_index=logits_index,
-                    kv_update=kv_update,
-                    attention=decode if T == 1 else None, layout=layout)
+                    kv_update=kv_update, attention=attention, layout=layout)
 
     return fwd
 
