@@ -114,7 +114,10 @@
    past however much was cached, and bf16 matmuls of other shapes round
    differently), exact launch counts (32 paged or int8 decode attentions
    per decode step, none of the other decode kernels, 65 RMSNorms per
-   forward), and all 32 of the batch's and of the repeat's tokens against
+   forward; the bf16 paged engine's decode steps are CUDA graph replays,
+   each counted as the launches it replays, and every decode step of every
+   phase with an int8 pool or weights, Mixtral or tp is eager), and all
+   32 of the batch's and of the repeat's tokens against
    the bf16 no-cache recompute: within 5% of the largest |logit| for the
    bf16 pool and 10% for int8 (int8 K/V carry about 6x bf16's relative
    rounding error, per element).  Where the repeat leaves the batch's
@@ -1904,9 +1907,13 @@ def check_flash_prefills(engine, launches: dict, stats: dict) -> None:
                              f"{stats})")
 
 
-def expect_decode_kernel(run: dict, kernel: str, n_layers: int) -> None:
+def expect_decode_kernel(run: dict, kernel: str, n_layers: int,
+                         graphed: bool) -> None:
     """Every decode step launched ``kernel`` once per layer and no other
-    decode-attention kernel ran."""
+    decode-attention kernel ran (a graph replay counts the launches it
+    replays); where ``graphed`` (a bf16 paged engine in one process, with
+    the dense FFN and unquantised weights) every decode step was a CUDA
+    graph replay, elsewhere none was."""
     steps = run["engine"]["decode_steps"]
     want = {k: 0 for k in ("decode_attention", "decode_attention_quant",
                            "paged_decode_attention")}
@@ -1915,6 +1922,10 @@ def expect_decode_kernel(run: dict, kernel: str, n_layers: int) -> None:
     if got != want:
         raise AssertionError(f"decode launches {got} != expected {want} "
                              f"(stats {run['engine']})")
+    replays = run["engine"]["decode_graph_steps"]
+    if replays != (steps if graphed else 0):
+        raise AssertionError(f"{replays} decode graph replays of {steps} "
+                             f"decode steps (graphed {graphed})")
 
 
 def serve(cfg, params, seed: int = 0) -> dict:
@@ -1929,7 +1940,7 @@ def serve(cfg, params, seed: int = 0) -> dict:
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
                for n in PROMPT_LENS]
     run = drive(engine, prompts, repeat=0, same_as_batch=True)
-    expect_decode_kernel(run, "decode_attention", cfg.n_layers)
+    expect_decode_kernel(run, "decode_attention", cfg.n_layers, False)
     ref = check_against_recompute(cfg, params, prompts[0],
                                   run["tokens"][0][:8])
     del engine
@@ -1969,7 +1980,8 @@ def serve_cached(cfg, params, kv_quant: str, paged: bool,
     setup_s = time.perf_counter() - t0
     prompts = shared_prefix_prompts(cfg.vocab_size, seed)
     run = drive(engine, prompts, repeat=REPEAT, same_as_batch=not paged)
-    expect_decode_kernel(run, kernel, cfg.n_layers)
+    expect_decode_kernel(run, kernel, cfg.n_layers,
+                         paged and kv_quant == "none")
     out = {"paged": paged, "kv_quant": kv_quant, "setup_s": setup_s, **run}
     if paged:
         out.update(check_prefix_hits(run, prompts))
@@ -2275,7 +2287,9 @@ def serve_option(name: str, cfg, params, smi: str, paged: bool,
     finally:
         if recorder is not None:
             recorder.close()
-    expect_decode_kernel(run, kernel, cfg.n_layers)
+    expect_decode_kernel(run, kernel, cfg.n_layers,
+                         paged and not kv8 and not moe_cfg
+                         and options.get("weight_quant", "none") == "none")
     out = {"phase": name, "paged": paged, "prompts": seed_note,
            "options": options, "setup_s": setup_s, **run}
     if shared_prefix:
@@ -2443,7 +2457,7 @@ def serve_surface(cfg, params, smi: str, seed: int = 3) -> dict:
     check_rmsnorm_launches(engine, launches, stats)
     check_flash_prefills(engine, launches, stats)
     expect_decode_kernel({"engine": stats, "launches": launches},
-                         "decode_attention", cfg.n_layers)
+                         "decode_attention", cfg.n_layers, False)
     series = {}
     for line in metrics.splitlines():
         if line.startswith("#") or not line:
@@ -2616,7 +2630,7 @@ def serve_tiers(cfg, params, smi: str, seed: int = 5) -> dict:
     check_rmsnorm_launches(engine, launches, final)
     check_flash_prefills(engine, launches, final)
     expect_decode_kernel({"engine": final, "launches": launches},
-                         "paged_decode_attention", cfg.n_layers)
+                         "paged_decode_attention", cfg.n_layers, True)
     checks = [check_against_recompute(cfg, params, p, t, other=r)
               for p, t, r in zip(prompts, first["tokens"], rep["tokens"])]
     checks += [check_against_recompute(cfg, params, p, t)
@@ -2775,11 +2789,11 @@ def serve_disagg(cfg, params, smi: str, seed: int = 6) -> dict:
         raise AssertionError(f"the shared prefix was not resident: {rows}")
     both = {k: sum(st[k] for st in stats.values())
             for k in ("prefills", "prefill_kernel", "decode_steps",
-                      "verify_steps")}
+                      "verify_steps", "decode_graph_steps")}
     check_rmsnorm_launches(engines["decode"], launches, both)
     check_flash_prefills(engines["decode"], launches, both)
     expect_decode_kernel({"engine": both, "launches": launches},
-                         "paged_decode_attention", cfg.n_layers)
+                         "paged_decode_attention", cfg.n_layers, True)
     engine_ms = {k: [(len(o) if isinstance(o, list) else o["imported"], ms)
                      for o, ms in v] for k, v in xfer.items()}
     out = {"phase": "serve_disagg", "handoffs": rows, "launches": launches,
@@ -4267,6 +4281,9 @@ def tp_variant(name: str, cfg, params, flags, prompts, margin: float,
                            "paged_decode_attention")}
     want.update(rmsnorm=(2 * cfg.n_layers + 1) * calls)
     want[kernel] = cfg.n_layers * stats["decode_steps"]
+    if stats["decode_graph_steps"] != 0:
+        raise AssertionError(f"serve_tp {name}: a tp rank replayed a "
+                             f"decode graph ({stats})")
     for r, rs in enumerate(ranks):
         if rs["launches"] != want:
             raise AssertionError(f"serve_tp {name} rank {r}: launches "
@@ -4686,6 +4703,8 @@ def serve_tp_tiers(cfg, params, smi: str, seed: int = 10) -> dict:
         failures.append("the promoted repeat's tokens are not the warm "
                         "wave's")
     calls = final["prefills"] + final["decode_steps"] + final["verify_steps"]
+    if final["decode_graph_steps"] != 0:
+        failures.append(f"a tp rank replayed a decode graph: {final}")
     want = {"decode_attention": 0, "decode_attention_quant": 0,
             "paged_decode_attention": cfg.n_layers * final["decode_steps"],
             "rmsnorm": (2 * cfg.n_layers + 1) * calls}

@@ -278,6 +278,10 @@ class ServeEngine:
         self.decode_s = 0.0
         self.verify_tokens = 0       # tokens emitted by verify steps
         self.verify_s = 0.0
+        # Decode steps run as CUDA graph replays, and the graph's captures
+        # (the paged engine's, serve/decode_graph.py).
+        self.decode_graph_steps = 0
+        self.decode_graph_captures = 0
 
     def _now(self) -> float:
         """A span stamp, on the tracer's clock (read at every call: tests
@@ -394,12 +398,14 @@ class ServeEngine:
         dev = self.device
         tr = self._tracer
         with tr.span(None, "decode-enqueue", step=self.decode_steps + 1):
+            # A blocking host-to-device copy waits for the stream: made
+            # before the forward is queued, it waits for nothing.
+            samp = torch.from_numpy(temps).to(dev)
             logits = self._decode_logits(last, mask)
             sample = self._sample if self._filters_on(temps) \
                 else self._sample_plain
             noise = self._noise(logits[:, 0], temps)
-            toks = sample(logits[:, 0], torch.from_numpy(temps).to(dev),
-                          noise)
+            toks = sample(logits[:, 0], samp, noise)
         with tr.span(None, "decode-sync"):
             toks = toks.cpu().numpy()
         self.decode_steps += 1
@@ -562,7 +568,9 @@ class ServeEngine:
                 "decode_tokens": self.decode_tokens,
                 "decode_s": self.decode_s,
                 "verify_tokens": self.verify_tokens,
-                "verify_s": self.verify_s}
+                "verify_s": self.verify_s,
+                "decode_graph_steps": self.decode_graph_steps,
+                "decode_graph_captures": self.decode_graph_captures}
 
     def has_work(self) -> bool:
         # _finished counts: instantly-cancelled requests must still be

@@ -47,6 +47,11 @@ them would resolve through the zero-filled tail of its table into block
 0, another request's block, so only real tokens write.  Weight
 quantisation dequantises outermost, around the paged forward.
 
+A decode step replays one CUDA graph of the decode forward
+(``serve/decode_graph.py``) on a CUDA device over a bf16 pool, in one
+process, with the dense FFN and unquantised weights; other engines, and
+every verify step, run the forward eagerly.
+
 Tensor parallelism (``layout``, as the dense engine's): the pool holds the
 rank's kv heads and the tables ride every step plan to the followers
 (``serve/multihost.py::MultihostPagedServeEngine``).  Every block read and
@@ -66,6 +71,7 @@ import numpy as np
 import torch
 
 from kuberay_tpu_torch.models.llama import LlamaConfig
+from kuberay_tpu_torch.serve import decode_graph
 from kuberay_tpu_torch.serve.engine import Request, ServeEngine, _bucket
 from kuberay_tpu_torch.serve.kv_cache import base_forward_for
 from kuberay_tpu_torch.serve.kv_tiers import KvTierStore
@@ -109,6 +115,7 @@ class PagedServeEngine(ServeEngine):
                          donate_params=donate_params, metrics=metrics,
                          tracer=tracer, layout=layout)
         self.allocator = BlockAllocator(num_blocks, block_size)
+        self._graph: Optional[decode_graph.DecodeGraph] = None
         self.tables = np.zeros((max_slots, self.max_blocks), dtype=np.int32)
         self.owned: List[List[int]] = [[] for _ in range(max_slots)]
         self._wait_state = None        # (request id, num_free) at last block
@@ -157,10 +164,33 @@ class PagedServeEngine(ServeEngine):
     def _decode_forward(self, tokens, lens, mask, token_mask=None):
         """Decode or verify over every slot's table; the token mask gates
         the pool's writes (a decode step's is the slot mask)."""
+        return self._pool_forward(
+            tokens, lens, mask, torch.from_numpy(self.tables).to(self.device),
+            token_mask)
+
+    def _pool_forward(self, tokens, lens, mask, tables, token_mask=None):
+        """The model call over every slot, with the tables on the device."""
         logits, _ = self._forward(
-            self.cfg, self.params, tokens, self.cache,
-            torch.from_numpy(self.tables).to(self.device), lens, mask,
+            self.cfg, self.params, tokens, self.cache, tables, lens, mask,
             token_mask=mask[:, None] if token_mask is None else token_mask)
+        return logits
+
+    @torch.no_grad()
+    def _decode_logits(self, last, mask):
+        """A decode step's logits: one replay of the step's CUDA graph
+        (``serve/decode_graph.py``) where ``decode_graph.eligible`` holds
+        of this engine, else the eager forward."""
+        if not decode_graph.eligible(self.device, self.cache, self.layout,
+                                     self.cfg, self.params):
+            return super()._decode_logits(last, mask)
+        if self._graph is None:
+            self._graph = decode_graph.DecodeGraph(
+                self.max_slots, self.max_blocks, self.device)
+        logits, captured = self._graph.replay(
+            self._pool_forward, (self.params, self.cache), last, self.lens,
+            mask, self.tables)
+        self.decode_graph_captures += captured
+        self.decode_graph_steps += 1
         return logits
 
     def _extra_draft_cap(self, slot: int) -> int:

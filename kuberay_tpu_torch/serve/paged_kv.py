@@ -8,8 +8,12 @@ Port of ``kuberay_tpu/serve/paged_kv.py``:
   table), padded to ``max_blocks``;
 - writes scatter the new K/V into the pool in place, gated per token: a
   padding position's table lookup would land in block 0, which belongs to
-  another request, so only real tokens of writable rows are written (torch
-  has no ``mode="drop"``: the gated rows are selected before the write);
+  another request, so only real tokens of writable rows reach the pool.
+  torch has no ``mode="drop"``, and selecting the gated rows on the host
+  would wait on the device, so every row is written and the rows the gate
+  keeps out land in a sink: one block of rows a kv head past the pool, in
+  each leaf's storage, which no block id names and nothing reads
+  (``_write_plan``);
 - decode reads the pool through the block tables in the paged CUDA kernel
   (``ops/paged_attention.py``); a one-row multi-token call (prefill, a
   prefill chunk) runs the flash forward kernel over the row's live
@@ -33,6 +37,7 @@ Port of ``kuberay_tpu/serve/paged_kv.py``:
 from __future__ import annotations
 
 import collections
+import math
 from typing import Dict, List, Optional, Sequence
 
 import torch
@@ -237,25 +242,55 @@ def init_paged_cache(cfg, num_blocks: int, block_size: int,
     """Flat physical pool, head-major: [L, Hkv, num_blocks * block_size, D]
     in ``cfg.dtype``; with ``quant="int8"`` each of "k"/"v" is {"q": int8
     [L, Hkv, P, D], "s": float32 [L, Hkv, P]}.  ``n_kv_heads``: Hkv where
-    not the model's (a tp rank's local heads)."""
-    shape = (cfg.n_layers, n_kv_heads or cfg.n_kv_heads,
-             num_blocks * block_size, cfg.head_dim)
+    not the model's (a tp rank's local heads).  Each leaf's storage runs
+    ``Hkv * block_size`` rows past the pool: the sink of the forwards'
+    writes (``_write_plan``), outside every block id, so no table names it
+    and the allocator never hands it out."""
+    hkv = n_kv_heads or cfg.n_kv_heads
+    shape = (cfg.n_layers, hkv, num_blocks * block_size, cfg.head_dim)
+    sink = hkv * block_size
     if quant == "int8":
         def leaf():
-            return {"q": torch.zeros(shape, dtype=torch.int8, device=device),
-                    "s": torch.zeros(shape[:-1], dtype=torch.float32,
-                                     device=device)}
+            return {"q": _with_sink(shape, torch.int8, device, sink),
+                    "s": _with_sink(shape[:-1], torch.float32, device,
+                                    sink)}
         return {"k": leaf(), "v": leaf()}
     if quant != "none":
         raise ValueError(f"unknown kv quant {quant!r}")
-    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
-            "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+    return {"k": _with_sink(shape, cfg.dtype, device, sink),
+            "v": _with_sink(shape, cfg.dtype, device, sink)}
+
+
+def _with_sink(shape, dtype, device, sink_rows: int) -> torch.Tensor:
+    """A zeroed contiguous tensor of ``shape`` [L, Hkv, P, *row] whose
+    storage holds ``sink_rows`` more rows of ``row`` past its end."""
+    row, n = math.prod(shape[3:]), math.prod(shape)
+    return torch.zeros(n + sink_rows * row, dtype=dtype,
+                       device=device)[:n].view(shape)
+
+
+def _pool_leaves(cache) -> List[torch.Tensor]:
+    return [t for n in ("k", "v") for t in
+            (cache[n].values() if isinstance(cache[n], dict) else [cache[n]])]
+
+
+def _check_sinks(cache, block_size: int) -> None:
+    """Every leaf is ``init_paged_cache``'s: contiguous from the start of
+    its storage, with the sink past it."""
+    for t in _pool_leaves(cache):
+        L, H, P = t.shape[:3]
+        rows = t.untyped_storage().nbytes() // (
+            t.element_size() * math.prod(t.shape[3:]))
+        if t.storage_offset() or not t.is_contiguous() or \
+                rows < L * H * P + H * block_size:
+            raise ValueError("paged forward: the pool has no sink past its "
+                             "blocks (build it with init_paged_cache)")
 
 
 def _physical_positions(block_tables, positions, block_size):
     """[B, T] logical positions -> [B, T] flat pool indices via each row's
     block table.  Positions past the table (bucket padding) resolve
-    through its last entry; they are never written."""
+    through its last entry; the write gate keeps them out."""
     blk = (positions // block_size).clamp(max=block_tables.shape[1] - 1)
     phys_blk = torch.gather(block_tables.long(), 1, blk)
     return phys_blk * block_size + positions % block_size
@@ -293,27 +328,47 @@ def prefix_view(pool: torch.Tensor, tables: torch.Tensor, block_size: int,
 
 
 def _write_plan(tokens, block_tables, start, write_mask, token_mask,
-                block_size):
-    """Which new K/V rows are written where: (row, token) indices of the
-    gated tokens and their pool positions.  The gate is per token — real
-    tokens of writable rows only — since a padding position's lookup
-    names another request's block.  One host sync (the boolean select)
-    per forward, not per layer."""
+                block_size, pool):
+    """Where every new K/V row goes, in every layer: [L, B * T, Hkv] rows of
+    a pool leaf's storage (``_storage_rows``; K, V and the int8 scales share
+    the geometry).  The gate is per token, real tokens of writable rows
+    only, since a padding position's lookup names another request's
+    block: a gated token goes to its position through its row's table, any
+    other to the sink past the pool, one row there for each kv head and
+    position in a block.  No host sync: the gate picks targets on the
+    device, and the writes are one scatter a leaf and layer."""
     B, T = tokens.shape
+    L, H, P = pool.shape[:3]
     dev = tokens.device
     positions = start[:, None] + torch.arange(T, device=dev)[None, :]
     if write_mask is None:
         write_mask = torch.ones(B, device=dev)
     gate = token_mask if token_mask is not None \
         else write_mask[:, None].expand(B, T)
-    b, t = torch.nonzero(gate > 0, as_tuple=True)
-    phys = _physical_positions(block_tables, positions, block_size)
-    return b, t, phys[b, t]
+    phys = _physical_positions(block_tables, positions,
+                               block_size).reshape(-1, 1)
+    heads = torch.arange(H, device=dev)
+    live = torch.arange(L, device=dev)[:, None, None] * (H * P) + \
+        heads * P + phys
+    sink = L * H * P + heads * block_size + phys % block_size
+    return torch.where(gate.reshape(-1, 1) > 0, live, sink)
 
 
-def _scatter(pool, rows, phys):
-    """pool [H, P, ...] <- rows [N, H, ...] at pool positions phys [N]."""
-    pool[:, phys] = rows.transpose(0, 1).to(pool.dtype)
+def _storage_rows(layer: torch.Tensor) -> torch.Tensor:
+    """One layer [Hkv, P, *row] of a pool leaf as the rows of the leaf's
+    whole storage, every layer then the sink: [R, *row]."""
+    row = layer.shape[2:]
+    n = layer.untyped_storage().nbytes() // (layer.element_size() *
+                                             math.prod(row))
+    return layer.as_strided((n, *row), (math.prod(row), *layer.stride()[2:]),
+                            0)
+
+
+def _write_rows(layer: torch.Tensor, rows: torch.Tensor, plan) -> None:
+    """layer [Hkv, P, *row] of a pool leaf <- rows [B * T, Hkv, *row] where
+    the plan sends them in this layer."""
+    i = layer.storage_offset() // layer.numel()
+    _storage_rows(layer)[plan[i]] = rows.to(layer.dtype)
 
 
 def make_paged_forward(block_size: int, base_forward=None, layout=None):
@@ -326,13 +381,15 @@ def make_paged_forward(block_size: int, base_forward=None, layout=None):
     length and writes are gated per token).  Writes land in the shared
     pool, so write targets must be disjoint across rows — they are, since
     each live block has one writer and prefix-shared blocks are never
-    written.  Decode (T == 1) hands the raw pool and tables to the paged
-    kernel; one row of T > 1 tokens (``live_prefix``) runs
-    ``_live_attention`` over its cached prefix's blocks and the new K/V;
-    other multi-token calls gather per-request views after the write and
-    run the dense masked attention on them.  ``layout``: a tp rank's
-    serving layout, passed to the base forward (the pool holds local
-    heads).
+    written — and the rows the gate keeps out land in the pool's sink, so
+    ``cache`` is ``init_paged_cache``'s.  Nothing in the forward waits on
+    the device (a CUDA graph can hold a decode step's).  Decode (T == 1)
+    hands the raw pool and tables to the paged kernel; one row of T > 1
+    tokens (``live_prefix``) runs ``_live_attention`` over its cached
+    prefix's blocks and the new K/V; other multi-token calls gather
+    per-request views after the write and run the dense masked attention
+    on them.  ``layout``: a tp rank's serving layout, passed to the base
+    forward (the pool holds local heads).
     """
     base = base_forward or forward_with_cache
 
@@ -342,12 +399,13 @@ def make_paged_forward(block_size: int, base_forward=None, layout=None):
         s0 = live_prefix(tokens, cache, start)
         start = start.to(device=tokens.device, dtype=torch.long)
         tables = block_tables.to(device=tokens.device, dtype=torch.int32)
-        b, t, phys = _write_plan(tokens, tables, start, write_mask,
-                                 token_mask, block_size)
+        _check_sinks(cache, block_size)
+        plan = _write_plan(tokens, tables, start, write_mask, token_mask,
+                           block_size, cache["k"])
 
         def kv_update(ck, cv, kk, vv):                # ck/cv: [Hkv, P, D]
-            _scatter(ck, kk[b, t], phys)
-            _scatter(cv, vv[b, t], phys)
+            _write_rows(ck, kk.flatten(0, 1), plan)
+            _write_rows(cv, vv.flatten(0, 1), plan)
             if T == 1:
                 return ck, cv             # native: attention gets the pool
             if s0 is not None:
@@ -388,16 +446,17 @@ def make_paged_quant_forward(block_size: int, base_forward=None,
         T = tokens.shape[1]
         start = start.to(device=tokens.device, dtype=torch.long)
         tables = block_tables.to(device=tokens.device, dtype=torch.int32)
-        b, t, phys = _write_plan(tokens, tables, start, write_mask,
-                                 token_mask, block_size)
+        _check_sinks(cache, block_size)
+        plan = _write_plan(tokens, tables, start, write_mask, token_mask,
+                           block_size, cache["k"]["q"])
 
         def kv_update(ck, cv, kk, vv):        # ck/cv: {"q", "s"} per layer
-            kq, ks = quantize_kv(kk[b, t])    # [N, Hkv, D], [N, Hkv, 1]
-            vq, vs = quantize_kv(vv[b, t])
-            _scatter(ck["q"], kq, phys)
-            _scatter(ck["s"], ks[..., 0], phys)
-            _scatter(cv["q"], vq, phys)
-            _scatter(cv["s"], vs[..., 0], phys)
+            kq, ks = quantize_kv(kk.flatten(0, 1))  # [N, Hkv, D], [N, Hkv, 1]
+            vq, vs = quantize_kv(vv.flatten(0, 1))
+            _write_rows(ck["q"], kq, plan)
+            _write_rows(ck["s"], ks[..., 0], plan)
+            _write_rows(cv["q"], vq, plan)
+            _write_rows(cv["s"], vs[..., 0], plan)
             return (quant_view(ck, tables, block_size, T == 1),
                     quant_view(cv, tables, block_size, T == 1))
 
