@@ -372,7 +372,7 @@ from kuberay_tpu_torch.models import llama, mixtral
 from kuberay_tpu_torch.ops import _build
 from kuberay_tpu_torch.ops import attention as fa
 from kuberay_tpu_torch.ops import decode_attention as da
-from kuberay_tpu_torch.ops import moe_matmul as moe
+from kuberay_tpu_torch.ops import launches as counters
 from kuberay_tpu_torch.ops import paged_attention as pa
 from kuberay_tpu_torch.ops import ring_attention as ra
 from kuberay_tpu_torch.ops import rmsnorm as rn
@@ -687,9 +687,9 @@ def check_rmsnorm_odd(res: dict) -> list:
         base = torch.rand(rows * d + off, generator=gen, device="cuda")
         x = (base * 2 - 1).to(xdt)[off:].view(rows, d)
         w = (torch.rand(d, generator=gen, device="cuda") + 0.5).to(wdt)
-        before = rn.launches
+        before = counters.snapshot()["rmsnorm"]
         y = rn.rmsnorm(x, w)
-        launched = rn.launches - before
+        launched = counters.snapshot()["rmsnorm"] - before
         err = max_err(y, rn.rmsnorm_ref(x, w)) if rows else 0.0
         if y.dtype != xdt or y.shape != x.shape or not err <= RMS_ATOL or \
                 launched != (1 if rows else 0) or \
@@ -729,19 +729,19 @@ def rms_bwd_check(x, w, g) -> dict:
     partials-sum launch a call; dx alone and dw alone, g read through the
     strides of a wider buffer and g expanded from one row (stride 0), each
     within the same limits, the strided g with no copy."""
-    before = (rn.bwd_launches, rn.bwd_dw_launches)
+    before = counters.snapshot("rmsnorm_bwd", "rmsnorm_bwd_dw")
     dx, dw = rn.rmsnorm_bwd(x, w, g)
     dx2, dw2 = rn.rmsnorm_bwd(x, w, g)
-    launched = [rn.bwd_launches - before[0], rn.bwd_dw_launches - before[1]]
+    launched = [k - before[n] for n, k in counters.snapshot(*before).items()]
     rx, rw = rn.rmsnorm_bwd_ref(x, w, g)
     only_dx = rn.rmsnorm_bwd(x, w, g, need_dw=False)
     only_dw = rn.rmsnorm_bwd(x, w, g, need_dx=False)
     wide = torch.zeros(x.shape[0], 2 * x.shape[1], dtype=g.dtype,
                        device=g.device)
     wide[:, :x.shape[1]] = g
-    copies = rn.bwd_g_copies
+    copies = counters.snapshot()["rmsnorm_bwd_g_copies"]
     strided = rn.rmsnorm_bwd(x, w, wide[:, :x.shape[1]])
-    strided_copies = rn.bwd_g_copies - copies
+    strided_copies = counters.snapshot()["rmsnorm_bwd_g_copies"] - copies
     expanded = g[:1].expand_as(g)
     ex, ew = rn.rmsnorm_bwd(x, w, expanded)
     rex, rew = rn.rmsnorm_bwd_ref(x, w, expanded)
@@ -1614,10 +1614,10 @@ def check_ring(gen: torch.Generator) -> dict:
         return {"out": out.detach(), "dq": qg.grad, "dk": kg.grad,
                 "dv": vg.grad}
 
-    reset_counts()
+    counters.clear()
     got = fwd_bwd(lambda a, b, c: ring_attention(a, b, c, ring, impl="rdma"))
     torch.cuda.synchronize()
-    whole = {"launches": train_counts()}
+    whole = {"launches": counters.snapshot(*TRAIN_KERNELS)}
     # Element by element against flash_attention (the same bf16 rounding
     # of P and dS); the forward likewise against the plain ring.  The
     # gradients against the plain ring run in float32 from the same bf16
@@ -1722,15 +1722,15 @@ def train_ring(seed: int = 0, profile: bool = False) -> dict:
             dataclasses.replace(cfg, attn_impl="auto"), state["params"],
             batch["tokens"], batch["targets"])[1]["loss"])
     run = {"loss": [], "grad_norm": [], "step_ms": []}
-    reset_counts()
+    counters.clear()
     for _ in range(RING_STEPS):
         t0 = time.perf_counter()
         state, m = step(state, batch)
         run["loss"].append(float(m["loss"]))
         run["grad_norm"].append(float(m["grad_norm"]))
         run["step_ms"].append((time.perf_counter() - t0) * 1e3)
-    launches = train_counts()
-    run["rmsnorm_bwd_g_copies"] = rn.bwd_g_copies
+    launches = counters.snapshot(*TRAIN_KERNELS)
+    run.update(counters.snapshot("rmsnorm_bwd_g_copies"))
     if profile:
         run["profile"] = profile_step(step, state, batch)
         check_profiled(run, per_step, "train ring")
@@ -1765,11 +1765,12 @@ def post(url: str, body: dict, timeout: float = 600.0):
         return resp.status, dict(resp.headers), json.load(resp)
 
 
-def serve_counts() -> dict:
-    return {"rmsnorm": rn.launches, "decode_attention": da.launches,
-            "decode_attention_quant": da.launches_quant,
-            "paged_decode_attention": pa.launches,
-            "flash_fwd": fa.fwd_launches}
+# The kernels a serving forward launches, and a training step's, by their
+# names in ``ops/launches.py`` (``counters`` here).
+SERVE_KERNELS = ("rmsnorm", "decode_attention", "decode_attention_quant",
+                 "paged_decode_attention", "flash_fwd")
+TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "rmsnorm",
+                 "rmsnorm_bwd", "rmsnorm_bwd_dw", "ring_attention_fwd")
 
 
 def decode_peaks(engine) -> dict:
@@ -1824,7 +1825,7 @@ def drive(engine, prompts, repeat: int, same_as_batch: bool) -> dict:
 
     try:
         torch.cuda.reset_peak_memory_stats()
-        reset_counts()
+        counters.clear()
         t0 = time.perf_counter()
         threads = [threading.Thread(target=client, args=(i,))
                    for i in range(len(prompts))]
@@ -1837,7 +1838,7 @@ def drive(engine, prompts, repeat: int, same_as_batch: bool) -> dict:
         again = [post(url, {"prompt_tokens": prompts[repeat],
                             "max_tokens": MAX_TOKENS, "temperature": 0.0})
                  for _ in range(2)]
-        launches = serve_counts()
+        launches = counters.snapshot(*SERVE_KERNELS)
         stats = fe.stats()
     finally:
         srv.shutdown()
@@ -2428,7 +2429,7 @@ def serve_surface(cfg, params, smi: str, seed: int = 3) -> dict:
     prompt = np.random.default_rng(seed).integers(
         0, cfg.vocab_size, 200).tolist()
     try:
-        reset_counts()
+        counters.clear()
         req = urllib.request.Request(
             f"{url}/v1/completions", data=json.dumps({
                 "prompt_tokens": prompt, "max_tokens": MAX_TOKENS,
@@ -2439,7 +2440,7 @@ def serve_surface(cfg, params, smi: str, seed: int = 3) -> dict:
             docs = [json.loads(line) for line in resp]
         _, _, body = post(url, {"prompt_tokens": prompt,
                                 "max_tokens": MAX_TOKENS})
-        launches = serve_counts()
+        launches = counters.snapshot(*SERVE_KERNELS)
         stats = fe.stats()
         with urllib.request.urlopen(f"{url}/metrics", timeout=60) as resp:
             metrics = resp.read().decode()
@@ -2578,7 +2579,7 @@ def serve_tiers(cfg, params, smi: str, seed: int = 5) -> dict:
 
     waves = {}
     try:
-        reset_counts()
+        counters.clear()
         s0 = stats()
         for name, batch, n in (("first", prompts, MAX_TOKENS),
                                ("warm", prompts, MAX_TOKENS)):
@@ -2609,7 +2610,7 @@ def serve_tiers(cfg, params, smi: str, seed: int = 5) -> dict:
             "tier_fetch_blocks": after["tier_fetch_blocks"]
             - before["tier_fetch_blocks"],
             "promotions": [(n, ms) for n, ms in promotions[n_prom:] if n]}
-        launches = serve_counts()
+        launches = counters.snapshot(*SERVE_KERNELS)
         final = fe.stats()
     finally:
         srv.shutdown()
@@ -2746,7 +2747,7 @@ def serve_disagg(cfg, params, smi: str, seed: int = 6) -> dict:
                rng.integers(0, cfg.vocab_size, DISAGG_LONG).tolist()]
     rows = []
     try:
-        reset_counts()
+        counters.clear()
         for prompt in prompts:
             row = handoff(pf, de, prompt, lambda: fes["decode"].call_engine(
                 lambda e: dict(e.stats)))
@@ -2761,7 +2762,7 @@ def serve_disagg(cfg, params, smi: str, seed: int = 6) -> dict:
                        second={"resident": res2["resident_blocks"],
                                "sent": len(exp2["blocks"])})
             rows.append(row)
-        launches = serve_counts()
+        launches = counters.snapshot(*SERVE_KERNELS)
         stats = {k: fe.stats() for k, fe in fes.items()}
     finally:
         for srv, _ in served.values():
@@ -2869,20 +2870,20 @@ def mixtral_train(smi: str, seed: int = 0) -> dict:
     for _ in range(MIXTRAL_STEPS):
         for leaf in param_leaves(params):
             leaf.grad = None
-        reset_counts()
+        counters.clear()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         loss, m = mixtral.loss_fn(cfg, params, tokens, targets)
         loss.backward()
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
-        launches = train_counts()
+        launches = counters.snapshot(*TRAIN_KERNELS)
         finite = all(bool(torch.isfinite(leaf.grad).all())
                      for leaf in param_leaves(params))
         steps.append({"ms": ms, **{k: v.item() for k, v in m.items()},
                       "grads_finite": finite, "launches": launches,
-                      "rmsnorm_bwd_g_copies": rn.bwd_g_copies,
-                      "moe_host_syncs": moe.host_syncs})
+                      **counters.snapshot("rmsnorm_bwd_g_copies",
+                                          "moe_host_syncs")})
         if launches != per_step or not finite or \
                 not all(math.isfinite(v) for k, v in steps[-1].items()
                         if isinstance(v, float)):
@@ -2912,38 +2913,22 @@ def param_leaves(params) -> list:
             *(params["layers"][k] for k in sorted(params["layers"]))]
 
 
-def reset_counts() -> None:
-    rn.launches = da.launches = da.launches_quant = pa.launches = 0
-    rn.bwd_launches = rn.bwd_dw_launches = rn.bwd_g_copies = 0
-    fa.fwd_launches = fa.bwd_dkv_launches = fa.bwd_dq_launches = 0
-    ra.launches = 0
-    moe.host_syncs = 0
-
-
 def moe_counts(cfg, stats: dict, recorder) -> dict:
-    """The grouped MoE FFN's host syncs since ``reset_counts`` and the rows
-    each expert ran (``RouteRecorder``); fails unless every forward
+    """The grouped MoE FFN's host syncs since ``counters.clear()`` and the
+    rows each expert ran (``RouteRecorder``); fails unless every forward
     (prefill chunk, decode and verify step) synced exactly once a layer
     (the group sizes)."""
     forwards = stats["prefills"] + stats["decode_steps"] + \
         stats["verify_steps"]
-    out = {"host_syncs": moe.host_syncs, "forwards": forwards,
-           "host_syncs_per_forward": moe.host_syncs / max(forwards, 1),
+    syncs = counters.snapshot()["moe_host_syncs"]
+    out = {"host_syncs": syncs, "forwards": forwards,
+           "host_syncs_per_forward": syncs / max(forwards, 1),
            "rows_per_expert": recorder.rows_per_expert}
     print(f"moe: {json.dumps(out)}", flush=True)
-    if moe.host_syncs != cfg.n_layers * forwards:
+    if syncs != cfg.n_layers * forwards:
         raise AssertionError(f"moe host syncs {out} != {cfg.n_layers} a "
                              f"forward")
     return out
-
-
-def train_counts() -> dict:
-    return {"flash_fwd": fa.fwd_launches,
-            "flash_bwd_dkv": fa.bwd_dkv_launches,
-            "flash_bwd_dq": fa.bwd_dq_launches, "rmsnorm": rn.launches,
-            "rmsnorm_bwd": rn.bwd_launches,
-            "rmsnorm_bwd_dw": rn.bwd_dw_launches,
-            "ring_attention_fwd": ra.launches}
 
 
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 8, 4, 2048
@@ -3020,14 +3005,14 @@ def train(seed: int = 0, profile: bool = False) -> dict:
             "--log-every", "1", "--seed", str(seed)]
     torch.cuda.reset_peak_memory_stats()
     buf = io.StringIO()
-    reset_counts()
+    counters.clear()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         rc = launcher.main(argv)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = train_counts()
-    copies = rn.bwd_g_copies
+    launches = counters.snapshot(*TRAIN_KERNELS)
+    copies = counters.snapshot()["rmsnorm_bwd_g_copies"]
     print(buf.getvalue(), end="", flush=True)
     steps = [re.fullmatch(r"step (\d+) loss (\S+) tok/s (\d+)", ln)
              for ln in buf.getvalue().splitlines() if ln.startswith("step ")]
@@ -3067,16 +3052,16 @@ def train(seed: int = 0, profile: bool = False) -> dict:
              "targets": torch.tensor(raw[:, 1:], dtype=torch.int32,
                                      device="cuda")}
     fixed = {"loss": [], "grad_norm": [], "step_ms": []}
-    reset_counts()
+    counters.clear()
     for _ in range(TRAIN_STEPS):
         t0 = time.perf_counter()
         state, m = step(state, batch)
         fixed["loss"].append(float(m["loss"]))
         fixed["grad_norm"].append(float(m["grad_norm"]))
         fixed["step_ms"].append((time.perf_counter() - t0) * 1e3)
-    fixed_launches = train_counts()
+    fixed_launches = counters.snapshot(*TRAIN_KERNELS)
     fixed["launches"] = fixed_launches
-    fixed["rmsnorm_bwd_g_copies"] = rn.bwd_g_copies
+    fixed.update(counters.snapshot("rmsnorm_bwd_g_copies"))
     fixed["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
     if profile:
         fixed["profile"] = profile_step(step, state, batch)
@@ -3105,13 +3090,11 @@ HANDOFF_JOB = "train-to-serve"
 # The server as ``python -m``, its kernel launch counts printed at exit.
 SERVE_WITH_COUNTS = (
     "import atexit, json, runpy\n"
-    "from kuberay_tpu_torch.ops import decode_attention as da\n"
-    "from kuberay_tpu_torch.ops import paged_attention as pa\n"
-    "from kuberay_tpu_torch.ops import rmsnorm as rn\n"
+    "from kuberay_tpu_torch.ops import launches as counters\n"
     "atexit.register(lambda: print('kernel launches ' + json.dumps(\n"
-    "    {'rmsnorm': rn.launches, 'decode_attention': da.launches,\n"
-    "     'decode_attention_quant': da.launches_quant,\n"
-    "     'paged_decode_attention': pa.launches}), flush=True))\n"
+    "    counters.snapshot('rmsnorm', 'decode_attention',\n"
+    "        'decode_attention_quant', 'paged_decode_attention')),\n"
+    "    flush=True))\n"
     "runpy.run_module('kuberay_tpu_torch.serve.server', run_name='__main__',\n"
     "                 alter_sys=True)\n")
 
@@ -3315,13 +3298,13 @@ def handoff_launcher(cfg, ckpt_dir: Path, recorder: CoordinatorRecorder,
         with env_vars(TPU_COORDINATOR_ADDRESS="127.0.0.1:8476",
                       TPU_PEAK_TFLOPS="989", TPU_JOB_ID=HANDOFF_JOB,
                       TPU_TRAIN_METRICS_PORT=str(mport)):
-            reset_counts()
+            counters.clear()
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(buf):
                 rc = launcher.main(argv)
             torch.cuda.synchronize()
             wall_s = time.perf_counter() - t0
-            launches = train_counts()
+            launches = counters.snapshot(*TRAIN_KERNELS)
     finally:
         launcher.make_train_step = real_make
         done.set()
@@ -3570,15 +3553,11 @@ BENCH_TOLERANCE = 0.10
 # the backward's g copies printed to stderr at exit.
 BENCH_WITH_COUNTS = (
     "import atexit, json, runpy, sys\n"
-    "from kuberay_tpu_torch.ops import attention as fa\n"
-    "from kuberay_tpu_torch.ops import rmsnorm as rn\n"
+    "from kuberay_tpu_torch.ops import launches as counters\n"
     "atexit.register(lambda: print('kernel launches ' + json.dumps(\n"
-    "    {'flash_fwd': fa.fwd_launches,\n"
-    "     'flash_bwd_dkv': fa.bwd_dkv_launches,\n"
-    "     'flash_bwd_dq': fa.bwd_dq_launches, 'rmsnorm': rn.launches,\n"
-    "     'rmsnorm_bwd': rn.bwd_launches,\n"
-    "     'rmsnorm_bwd_dw': rn.bwd_dw_launches,\n"
-    "     'rmsnorm_bwd_g_copies': rn.bwd_g_copies}), file=sys.stderr,\n"
+    "    counters.snapshot('flash_fwd', 'flash_bwd_dkv', 'flash_bwd_dq',\n"
+    "                      'rmsnorm', 'rmsnorm_bwd', 'rmsnorm_bwd_dw',\n"
+    "                      'rmsnorm_bwd_g_copies')), file=sys.stderr,\n"
     "    flush=True))\n"
     "runpy.run_module('kuberay_tpu_torch.bench', run_name='__main__',\n"
     "                 alter_sys=True)\n")
@@ -3654,10 +3633,10 @@ def entry_phase(smi: str, seed: int = 8) -> dict:
     cfg = llama.CONFIGS["llama_1b"]
     plain_cfg = dataclasses.replace(cfg, attn_impl="xla")
     fn, (params, tokens) = entry_mod.entry()
-    reset_counts()
+    counters.clear()
     logits = fn(params, tokens)
     torch.cuda.synchronize()
-    launches = train_counts()
+    launches = counters.snapshot(*TRAIN_KERNELS)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     rand = torch.randint(0, cfg.vocab_size, tuple(tokens.shape),
                          generator=gen, device="cuda", dtype=tokens.dtype)
@@ -3719,7 +3698,7 @@ def profile_phase(cfg, params, smi: str, seed: int = 7) -> dict:
     torch.cuda.synchronize()
     hook = ProfileHook(tempfile.mkdtemp(prefix="profiles-"))
     before = engine.stats["decode_steps"]
-    reset_counts()
+    counters.clear()
     started = hook.start_profile(duration_s=120.0)
     if "trace_dir" not in started:
         raise AssertionError(f"profile start: {started}")
@@ -3729,7 +3708,7 @@ def profile_phase(cfg, params, smi: str, seed: int = 7) -> dict:
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     stopped = hook.stop_profile()
-    counts = {"rmsnorm": rn.launches, "decode_attention": da.launches}
+    counts = counters.snapshot("rmsnorm", "decode_attention")
     steps = engine.stats["decode_steps"] - before
     del engine
     torch.cuda.empty_cache()
@@ -3794,19 +3773,16 @@ MESH_ADAM_MAX = 4.0
 MESH_RANK = (
     "import dataclasses, json, sys, torch\n"
     "from kuberay_tpu_torch.models import llama\n"
-    "from kuberay_tpu_torch.ops import attention as fa\n"
-    "from kuberay_tpu_torch.ops import rmsnorm as rn\n"
+    "from kuberay_tpu_torch.ops import launches as counters\n"
     "from kuberay_tpu_torch.train import launcher\n"
     "llama.CONFIGS['llama_1b_cut'] = dataclasses.replace(\n"
     "    llama.CONFIGS['llama_1b'], n_layers=int(sys.argv[1]))\n"
     "rc = launcher.main(sys.argv[2:])\n"
     "print('rank result ' + json.dumps({'rc': rc,\n"
     "    'peak_gb': torch.cuda.max_memory_allocated() / 1e9,\n"
-    "    'flash_fwd': fa.fwd_launches, 'flash_bwd_dkv': fa.bwd_dkv_launches,\n"
-    "    'flash_bwd_dq': fa.bwd_dq_launches, 'rmsnorm': rn.launches,\n"
-    "    'rmsnorm_bwd': rn.bwd_launches,\n"
-    "    'rmsnorm_bwd_dw': rn.bwd_dw_launches,\n"
-    "    'rmsnorm_bwd_g_copies': rn.bwd_g_copies}), flush=True)\n")
+    "    **counters.snapshot('flash_fwd', 'flash_bwd_dkv', 'flash_bwd_dq',\n"
+    "                        'rmsnorm', 'rmsnorm_bwd', 'rmsnorm_bwd_dw',\n"
+    "                        'rmsnorm_bwd_g_copies')}), flush=True)\n")
 # (name, launcher flags, per-rank env): fsdp and tp on one slice of two
 # workers (fsdp absorbs what --tp leaves), dp as two slices of one worker.
 MESH_LAYOUTS = (
@@ -4010,9 +3986,7 @@ TP_WEIGHT_RTOL = 0.01
 # export's records, an import's blocks, each timed to a device sync.
 SERVE_TP_RANK = (
     "import atexit, json, runpy, time, numpy as np, torch\n"
-    "from kuberay_tpu_torch.ops import decode_attention as da\n"
-    "from kuberay_tpu_torch.ops import paged_attention as pa\n"
-    "from kuberay_tpu_torch.ops import rmsnorm as rn\n"
+    "from kuberay_tpu_torch.ops import launches as counters\n"
     "from kuberay_tpu_torch.serve import multihost, paged_engine, sharding\n"
     "held = {'plans': {}, 'tier_ms': {}}\n"
     "def nbytes(t):\n"
@@ -4046,10 +4020,9 @@ SERVE_TP_RANK = (
     "             'export_kv_blocks', 'import_kv_blocks'):\n"
     "    timed(name)\n"
     "atexit.register(lambda: print('rank stats ' + json.dumps({\n"
-    "    'launches': {'rmsnorm': rn.launches,\n"
-    "                 'decode_attention': da.launches,\n"
-    "                 'decode_attention_quant': da.launches_quant,\n"
-    "                 'paged_decode_attention': pa.launches},\n"
+    "    'launches': counters.snapshot(\n"
+    "        'rmsnorm', 'decode_attention', 'decode_attention_quant',\n"
+    "        'paged_decode_attention'),\n"
     "    'weight_bytes': held.get('weight_bytes'),\n"
     "    'plans': held['plans'], 'tier_ms': held['tier_ms'],\n"
     "    'peak_memory_gb': torch.cuda.max_memory_allocated() / 1e9}),\n"
@@ -4626,7 +4599,7 @@ def serve_tp_tiers(cfg, params, smi: str, seed: int = 10) -> dict:
     waves = {}
     try:
         start_s = g.ready()
-        reset_counts()
+        counters.clear()
 
         def gstats():
             return g.get("/stats")[1]
@@ -4668,7 +4641,7 @@ def serve_tp_tiers(cfg, params, smi: str, seed: int = 10) -> dict:
             del row["body"]
         exports = export_pair(g.url, rurl, z)
         final = gstats()
-        replica_launches = serve_counts()
+        replica_launches = counters.snapshot(*SERVE_KERNELS)
         replica_stats = fe.stats()
         rcs = g.stop()
     finally:
@@ -4783,8 +4756,7 @@ PP_GRAD_NORM = 2 ** -7
 PP_RANK = (
     "import json, sys, time, torch, torch.distributed as dist\n"
     "from kuberay_tpu_torch.models import llama\n"
-    "from kuberay_tpu_torch.ops import attention as fa\n"
-    "from kuberay_tpu_torch.ops import rmsnorm as rn\n"
+    "from kuberay_tpu_torch.ops import launches as counters\n"
     "from kuberay_tpu_torch.ops.rope import rope_frequencies\n"
     "from kuberay_tpu_torch.parallel import spmd\n"
     "from kuberay_tpu_torch.parallel.mesh import MeshSpec\n"
@@ -4808,12 +4780,6 @@ PP_RANK = (
     "def fresh():\n"
     "    return {k: v.detach().clone().requires_grad_(True)\n"
     "            for k, v in params['layers'].items()}\n"
-    "def counts():\n"
-    "    return {'flash_fwd': fa.fwd_launches,\n"
-    "            'flash_bwd_dkv': fa.bwd_dkv_launches,\n"
-    "            'flash_bwd_dq': fa.bwd_dq_launches, 'rmsnorm': rn.launches,\n"
-    "            'rmsnorm_bwd': rn.bwd_launches,\n"
-    "            'rmsnorm_bwd_dw': rn.bwd_dw_launches}\n"
     "def step(stack):\n"
     "    out = pipeline_apply(layer, stack, x, mesh, n_microbatches=n_micro)\n"
     "    (out.float() ** 2).sum().backward()\n"
@@ -4821,14 +4787,13 @@ PP_RANK = (
     "step(fresh())\n"
     "stack = fresh()\n"
     "torch.cuda.synchronize()\n"
-    "fa.fwd_launches = fa.bwd_dkv_launches = fa.bwd_dq_launches = 0\n"
-    "rn.launches = rn.bwd_launches = rn.bwd_dw_launches = 0\n"
-    "rn.bwd_g_copies = 0\n"
+    "counters.clear()\n"
     "t0 = time.perf_counter()\n"
     "out = step(stack)\n"
     "torch.cuda.synchronize()\n"
     "step_ms = (time.perf_counter() - t0) * 1e3\n"
-    "launches = counts()\n"
+    "launches = counters.snapshot('flash_fwd', 'flash_bwd_dkv',\n"
+    "    'flash_bwd_dq', 'rmsnorm', 'rmsnorm_bwd', 'rmsnorm_bwd_dw')\n"
     "dist.barrier()\n"
     "ref_stack, outs = fresh(), []\n"
     "mb = B // n_micro\n"
@@ -4848,7 +4813,7 @@ PP_RANK = (
     "    stack[k].grad[rows.stop:]]).any()) for k in stack)\n"
     "print('rank result ' + json.dumps({\n"
     "    'rank': rank, 'step_ms': step_ms, 'launches': launches,\n"
-    "    'rmsnorm_bwd_g_copies': rn.bwd_g_copies,\n"
+    "    **counters.snapshot('rmsnorm_bwd_g_copies'),\n"
     "    'out_bits_equal': bool(torch.equal(out, ref)),\n"
     "    'out_finite': bool(torch.isfinite(out).all()),\n"
     "    'out_max_abs_diff': (out.float() - ref.float()).abs().max().item(),\n"

@@ -37,7 +37,7 @@
 //     serving shape (192 of the 512 blocks have live rows), on an H100
 //     80GB HBM3 at 700 W, 3-12% faster than 128 for all three kernels;
 //     512 was 7% faster for bf16 but 20-45% slower for int8 and paged
-//     (kuberay_tpu_torch/tools/decode_probe.py);
+//     (a sweep of the chunk on the card; PERF.md's kernel table);
 //   - each of a block's 4 warps streams its own 16-row slices through a
 //     2-stage ring of cp.async.cg 16-byte copies, so copies stay in flight
 //     while it computes and no block barrier stands in the loop; rows past

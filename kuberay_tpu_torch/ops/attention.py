@@ -30,12 +30,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from kuberay_tpu_torch.ops import launches
 from kuberay_tpu_torch.ops._build import FLOAT, INT, PTR, bind
-
-# Kernel launches on CUDA tensors, for run-time checks.
-fwd_launches = 0
-bwd_dkv_launches = 0
-bwd_dq_launches = 0
 
 _NEG_INF = -1e30
 
@@ -207,7 +203,6 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out, lse).  CPU tensors take ``flash_fwd_ref``; CUDA tensors launch
     the forward kernel or raise."""
-    global fwd_launches
     if q.device.type == "cpu":
         return flash_fwd_ref(q, k, v, causal, scale)
     B, Sq, Skv, Hq, Hkv, D = _check("flash_fwd", q, k, v)
@@ -219,7 +214,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         lse.data_ptr(), B, Sq, Skv, Hq, Hkv, D, int(causal), scale,
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on("flash_fwd", err)
-    fwd_launches += 1
+    launches.bump("flash_fwd")
     return out, lse
 
 
@@ -240,7 +235,6 @@ def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dk, dv).  CPU tensors take ``flash_bwd_dkv_ref``; CUDA tensors
     launch the dK/dV kernel or raise."""
-    global bwd_dkv_launches
     if q.device.type == "cpu":
         return flash_bwd_dkv_ref(q, k, v, do, lse, delta, causal, scale)
     B, Sq, Skv, Hq, Hkv, D = _check_bwd("flash_bwd_dkv", q, k, v, do, lse,
@@ -253,7 +247,7 @@ def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         B, Sq, Skv, Hq, Hkv, D, int(causal), scale,
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on("flash_bwd_dkv", err)
-    bwd_dkv_launches += 1
+    launches.bump("flash_bwd_dkv")
     return dk, dv
 
 
@@ -263,7 +257,6 @@ def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  scale: Optional[float] = None) -> torch.Tensor:
     """dq.  CPU tensors take ``flash_bwd_dq_ref``; CUDA tensors launch the
     dQ kernel or raise."""
-    global bwd_dq_launches
     if q.device.type == "cpu":
         return flash_bwd_dq_ref(q, k, v, do, lse, delta, causal, scale)
     B, Sq, Skv, Hq, Hkv, D = _check_bwd("flash_bwd_dq", q, k, v, do, lse,
@@ -276,7 +269,7 @@ def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         B, Sq, Skv, Hq, Hkv, D, int(causal), scale,
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on("flash_bwd_dq", err)
-    bwd_dq_launches += 1
+    launches.bump("flash_bwd_dq")
     return dq
 
 

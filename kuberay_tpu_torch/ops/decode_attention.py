@@ -34,10 +34,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from kuberay_tpu_torch.ops import launches
 from kuberay_tpu_torch.ops._build import FLOAT, INT, PTR, bind
-
-launches = 0           # bf16 wrapper calls that launched the kernels
-launches_quant = 0     # int8 wrapper calls that launched the kernels
 
 _NEG_INF = -1e30
 TILE = 64              # rows a block's 4 warps take a round (16 each)
@@ -240,7 +238,6 @@ def decode_attention(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
     """Decode attention over the bf16 cache.  CPU tensors take
     ``decode_attention_ref``; CUDA tensors launch the split kernel over
     ``split_plan(M)`` splits and the merge, or raise."""
-    global launches
     if q.device.type == "cpu":
         return decode_attention_ref(q, ck, cv, lens, scale)
     S, Hq, D = q.shape
@@ -261,7 +258,7 @@ def decode_attention(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
                  nsplit, _scale(D, scale),
                  torch.cuda.current_stream(q.device).cuda_stream),
               "decode_attention")
-    launches += 1
+    launches.bump("decode_attention")
     return out
 
 
@@ -273,7 +270,6 @@ def decode_attention_quant(q: torch.Tensor, kq: torch.Tensor,
     ks/vs [S, Hkv, M] float32).  CPU tensors take
     ``decode_attention_quant_ref``; CUDA tensors launch the split kernel
     and the merge, as ``decode_attention``, or raise."""
-    global launches_quant
     if q.device.type == "cpu":
         return decode_attention_quant_ref(q, kq, ks, vq, vs, lens, scale)
     S, Hq, D = q.shape
@@ -302,7 +298,7 @@ def decode_attention_quant(q: torch.Tensor, kq: torch.Tensor,
                  _scale(D, scale),
                  torch.cuda.current_stream(q.device).cuda_stream),
               "decode_attention_quant")
-    launches_quant += 1
+    launches.bump("decode_attention_quant")
     return out
 
 
@@ -310,7 +306,7 @@ def merge_partials(ws: torch.Tensor, S: int, Hq: int, D: int,
                    nsplit: int) -> torch.Tensor:
     """The merge kernel alone over a workspace ``ws`` (``pack_partials``'s
     layout, on the card) -> [S, Hq, D] bf16: for checking the merge against
-    ``merge_ref`` and timing it.  Not counted in ``launches``."""
+    ``merge_ref`` and timing it.  Not counted in ``ops/launches.py``."""
     if ws.device.type != "cuda" or ws.dtype != torch.float32 \
             or not ws.is_contiguous() \
             or ws.numel() != workspace_numel(S, Hq, D, nsplit):

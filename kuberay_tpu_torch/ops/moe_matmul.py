@@ -14,8 +14,8 @@ chosen experts only:
 The JAX package runs step 3 as one ``jax.lax.ragged_dot`` per weight, an
 XLA op (no Pallas kernel stands behind it).  Here it is a ``torch.matmul``
 per non-empty group, which needs the group sizes on the host: one
-device-to-host sync per call (a layer), counted in ``host_syncs``.  A
-hand-written grouped GEMM is later speed work.
+device-to-host sync per call (a layer), counted as ``moe_host_syncs`` in
+``ops/launches.py``.  A hand-written grouped GEMM is later speed work.
 
 Under expert parallelism a rank holds experts [expert_offset,
 expert_offset + E_local) only (``w_*`` are its shards): rows routed
@@ -30,8 +30,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
-# Device-to-host syncs of grouped_moe_ffn (one per call: the group sizes).
-host_syncs = 0
+from kuberay_tpu_torch.ops import launches
 
 
 def grouped_moe_ffn(xt: torch.Tensor, w_gate: torch.Tensor,
@@ -46,7 +45,6 @@ def grouped_moe_ffn(xt: torch.Tensor, w_gate: torch.Tensor,
     combine weights (already normalised and masked).  Returns [T, d]: the
     sum over the chosen experts held here.
     """
-    global host_syncs
     T, d = xt.shape
     E = w_gate.shape[0]
     K = topi.shape[1]
@@ -56,7 +54,7 @@ def grouped_moe_ffn(xt: torch.Tensor, w_gate: torch.Tensor,
     order = torch.argsort(flat_expert, stable=True)
     x_sorted = xt[order // K]                        # row r is token r // K
     sizes = torch.bincount(flat_expert, minlength=E + 1).tolist()
-    host_syncs += 1
+    launches.bump("moe_host_syncs")
     out_sorted = torch.zeros_like(x_sorted)
     lo = 0
     for e, n in enumerate(sizes[:E]):

@@ -26,6 +26,7 @@ from typing import Optional
 
 import torch
 
+from kuberay_tpu_torch.ops import launches
 from kuberay_tpu_torch.ops._build import FLOAT, INT, PTR, bind
 from kuberay_tpu_torch.ops.decode_attention import (
     CHUNK,
@@ -37,8 +38,6 @@ from kuberay_tpu_torch.ops.decode_attention import (
     decode_attention_split_ref,
     split_plan,
 )
-
-launches = 0           # wrapper calls that launched the kernels
 
 # The C entry points of csrc/<LIBRARY>.cu and their ctypes argtypes
 # (tests/test_torch_abi.py holds them to the C signatures).
@@ -106,7 +105,6 @@ def paged_decode_attention(q: torch.Tensor, pk: torch.Tensor,
     over ``split_plan(max_blocks * block_size)`` splits and the
     merge, or raise.  Table entries of live blocks must name blocks of the
     pool; entries past ``ceil(lens / block_size)`` are never read."""
-    global launches
     if q.device.type == "cpu":
         return paged_decode_attention_ref(q, pk, pv, lens, tables,
                                           block_size, scale)
@@ -135,7 +133,7 @@ def paged_decode_attention(q: torch.Tensor, pk: torch.Tensor,
                  D, CHUNK, nsplit, _scale(D, scale),
                  torch.cuda.current_stream(q.device).cuda_stream),
               "paged_decode_attention")
-    launches += 1
+    launches.bump("paged_decode_attention")
     return out
 
 

@@ -35,10 +35,8 @@ from typing import List, Optional, Tuple
 
 import torch
 
+from kuberay_tpu_torch.ops import launches
 from kuberay_tpu_torch.ops._build import FLOAT, INT, PTR, bind
-
-# Kernel launches on CUDA tensors, for run-time checks.
-launches = 0
 
 _NEG_INF = -1e30
 
@@ -186,7 +184,6 @@ def ring_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(out, lse) of the held ranks' queries over the ring's blocks.  CPU
     tensors take ``ring_attention_fwd_ref`` (``words`` unused: the blocks
     are there); CUDA tensors launch the kernel or raise."""
-    global launches
     if q.device.type == "cpu":
         return ring_attention_fwd_ref(q, k, v, rank0, n, causal, scale)
     R, B, Sl, Hq, Hkv, D, stride = _check(q, k, v, rank0, n, words)
@@ -201,7 +198,7 @@ def ring_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"ring_attention_fwd kernel launch failed: "
                            f"cudaError {err}")
-    launches += 1
+    launches.bump("ring_attention_fwd")
     return out, lse
 
 

@@ -39,7 +39,7 @@ the same bits from call to call (the order depends on the shape and the
 card's SM count alone).  The gradient g may arrive strided (tp's
 ``copy_to``, a pipeline hop, an expanded ``sum()`` gradient): any layout
 that views as [rows, d] is read through its strides, and only one that
-does not is copied (``bwd_g_copies``).
+does not is copied (``rmsnorm_bwd_g_copies`` in ``ops/launches.py``).
 """
 
 from __future__ import annotations
@@ -49,12 +49,8 @@ from typing import NamedTuple
 
 import torch
 
+from kuberay_tpu_torch.ops import launches
 from kuberay_tpu_torch.ops._build import FLOAT, INT, PTR, bind
-
-launches = 0           # forward kernel launches on CUDA tensors
-bwd_launches = 0       # backward row-kernel launches
-bwd_dw_launches = 0    # backward partials-sum launches
-bwd_g_copies = 0       # gradients copied to a [rows, d] layout first
 
 # Backward programs per SM: each keeps w and its accumulator in registers,
 # so a few resident programs an SM keep enough row loads in flight.
@@ -275,7 +271,7 @@ def rmsnorm_fwd(x: torch.Tensor, weight: torch.Tensor,
     launch the kernel of ``csrc/rmsnorm.cu`` or raise.  The checks and the
     plan are cached by shapes, dtypes and devices, so a repeated call costs
     the host little more than the launch."""
-    global launches, _launch
+    global _launch
     dev = x.device
     if dev.type == "cpu":
         return rmsnorm_ref(x, weight, eps)
@@ -301,7 +297,7 @@ def rmsnorm_fwd(x: torch.Tensor, weight: torch.Tensor,
         if err:
             raise RuntimeError(f"rmsnorm kernel launch failed: cudaError "
                                f"{err} (entry {entry})")
-        launches += 1
+        launches.bump("rmsnorm")
     return out
 
 
@@ -325,18 +321,16 @@ def bwd_warps(block: int) -> int:
 
 def _as_rows(g: torch.Tensor, rows: int, d: int) -> torch.Tensor:
     """g as [rows, d], through its strides where it views so, else a
-    contiguous copy (counted in ``bwd_g_copies``)."""
-    global bwd_g_copies
+    contiguous copy (counted as ``rmsnorm_bwd_g_copies``)."""
     g2 = g.reshape(rows, d)
     if g2.data_ptr() != g.data_ptr():
-        bwd_g_copies += 1
+        launches.bump("rmsnorm_bwd_g_copies")
     return g2
 
 
 def rmsnorm_dw_sum(partials: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """dw from the row kernel's [P, d] float32 partials: each column's P
     values summed in one fixed order, in ``dtype``."""
-    global bwd_dw_launches
     if partials.device.type == "cpu":
         return partials.sum(dim=0).to(dtype)
     if partials.device.type != "cuda" or partials.dtype != torch.float32 \
@@ -353,7 +347,7 @@ def rmsnorm_dw_sum(partials: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     _compiled[f"rmsnorm_dw_sum PARTS={parts} COLS={cols}"] = \
         _jit(_rmsnorm_dw_body)[(triton.cdiv(d, cols),)](
             partials, dw, n_parts, d, PARTS=parts, COLS=cols, num_warps=8)
-    bwd_dw_launches += 1
+    launches.bump("rmsnorm_bwd_dw")
     return dw
 
 
@@ -363,7 +357,6 @@ def rmsnorm_bwd(x: torch.Tensor, weight: torch.Tensor, g: torch.Tensor,
     """(dx, dw) of ``rmsnorm`` at x for the output gradient g, each None
     where not needed.  CPU tensors take ``rmsnorm_bwd_ref``; CUDA tensors
     launch the Triton kernels or raise."""
-    global bwd_launches
     if x.device.type == "cpu":
         dx, dw = rmsnorm_bwd_ref(x, weight, g, eps)
         return dx if need_dx else None, dw if need_dw else None
@@ -393,7 +386,7 @@ def rmsnorm_bwd(x: torch.Tensor, weight: torch.Tensor, g: torch.Tensor,
                 x2, weight.contiguous(), g2, x2 if dx is None else dx, part,
                 rows, d, g2.stride(0), g2.stride(1), per, eps, BLOCK=block,
                 WRITE_DX=need_dx, ACC_DW=need_dw, num_warps=warps)
-        bwd_launches += 1
+        launches.bump("rmsnorm_bwd")
         if need_dw:
             dw = rmsnorm_dw_sum(part, weight.dtype)
     return dx, dw

@@ -19,13 +19,14 @@ and the pool, so it is keyed on their storages and captured again when
 either is rebound; a write into them in place (a tier promotion, an
 import) is read by the next replay as by an eager step.
 
-Replays keep the kernel wrappers' launch counters exact: the wrappers count
-when Python calls them, which a replay skips, so each replay adds what the
-captured call counted, and neither the warm-up nor the capture counts.
+Replays keep the launch counts of ``ops/launches.py`` exact: the wrappers
+count when Python calls them, which a replay skips, so each replay adds
+what the captured call counted, and neither the warm-up nor the capture
+counts.
 
-Which engines replay is decided by ``eligible`` from what the engine holds;
-every other engine, and every step with more than one token a slot (verify
-steps), runs the eager forward as before.
+Which engines replay is decided once, by ``eligible`` from the engine's
+settings; every other engine, and every step with more than one token a
+slot (verify steps), runs the eager forward as before.
 """
 
 from __future__ import annotations
@@ -35,15 +36,8 @@ from typing import Callable, Dict, Iterator, Tuple
 import numpy as np
 import torch
 
-from kuberay_tpu_torch.ops import attention, decode_attention, \
-    paged_attention, rmsnorm
+from kuberay_tpu_torch.ops import launches
 from kuberay_tpu_torch.serve.kv_cache import base_forward_for
-
-# The kernel wrappers' launch counters a serving forward can move.
-COUNTERS = ((rmsnorm, "launches"), (paged_attention, "launches"),
-            (decode_attention, "launches"),
-            (decode_attention, "launches_quant"),
-            (attention, "fwd_launches"))
 
 
 def _tensors(tree) -> Iterator[torch.Tensor]:
@@ -54,32 +48,22 @@ def _tensors(tree) -> Iterator[torch.Tensor]:
         yield tree
 
 
-def eligible(device, cache, layout, cfg, params) -> bool:
-    """Whether an engine's decode steps replay a graph: on a CUDA device,
-    over a bf16 pool, in one process (no tp ``layout``: its steps run
-    collectives), with the dense FFN (Mixtral's grouped FFN reads its
+def eligible(device, kv_quant: str, weight_quant: str, layout, cfg) -> bool:
+    """Whether a paged engine of these settings replays its decode steps
+    as a graph: on a CUDA device, over a bf16 pool (``kv_quant`` "none"
+    and ``cfg.dtype`` bf16), in one process (no tp ``layout``: its steps
+    run collectives), with the dense FFN (Mixtral's grouped FFN reads its
     routing on the host) and unquantised weights (the int8 tree's view
     dequantises each layer in every forward).  The int8 pool is excluded
     too: its decode gathers per-step copies of every slot's blocks."""
-    k = cache["k"]
-    return (torch.device(device).type == "cuda"
-            and isinstance(k, torch.Tensor) and k.dtype == torch.bfloat16
-            and layout is None and base_forward_for(cfg) is None
-            and all(t.dtype != torch.int8 for t in _tensors(params)))
+    return (torch.device(device).type == "cuda" and kv_quant == "none"
+            and cfg.dtype == torch.bfloat16 and weight_quant == "none"
+            and layout is None and base_forward_for(cfg) is None)
 
 
 def _storage_key(trees) -> Tuple:
     return tuple((t.data_ptr(), tuple(t.shape), t.dtype)
                  for t in _tensors(trees))
-
-
-def _counts() -> Dict:
-    return {c: getattr(*c) for c in COUNTERS}
-
-
-def _set_counts(counts: Dict) -> None:
-    for (mod, name), n in counts.items():
-        setattr(mod, name, n)
 
 
 class DecodeGraph:
@@ -103,7 +87,7 @@ class DecodeGraph:
         self.graph = None
         self.logits = None
         self.key = None
-        self.per_call: Dict = {}      # counter -> launches a replay adds
+        self.per_call: Dict = {}      # kernel name -> launches a replay adds
 
     def replay(self, forward: Callable, trees, last: np.ndarray,
                lens: np.ndarray, mask: np.ndarray, tables: np.ndarray):
@@ -117,13 +101,12 @@ class DecodeGraph:
         if captured:
             self._capture(forward, key)
         self.graph.replay()
-        for (mod, name), n in self.per_call.items():
-            setattr(mod, name, getattr(mod, name) + n)
+        launches.add(self.per_call)
         return self.logits, captured
 
     def _capture(self, forward: Callable, key: Tuple) -> None:
         self.graph = self.logits = None       # the old graph's memory first
-        before = _counts()
+        before = launches.snapshot()
         args = (self.tokens, self.lens, self.mask, self.tables)
         main = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
@@ -132,10 +115,12 @@ class DecodeGraph:
             forward(*args)
         main.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        start = _counts()
+        start = launches.snapshot()
         with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             logits = forward(*args)
-        self.per_call = {c: n - start[c] for c, n in _counts().items()
-                         if n != start[c]}
-        _set_counts(before)
+        after = launches.snapshot()
+        self.per_call = {n: k - start[n] for n, k in after.items()
+                         if k != start[n]}
+        launches.clear()
+        launches.add(before)
         self.graph, self.logits, self.key = graph, logits, key

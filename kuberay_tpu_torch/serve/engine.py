@@ -45,9 +45,11 @@ Options, as in the JAX engine:
   collectives; one process per card, kept in lockstep by
   ``serve/multihost.py``.  The host loop does not change.
 
-Chunks and verify steps run T > 1 query tokens through the plain
-multi-token attention, as the JAX package runs them through XLA; only
-one-token decode steps launch a decode-attention kernel.
+Each forward's attention follows ``serve/kv_cache.py::attention_route``:
+one-token decode steps launch a decode-attention kernel, a prefill or a
+chunk over a bf16 cache the flash forward kernel over its live columns,
+and verify steps (and the int8 cache's multi-token calls) the plain
+masked attention, as the JAX package runs them through XLA.
 
 Where the JAX prefill runs every slot's row (one of them real) and computes
 logits at every position, this one prefills only the target slot and takes
@@ -77,10 +79,10 @@ import torch
 from kuberay_tpu_torch.models.llama import LlamaConfig
 from kuberay_tpu_torch.obs.trace import NOOP_TRACER
 from kuberay_tpu_torch.serve.kv_cache import (
+    attention_route,
     base_forward_for,
     forward_with_cache,
     init_kv_cache,
-    live_forwards,
     make_quantized_forward,
     tree_map,
 )
@@ -335,8 +337,8 @@ class ServeEngine:
     def _prefill_logits(self, padded: np.ndarray, slot: int, real_len: int,
                         start_pos: int = 0) -> torch.Tensor:
         """The prefill's logits [1, 1, V] at its last real token.
-        ``start`` stays on the host: the forward reads the prefix length
-        from it (``live_prefix``) without waiting on the device."""
+        ``start`` stays on the host: a live forward reads the prefix
+        length from it without waiting on the device."""
         tokens = torch.from_numpy(padded).to(self.device, torch.long)[None]
         start = torch.full((1,), start_pos, dtype=torch.long)
         idx = torch.tensor([real_len - 1], device=self.device)
@@ -376,9 +378,7 @@ class ServeEngine:
         returns its first generated token."""
         tr = self._tracer
         with tr.span(None, "prefill-enqueue"):
-            routed = live_forwards()
             logits = self._prefill_logits(padded, slot, real_len, start_pos)
-            routed = live_forwards() - routed
             sample = self._sample if self._filters_on(samp) \
                 else self._sample_plain
             samp_t = torch.from_numpy(samp).to(self.device)[None]
@@ -387,7 +387,8 @@ class ServeEngine:
         with tr.span(None, "prefill-sync"):
             tok = int(tok[0])
         self.prefills += 1
-        self.prefill_kernel += routed
+        self.prefill_kernel += \
+            attention_route(1, len(padded), self.cache) == "live"
         return tok
 
     @torch.no_grad()

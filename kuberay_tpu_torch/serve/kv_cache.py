@@ -22,22 +22,22 @@ over ``(tp, tpr)``.  Every rank of the group issues the same collectives
 in the same order; the cache holds the rank's kv heads only.
 
 Per step the model reaches two kernels: ``ops/rmsnorm.py`` (2 per layer +
-the final norm) and one attention kernel a layer.  One-token steps take a
-decode-attention kernel: ``decode_attention`` for the bf16 cache,
-``decode_attention_quant`` for the int8 cache, ``paged_decode_attention``
-for the paged pool.  One row of more than one token over a bf16 cache (a
-prefill, a prefill chunk, a one-slot verify) takes the flash forward
-kernel over the row's live columns (``_live_attention``; the dense and
-the paged layouts both route to it, by ``live_prefix``).  The other
-multi-token calls (rows at different offsets, the int8 cache) are plain
-torch over the whole cache, as they are plain XLA in the reference.
+the final norm) and one attention kernel a layer.  ``attention_route``
+picks it from the call's shape and the cache's element type, for every
+cache forward.  One-token steps ("decode") take a decode-attention kernel:
+``decode_attention`` for the bf16 cache, ``decode_attention_quant`` for
+the int8 cache, ``paged_decode_attention`` for the paged pool.  One row
+of more than one token over a bf16 cache ("live": a prefill, a prefill
+chunk, a one-slot verify) takes the flash forward kernel over the row's
+live columns (``_live_attention``).  The other multi-token calls
+("masked": rows at different offsets, the int8 cache) are plain torch
+over the whole cache, as they are plain XLA in the reference.
 """
 
 from __future__ import annotations
 
 import functools
 import math
-import threading
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
@@ -150,14 +150,33 @@ def _insert_kv(ck, cv, kk, vv, positions, start, write_mask, T,
     _insert(cv, vv, positions, start, write_mask, T, token_mask)
 
 
+def attention_route(B: int, T: int, cache) -> str:
+    """The attention of a forward of B rows of T new tokens against
+    ``cache`` (its leaves' element type decides): "decode" for one token a
+    row (a decode kernel); "live" for one row of more than one token over
+    a bf16 cache (``_live_attention`` over the row's cached prefix and new
+    K/V); "masked" otherwise (rows at different offsets, as a verify step
+    over every slot, and the int8 cache: the masked attention over the
+    whole cache)."""
+    if T == 1:
+        return "decode"
+    k = cache["k"]
+    if B == 1 and isinstance(k, torch.Tensor) and k.dtype == torch.bfloat16:
+        return "live"
+    return "masked"
+
+
+def _decode_attention(q, ck, cv, lens, q_positions):
+    """One-token attention over the bf16 cache, through its kernel."""
+    return decode_attention(q[:, 0].contiguous(), ck, cv,
+                            lens.to(torch.int32))[:, None]
+
+
 def _cached_attention(q, ck, cv, lens, q_positions):
     """q: [B, T, Hq, D] new queries; ck/cv: [B, M, Hkv, D] cache (already
     holding the new tokens); lens: [B] valid lengths after insertion;
     q_positions: [B, T] absolute query positions."""
     B, T, Hq, D = q.shape
-    if T == 1:
-        return decode_attention(q[:, 0].contiguous(), ck, cv,
-                                lens.to(torch.int32))[:, None]
     M, Hkv = ck.shape[1], ck.shape[2]
     G = Hq // Hkv
     # float32 scores from the working-dtype operands, as the reference's
@@ -171,40 +190,6 @@ def _cached_attention(q, ck, cv, lens, q_positions):
     p = torch.softmax(s, dim=-1).to(cv.dtype)
     out = torch.einsum("bngtm,bmnd->btngd", p.float(), cv.float())
     return out.reshape(B, T, Hq, D).to(q.dtype)
-
-
-# Forwards routed to ``_live_attention``, on this thread (an engine reads
-# what its own prefill forward added: ``ServeEngine.prefill_kernel``).
-_routed = threading.local()
-
-
-def live_forwards() -> int:
-    """Forwards this thread has routed to ``_live_attention``."""
-    return getattr(_routed, "n", 0)
-
-
-def _flash_cache(cache) -> bool:
-    """A bf16 cache (the flash forward kernel's dtype), not the int8 one."""
-    k = cache["k"]
-    return isinstance(k, torch.Tensor) and k.dtype == torch.bfloat16
-
-
-def live_prefix(tokens: torch.Tensor, cache,
-                start: torch.Tensor) -> Optional[int]:
-    """The attention route of a forward of ``tokens`` [B, T] at ``start``
-    [B] against ``cache``.  One row of more than one token over a bf16
-    cache takes ``_live_attention`` over its first ``start`` cached columns
-    and the new K/V: this returns that prefix length, read from ``start``
-    before it goes to the device (no sync where the caller keeps it on the
-    host), and counts the forward in ``live_forwards``.  Otherwise None:
-    rows at different offsets (a verify step over every slot) keep
-    ``_cached_attention``, the int8 cache ``_cached_attention_quant_multi``.
-    """
-    B, T = tokens.shape
-    if B != 1 or T == 1 or not _flash_cache(cache):
-        return None
-    _routed.n = live_forwards() + 1
-    return int(start[0])
 
 
 def live_columns(prefix: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
@@ -259,8 +244,9 @@ def make_quantized_forward(base_forward=None, layout=None):
     """Wrap a cache forward for the int8 cache (``init_kv_cache(...,
     quant="int8")``): its ``kv_update`` quantises the new K/V and writes
     values and scales in place; its ``attention`` reads the int8 cache
-    natively, through the int8 decode kernel for one-token steps and
-    ``_cached_attention_quant_multi`` for prefill.  The returned forward
+    natively, through the int8 decode kernel on the "decode" route and
+    ``_cached_attention_quant_multi`` on the others (the int8 cache never
+    routes "live", ``attention_route``).  The returned forward
     takes ``forward_with_cache``'s arguments; ``layout``: a tp rank's
     serving layout, passed to the base forward."""
     base = base_forward or forward_with_cache
@@ -269,6 +255,7 @@ def make_quantized_forward(base_forward=None, layout=None):
             token_mask=None, logits_index=None):
         B, T = tokens.shape
         dev = tokens.device
+        route = attention_route(B, T, cache)
         start = start.to(device=dev, dtype=torch.long)
         positions = start[:, None] + torch.arange(T, device=dev)[None, :]
         if write_mask is None:
@@ -285,7 +272,7 @@ def make_quantized_forward(base_forward=None, layout=None):
                 _insert(c, new, positions, start, write_mask, T, token_mask)
             return ck, cv
 
-        attention = _decode_attention_quant if T == 1 \
+        attention = _decode_attention_quant if route == "decode" \
             else _cached_attention_quant_multi
         return base(cfg, params, tokens, cache, start, write_mask,
                     token_mask=token_mask, logits_index=logits_index,
@@ -368,10 +355,13 @@ def forward_with_cache(cfg, params: Dict[str, Any], tokens: torch.Tensor,
     ``kv_update(ck, cv, kk, vv) -> (k_view, v_view)`` writes one layer's
     new K/V (kk/vv [B, T, Hkv, D]) into that layer's cache ck/cv in place
     and returns what ``attention(q, k_view, v_view, lens, positions)``
-    reads; the defaults are the dense cache's insert and
-    ``_cached_attention``, or, where ``live_prefix`` routes the call, the
-    insert and ``_live_attention`` over the row's first ``start`` cached
-    columns and the new K/V.  ``ffn(cfg, h, lp, token_mask)`` is the
+    reads.  Where neither is given, ``attention_route`` picks them: the
+    dense cache's insert, then on "decode" ``_decode_attention`` over the
+    cache, on "live" ``_live_attention`` over the row's first ``start``
+    cached columns and the new K/V, on "masked" ``_cached_attention`` over
+    the cache.  An explicit one overrides the route: the other is then
+    the insert handing over the whole cache, or ``_cached_attention``
+    (multi-token calls).  ``ffn(cfg, h, lp, token_mask)`` is the
     feed-forward block (default: the dense SwiGLU).  ``layout``: this
     rank's serving layout (``serve/sharding.py``), with ``params`` and
     ``cache`` its shards; None for one process.  Returns (float32 logits
@@ -379,22 +369,26 @@ def forward_with_cache(cfg, params: Dict[str, Any], tokens: torch.Tensor,
     """
     B, T = tokens.shape
     dev = tokens.device
-    s0 = live_prefix(tokens, cache, start) \
-        if kv_update is None and attention is None else None
+    route = attention_route(B, T, cache) \
+        if kv_update is None and attention is None else "masked"
+    # The live prefix's length, read before ``start`` goes to the device:
+    # no sync where the caller keeps it on the host, as the engines do.
+    s0 = int(start[0]) if route == "live" else 0
     start = start.to(device=dev, dtype=torch.long)
     positions = start[:, None] + torch.arange(T, device=dev)[None, :]
     lens = (start + T).to(torch.int32)
     if write_mask is None:
         write_mask = torch.ones(B, device=dev)
     if attention is None:
-        attention = _cached_attention if s0 is None else _live_attention
+        attention = _decode_attention if route == "decode" else \
+            _live_attention if route == "live" else _cached_attention
     if ffn is None:
         ffn = _dense_ffn
     if kv_update is None:
         def kv_update(ck, cv, kk, vv):
             _insert_kv(ck, cv, kk, vv, positions, start, write_mask, T,
                        token_mask)
-            if s0 is None:
+            if route != "live":
                 return ck, cv
             return (live_columns(ck[:, :s0], kk),
                     live_columns(cv[:, :s0], vv))

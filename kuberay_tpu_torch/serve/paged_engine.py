@@ -115,7 +115,12 @@ class PagedServeEngine(ServeEngine):
                          donate_params=donate_params, metrics=metrics,
                          tracer=tracer, layout=layout)
         self.allocator = BlockAllocator(num_blocks, block_size)
+        # The decode step's CUDA graph, where these settings allow one.
         self._graph: Optional[decode_graph.DecodeGraph] = None
+        if decode_graph.eligible(self.device, kv_quant, weight_quant, layout,
+                                 cfg):
+            self._graph = decode_graph.DecodeGraph(max_slots, self.max_blocks,
+                                                   self.device)
         self.tables = np.zeros((max_slots, self.max_blocks), dtype=np.int32)
         self.owned: List[List[int]] = [[] for _ in range(max_slots)]
         self._wait_state = None        # (request id, num_free) at last block
@@ -178,14 +183,10 @@ class PagedServeEngine(ServeEngine):
     @torch.no_grad()
     def _decode_logits(self, last, mask):
         """A decode step's logits: one replay of the step's CUDA graph
-        (``serve/decode_graph.py``) where ``decode_graph.eligible`` holds
-        of this engine, else the eager forward."""
-        if not decode_graph.eligible(self.device, self.cache, self.layout,
-                                     self.cfg, self.params):
-            return super()._decode_logits(last, mask)
+        (``serve/decode_graph.py``) where the engine has one, else the
+        eager forward."""
         if self._graph is None:
-            self._graph = decode_graph.DecodeGraph(
-                self.max_slots, self.max_blocks, self.device)
+            return super()._decode_logits(last, mask)
         logits, captured = self._graph.replay(
             self._pool_forward, (self.params, self.cache), last, self.lens,
             mask, self.tables)

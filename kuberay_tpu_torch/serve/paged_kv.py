@@ -42,18 +42,19 @@ from typing import Dict, List, Optional, Sequence
 
 import torch
 
-from kuberay_tpu_torch.ops.decode_attention import decode_attention_quant
 from kuberay_tpu_torch.ops.paged_attention import (
     flat_indices,
     gather_view,
     paged_decode_attention,
 )
 from kuberay_tpu_torch.serve.kv_cache import (
+    _cached_attention,
     _cached_attention_quant_multi,
+    _decode_attention_quant,
     _live_attention,
+    attention_route,
     forward_with_cache,
     live_columns,
-    live_prefix,
     quantize_kv,
 )
 from kuberay_tpu_torch.serve.prefix import block_hashes as _prefix_block_hashes
@@ -383,20 +384,21 @@ def make_paged_forward(block_size: int, base_forward=None, layout=None):
     each live block has one writer and prefix-shared blocks are never
     written — and the rows the gate keeps out land in the pool's sink, so
     ``cache`` is ``init_paged_cache``'s.  Nothing in the forward waits on
-    the device (a CUDA graph can hold a decode step's).  Decode (T == 1)
-    hands the raw pool and tables to the paged kernel; one row of T > 1
-    tokens (``live_prefix``) runs ``_live_attention`` over its cached
-    prefix's blocks and the new K/V; other multi-token calls gather
-    per-request views after the write and run the dense masked attention
-    on them.  ``layout``: a tp rank's serving layout, passed to the base
+    the device (a CUDA graph can hold a decode step's).  By
+    ``attention_route``: "decode" hands the raw pool and tables to the
+    paged kernel; "live" runs ``_live_attention`` over the row's cached
+    prefix's blocks and the new K/V; "masked" gathers per-request views
+    after the write and runs the dense masked attention on them.
+    ``layout``: a tp rank's serving layout, passed to the base
     forward (the pool holds local heads).
     """
     base = base_forward or forward_with_cache
 
     def fwd(cfg, params, tokens, cache, block_tables, start,
             write_mask=None, token_mask=None, logits_index=None):
-        T = tokens.shape[1]
-        s0 = live_prefix(tokens, cache, start)
+        route = attention_route(*tokens.shape, cache)
+        # The live prefix's length, read on the host (``forward_with_cache``).
+        s0 = int(start[0]) if route == "live" else 0
         start = start.to(device=tokens.device, dtype=torch.long)
         tables = block_tables.to(device=tokens.device, dtype=torch.int32)
         _check_sinks(cache, block_size)
@@ -406,9 +408,9 @@ def make_paged_forward(block_size: int, base_forward=None, layout=None):
         def kv_update(ck, cv, kk, vv):                # ck/cv: [Hkv, P, D]
             _write_rows(ck, kk.flatten(0, 1), plan)
             _write_rows(cv, vv.flatten(0, 1), plan)
-            if T == 1:
+            if route == "decode":
                 return ck, cv             # native: attention gets the pool
-            if s0 is not None:
+            if route == "live":
                 return (live_columns(prefix_view(ck, tables, block_size, s0),
                                      kk),
                         live_columns(prefix_view(cv, tables, block_size, s0),
@@ -420,8 +422,8 @@ def make_paged_forward(block_size: int, base_forward=None, layout=None):
             return paged_decode_attention(q[:, 0].contiguous(), pk, pv,
                                           lens, tables, block_size)[:, None]
 
-        attention = decode if T == 1 else \
-            None if s0 is None else _live_attention
+        attention = decode if route == "decode" else \
+            _live_attention if route == "live" else _cached_attention
         return base(cfg, params, tokens, cache, start, write_mask,
                     token_mask=token_mask, logits_index=logits_index,
                     kv_update=kv_update, attention=attention, layout=layout)
@@ -443,7 +445,7 @@ def make_paged_quant_forward(block_size: int, base_forward=None,
 
     def fwd(cfg, params, tokens, cache, block_tables, start,
             write_mask=None, token_mask=None, logits_index=None):
-        T = tokens.shape[1]
+        route = attention_route(*tokens.shape, cache)
         start = start.to(device=tokens.device, dtype=torch.long)
         tables = block_tables.to(device=tokens.device, dtype=torch.int32)
         _check_sinks(cache, block_size)
@@ -457,18 +459,14 @@ def make_paged_quant_forward(block_size: int, base_forward=None,
             _write_rows(ck["s"], ks[..., 0], plan)
             _write_rows(cv["q"], vq, plan)
             _write_rows(cv["s"], vs[..., 0], plan)
-            return (quant_view(ck, tables, block_size, T == 1),
-                    quant_view(cv, tables, block_size, T == 1))
+            contiguous = route == "decode"       # the int8 kernel's layout
+            return (quant_view(ck, tables, block_size, contiguous),
+                    quant_view(cv, tables, block_size, contiguous))
 
-        def decode(q, kv, vv, lens, q_positions):
-            return decode_attention_quant(
-                q[:, 0].contiguous(), kv["q"], kv["s"], vv["q"], vv["s"],
-                lens.to(torch.int32))[:, None]
-
+        attention = _decode_attention_quant if route == "decode" \
+            else _cached_attention_quant_multi
         return base(cfg, params, tokens, cache, start, write_mask,
                     token_mask=token_mask, logits_index=logits_index,
-                    kv_update=kv_update,
-                    attention=decode if T == 1
-                    else _cached_attention_quant_multi, layout=layout)
+                    kv_update=kv_update, attention=attention, layout=layout)
 
     return fwd

@@ -21,6 +21,7 @@ import torch
 
 from kuberay_tpu.ops import attention as ja
 from kuberay_tpu_torch.ops import attention as ta
+from kuberay_tpu_torch.ops import launches
 
 torch.set_num_threads(2)
 
@@ -187,17 +188,16 @@ def test_flash_kernels_match_plain_on_card():
         q, k, v, do = (torch.randn(*s, generator=g, device="cuda").bfloat16()
                        for s in ((B, Sq, Hq, D), (B, Skv, Hkv, D),
                                  (B, Skv, Hkv, D), (B, Sq, Hq, D)))
-        n = (ta.fwd_launches, ta.bwd_dkv_launches, ta.bwd_dq_launches)
+        n = launches.snapshot("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
         out, lse = ta.flash_fwd(q, k, v, causal)
         rout, rlse = ta.flash_fwd_ref(q, k, v, causal)
         assert _within_local(out, rout)
         assert (lse - rlse).abs().max().item() <= 1e-4
         if causal and Sq > Skv:
-            assert ta.fwd_launches == n[0] + 1
+            assert launches.snapshot()["flash_fwd"] == n["flash_fwd"] + 1
             continue
         grads = ta.flash_bwd(q, k, v, out, lse, do, causal)
-        assert (ta.fwd_launches, ta.bwd_dkv_launches,
-                ta.bwd_dq_launches) == tuple(c + 1 for c in n)
+        assert launches.snapshot(*n) == {k: c + 1 for k, c in n.items()}
         again = ta.flash_bwd(q, k, v, out, lse, do, causal)
         assert all(torch.equal(a, b) for a, b in zip(grads, again))
         # The plain backward: flash_bwd on CPU copies of the same inputs.

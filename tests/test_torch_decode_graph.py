@@ -9,7 +9,7 @@ scatter only those): over a decode step with idle slots, a bucket-padded
 prefill, a prefill past a cached prefix, chunks, a verify step with
 partial drafts and the int8 pool, the logits and the pool are the
 reference's bit for bit, and only the sink differs.  Engagement of the
-graph is a pure function of what the engine holds, tested here for each
+graph is a pure function of the engine's settings, tested here for each
 case; on the CPU the engine runs the eager forward.  On the card the graph's
 logits and pool are held to the eager forward's at every step of a run
 where slots join and leave, tables grow, a tier promotion writes the pool,
@@ -24,15 +24,12 @@ import pytest
 import torch
 
 from kuberay_tpu_torch.models import llama, mixtral
-from kuberay_tpu_torch.ops import attention as ta
-from kuberay_tpu_torch.ops import paged_attention as tpa
-from kuberay_tpu_torch.ops import rmsnorm as trn
+from kuberay_tpu_torch.ops import launches
 from kuberay_tpu_torch.serve import decode_graph as dg
 from kuberay_tpu_torch.serve import kv_cache as kc
 from kuberay_tpu_torch.serve import paged_kv as pk
 from kuberay_tpu_torch.serve.engine import Request
 from kuberay_tpu_torch.serve.paged_engine import PagedServeEngine
-from kuberay_tpu_torch.serve.weight_quant import quantize_weights
 
 torch.set_num_threads(2)
 
@@ -216,24 +213,19 @@ def test_sink_is_no_block_of_the_allocator():
 # -- engagement --------------------------------------------------------------
 
 def _eligibility_cases():
+    """(device, kv_quant, weight_quant, layout, cfg) and the verdict."""
     cfg = dataclasses.replace(BASE, dtype=torch.bfloat16)
-    params = llama.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    bf16 = pk.init_paged_cache(cfg, 4, BS, device="cpu")
     cuda = torch.device("cuda")
     mcfg = dataclasses.replace(mixtral.CONFIGS["mixtral_tiny"],
                                dtype=torch.bfloat16)
     return {
-        "bf16_paged_cuda": ((cuda, bf16, None, cfg, params), True),
-        "cpu": ((torch.device("cpu"), bf16, None, cfg, params), False),
-        "int8_pool": ((cuda, pk.init_paged_cache(cfg, 4, BS, quant="int8",
-                                                 device="cpu"),
-                       None, cfg, params), False),
-        "float32_pool": ((cuda, pk.init_paged_cache(BASE, 4, BS,
-                                                    device="cpu"),
-                          None, BASE, params), False),
-        "tp_layout": ((cuda, bf16, object(), cfg, params), False),
-        "mixtral": ((cuda, bf16, None, mcfg, params), False),
-        "w8a16": ((cuda, bf16, None, cfg, quantize_weights(params)), False),
+        "bf16_paged_cuda": ((cuda, "none", "none", None, cfg), True),
+        "cpu": ((torch.device("cpu"), "none", "none", None, cfg), False),
+        "int8_pool": ((cuda, "int8", "none", None, cfg), False),
+        "float32_pool": ((cuda, "none", "none", None, BASE), False),
+        "tp_layout": ((cuda, "none", "none", object(), cfg), False),
+        "mixtral": ((cuda, "none", "none", None, mcfg), False),
+        "w8a16": ((cuda, "none", "int8", None, cfg), False),
     }
 
 
@@ -281,7 +273,8 @@ def test_cpu_engine_runs_the_eager_forward(trees):
 # -- on the card -------------------------------------------------------------
 
 def _counters():
-    return (trn.launches, tpa.launches, ta.fwd_launches)
+    return tuple(launches.snapshot("rmsnorm", "paged_decode_attention",
+                                   "flash_fwd").values())
 
 
 @pytest.mark.gpu
@@ -309,21 +302,22 @@ def test_graph_replays_match_eager_on_card():
         ref = pk.init_paged_cache(cfg, eng.num_blocks, BS, device="cuda")
         for n in ("k", "v"):
             ref[n].copy_(eng.cache[n])
-        saved = dg._counts()
+        saved = launches.snapshot()
         dev = eng.device
         want, _ = eng._forward(
             cfg, eng.params, torch.from_numpy(last).to(dev)[:, None], ref,
             torch.from_numpy(eng.tables).to(dev),
             torch.from_numpy(eng.lens).to(dev), torch.from_numpy(mask).to(dev),
             token_mask=torch.from_numpy(mask).to(dev)[:, None])
-        dg._set_counts(saved)
+        launches.clear()
+        launches.add(saved)
         got = real(last, mask)
         steps.append(torch.equal(got, want) and all(
             torch.equal(eng.cache[n], ref[n]) for n in ("k", "v")))
         return got
 
     eng._decode_logits = checked
-    trn.launches = tpa.launches = ta.fwd_launches = 0
+    launches.clear()
     rng = np.random.default_rng(0)
     prompt = rng.integers(1, cfg.vocab_size, 3 * BS).tolist()
 

@@ -24,6 +24,7 @@ from kuberay_tpu.serve import kv_cache as jkv
 from kuberay_tpu_torch.models import llama as tllama
 from kuberay_tpu_torch.models.convert import params_from_jax
 from kuberay_tpu_torch.ops import decode_attention as tda
+from kuberay_tpu_torch.ops import launches
 from kuberay_tpu_torch.serve import engine as teng
 from kuberay_tpu_torch.serve import kv_cache as tkv
 from tests.test_torch_attention import _within_local
@@ -270,9 +271,9 @@ def test_int8_kernel_matches_plain_on_card():
                                                 device="cuda"))
             cache += [x8, s[..., 0].transpose(1, 2).contiguous()]
         lt = torch.tensor(lens, dtype=torch.int32, device="cuda")
-        before = tda.launches_quant
+        before = launches.snapshot()["decode_attention_quant"]
         got = tda.decode_attention_quant(q, *cache, lt)
-        assert tda.launches_quant == before + 1
+        assert launches.snapshot()["decode_attention_quant"] == before + 1
         want = tda.decode_attention_quant_ref(q, *cache, lt)
         assert _within_local(got, want)
         kq, ks, vq, vs = cache

@@ -24,6 +24,7 @@ from kuberay_tpu.serve import engine as jeng
 from kuberay_tpu.serve import paged_engine as jpe
 from kuberay_tpu_torch.models import mixtral as tmx
 from kuberay_tpu_torch.models.convert import params_from_jax
+from kuberay_tpu_torch.ops import launches
 from kuberay_tpu_torch.ops import moe_matmul as tmm
 from kuberay_tpu_torch.serve import engine as teng
 from kuberay_tpu_torch.serve.kv_cache import (
@@ -113,9 +114,9 @@ def test_grouped_ffn_matches_reference_and_jax(trees, case):
     x = np.random.default_rng(1).standard_normal(
         (len(topi), TCFG.d_model)).astype(np.float32)
     args = (tlp["w_gate"], tlp["w_up"], tlp["w_down"], _t(topi), _t(topw))
-    syncs = tmm.host_syncs
+    syncs = launches.snapshot()["moe_host_syncs"]
     got = tmm.grouped_moe_ffn(_t(x), *args)
-    assert tmm.host_syncs == syncs + 1
+    assert launches.snapshot()["moe_host_syncs"] == syncs + 1
     ref = tmm.dropless_reference(_t(x), *args)
     jgot = jmm.grouped_moe_ffn(jnp.asarray(x), jlp["w_gate"], jlp["w_up"],
                                jlp["w_down"], jnp.asarray(topi),

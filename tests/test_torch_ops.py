@@ -19,6 +19,7 @@ from kuberay_tpu.ops.rmsnorm import rmsnorm_xla
 from kuberay_tpu.ops.rope import apply_rope as jax_apply_rope
 from kuberay_tpu.ops.rope import rope_frequencies as jax_rope_frequencies
 from kuberay_tpu_torch.ops import decode_attention as tda
+from kuberay_tpu_torch.ops import launches
 from kuberay_tpu_torch.ops import rmsnorm as trn
 from kuberay_tpu_torch.ops import rope as trope
 
@@ -163,9 +164,9 @@ def test_kernels_match_plain_on_card():
         ck = torch.randn(8, M, 8, 128, generator=g, device="cuda").bfloat16()
         cv = torch.randn(8, M, 8, 128, generator=g, device="cuda").bfloat16()
         lt = torch.tensor(lens, dtype=torch.int32, device="cuda")
-        before = tda.launches
+        before = launches.snapshot()["decode_attention"]
         got = tda.decode_attention(q, ck, cv, lt)
-        assert tda.launches == before + 1
+        assert launches.snapshot()["decode_attention"] == before + 1
         want = tda.decode_attention_ref(q, ck, cv, lt)
         assert (got.float() - want.float()).abs().max().item() <= 2e-2
         split = tda.decode_attention_split_ref(q, ck, cv, lt)

@@ -34,6 +34,7 @@ from kuberay_tpu.serve import prefix as jprefix
 from kuberay_tpu.serve.engine import Request as JRequest
 from kuberay_tpu_torch.models import llama as tllama
 from kuberay_tpu_torch.models.convert import params_from_jax
+from kuberay_tpu_torch.ops import launches
 from kuberay_tpu_torch.ops import paged_attention as tpa
 from kuberay_tpu_torch.serve import paged_kv as tpk
 from kuberay_tpu_torch.serve import prefix as tprefix
@@ -485,9 +486,9 @@ def test_paged_kernel_matches_plain_on_card():
         tables[1, :2] = tables[0, :2]
         tables = tables.int().contiguous()
         lt = torch.tensor(lens, dtype=torch.int32, device="cuda")
-        before = tpa.launches
+        before = launches.snapshot()["paged_decode_attention"]
         got = tpa.paged_decode_attention(q, pk, pv, lt, tables, bs)
-        assert tpa.launches == before + 1
+        assert launches.snapshot()["paged_decode_attention"] == before + 1
         want = tpa.paged_decode_attention_ref(q, pk, pv, lt, tables, bs)
         assert _within_local(got, want)
         assert _within_local(got, tpa.paged_decode_attention_split_ref(

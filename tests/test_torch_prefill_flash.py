@@ -79,9 +79,15 @@ class _Count:
 
 
 def _route(monkeypatch, route: str) -> None:
-    """"off": never (the parent's attention); "force": one row of T > 1
-    whatever the cache's dtype (``live_prefix`` still reads the shape)."""
-    monkeypatch.setattr(kc, "_flash_cache", lambda cache: route == "force")
+    """``attention_route`` where the dense and the paged forwards look it
+    up.  "off": never "live" (the parent's attention); "force": "live" for
+    one row of T > 1 whatever the cache's dtype."""
+    def forced(B, T, cache):
+        if T == 1:
+            return "decode"
+        return "live" if B == 1 and route == "force" else "masked"
+    for module in (kc, pk):
+        monkeypatch.setattr(module, "attention_route", forced)
 
 
 def _inputs(prefix, T):
@@ -252,22 +258,18 @@ def test_bf16_path_as_close_to_float32_as_the_old(monkeypatch, trees, layout,
 
 
 def test_route_reads_shape_and_cache_dtype():
-    """``live_prefix``: the prefix length for one row of T > 1 over a bf16
-    cache, counted on this thread; None otherwise, uncounted."""
+    """``attention_route``: "live" for one row of T > 1 over a bf16 cache,
+    "decode" for one token a row over any cache, "masked" otherwise."""
     bf16 = {"k": torch.zeros(2, 1, 8, 1, 4, dtype=torch.bfloat16)}
     f32 = {"k": torch.zeros(2, 1, 8, 1, 4)}
     int8 = {"k": {"q": torch.zeros(2, 1, 8, 1, 4, dtype=torch.int8)}}
-
-    def route(B, T, cache, start=5):
-        return kc.live_prefix(torch.zeros(B, T, dtype=torch.long), cache,
-                              torch.full((B,), start))
-    n = kc.live_forwards()
-    assert route(1, 32, bf16) == 5 and route(1, 2, bf16, 0) == 0
-    assert route(1, 1, bf16) is None               # a decode step
-    assert route(4, 5, bf16) is None               # a verify over 4 slots
-    assert route(1, 32, f32) is None
-    assert route(1, 32, int8) is None
-    assert kc.live_forwards() == n + 2
+    route = kc.attention_route
+    assert route(1, 32, bf16) == "live" and route(1, 2, bf16) == "live"
+    assert route(1, 1, bf16) == "decode"           # a decode step
+    assert route(4, 5, bf16) == "masked"           # a verify over 4 slots
+    assert route(1, 32, f32) == "masked"
+    assert route(1, 32, int8) == "masked"
+    assert route(4, 1, f32) == route(4, 1, int8) == "decode"
 
 
 # -- engines -----------------------------------------------------------------
@@ -313,7 +315,8 @@ def test_engine_counts_flash_prefills(monkeypatch, params16, kind, chunk):
     ``prefills`` and the flash forwards a layer each; no multi-token call
     reaches ``_cached_attention``."""
     flash = _Count(monkeypatch, kc, "flash_fwd")
-    cached = _Count(monkeypatch, kc, "_cached_attention", _multi)
+    cached = _Count(monkeypatch, pk if kind == "paged" else kc,
+                    "_cached_attention", _multi)
     engine = _engine(kind, params16, prefill_chunk=chunk)
     done = _serve(engine, _prompts())
     st = engine.stats
@@ -330,7 +333,8 @@ def test_verify_steps_keep_cached_attention(monkeypatch, params16, kind):
     (rows at different offsets): ``_cached_attention`` as before, and
     ``prefill_kernel`` counts the prefills only."""
     flash = _Count(monkeypatch, kc, "flash_fwd")
-    cached = _Count(monkeypatch, kc, "_cached_attention", _multi)
+    cached = _Count(monkeypatch, pk if kind == "paged" else kc,
+                    "_cached_attention", _multi)
     engine = _engine(kind, params16, speculative=4)
     rep = [3, 4, 5, 6] * 6
     _serve(engine, [rep, rep[::-1] + rep, [9] * 12], n=16)
@@ -368,7 +372,7 @@ def test_flash_prefill_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     import chip_smoke
-    from kuberay_tpu_torch.ops import attention as ta
+    from kuberay_tpu_torch.ops import launches
     g = torch.Generator(device="cuda").manual_seed(0)
     Hq, Hkv, D, Mx = 32, 8, 128, 4096
     for start, T in ((0, 512), (0, 1024), (0, 4096), (1024, 512)):
@@ -378,10 +382,10 @@ def test_flash_prefill_on_card():
         pos = start + torch.arange(T, device="cuda")[None]
         lens = torch.full((1,), start + T, dtype=torch.int32, device="cuda")
         want = kc._cached_attention(q, ck, cv, lens, pos)
-        n = ta.fwd_launches
+        n = launches.snapshot()["flash_fwd"]
         got = kc._live_attention(q, ck[:, :start + T].contiguous(),
                                  cv[:, :start + T].contiguous(), lens, pos)
-        assert ta.fwd_launches == n + 1
+        assert launches.snapshot()["flash_fwd"] == n + 1
         rec = chip_smoke.local_err(got, want)
         assert chip_smoke.within_local(rec), (start, T, rec)
     cfg = dataclasses.replace(llama.CONFIGS["llama3_8b"], d_ff=1024,
@@ -391,8 +395,8 @@ def test_flash_prefill_on_card():
     cache = kc.init_kv_cache(cfg, 1, 1024, "cuda")
     toks = torch.randint(0, cfg.vocab_size, (1, 1024), generator=g,
                          device="cuda")
-    n = ta.fwd_launches
+    n = launches.snapshot()["flash_fwd"]
     with torch.no_grad():
         kc.forward_with_cache(cfg, params, toks, cache,
                               torch.zeros(1, dtype=torch.long, device="cuda"))
-    assert cfg.n_layers == 32 and ta.fwd_launches == n + 32
+    assert cfg.n_layers == 32 and launches.snapshot()["flash_fwd"] == n + 32

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from kuberay_tpu_torch.ops import launches
 from kuberay_tpu_torch.ops import ring_attention as ra
 
 torch.set_num_threads(2)
@@ -64,10 +65,10 @@ BAD = {
 def test_fwd_wrapper_checks_before_launching(case):
     make, msg = BAD[case]
     q, k, v, rank0, n, words = make()
-    launched = ra.launches
+    launched = launches.snapshot()["ring_attention_fwd"]
     with pytest.raises(ValueError, match=msg):
         ra.ring_attention_fwd(q, k, v, rank0, n, words=words)
-    assert ra.launches == launched
+    assert launches.snapshot()["ring_attention_fwd"] == launched
 
 
 def test_fwd_wrapper_refuses_other_dtypes():

@@ -23,6 +23,7 @@ import pytest
 import torch
 
 from kuberay_tpu.ops.rmsnorm import rmsnorm as jax_rmsnorm
+from kuberay_tpu_torch.ops import launches
 from kuberay_tpu_torch.ops import rmsnorm as trn
 
 torch.set_num_threads(2)
@@ -177,14 +178,14 @@ def test_g_layouts_read_through_strides():
     expanded with stride 0) is read in place; only one that does not (its
     leading axes transposed) is copied, and counted."""
     g = torch.randn(4, 6, 2 * 32)[..., :32]
-    before = trn.bwd_g_copies
+    before = launches.snapshot()["rmsnorm_bwd_g_copies"]
     assert trn._as_rows(g, 24, 32).data_ptr() == g.data_ptr()
     e = torch.randn(1, 1, 32).expand(4, 6, 32)
     assert trn._as_rows(e, 24, 32).stride() == (0, 1)
-    assert trn.bwd_g_copies == before
+    assert launches.snapshot()["rmsnorm_bwd_g_copies"] == before
     t = torch.randn(6, 4, 32).transpose(0, 1)
     got = trn._as_rows(t, 24, 32)
-    assert trn.bwd_g_copies == before + 1
+    assert launches.snapshot()["rmsnorm_bwd_g_copies"] == before + 1
     assert torch.equal(got, t.reshape(24, 32))
 
 
@@ -225,10 +226,10 @@ def test_bwd_kernel_matches_plain_on_card(monkeypatch):
              ).bfloat16()
         w = (torch.rand(d, generator=gen, device="cuda") + 0.5).bfloat16()
         g = torch.randn(rows, d, generator=gen, device="cuda").bfloat16()
-        before = (trn.bwd_launches, trn.bwd_dw_launches)
+        before = launches.snapshot("rmsnorm_bwd", "rmsnorm_bwd_dw")
         dx, dw = trn.rmsnorm_bwd(x, w, g)
-        assert (trn.bwd_launches, trn.bwd_dw_launches) == (before[0] + 1,
-                                                           before[1] + 1)
+        assert launches.snapshot(*before) == {k: c + 1
+                                              for k, c in before.items()}
         rx, rw = trn.rmsnorm_bwd_ref(x, w, g)
         _close(_np(dx.cpu()), _np(rx.cpu()), "bfloat16")
         _close(_np(dw.cpu()), _np(rw.cpu()), "bfloat16")
@@ -236,9 +237,9 @@ def test_bwd_kernel_matches_plain_on_card(monkeypatch):
         assert torch.equal(dx, again[0]) and torch.equal(dw, again[1])
         wide = torch.zeros(rows, 2 * d, dtype=g.dtype, device="cuda")
         wide[:, :d] = g
-        copies = trn.bwd_g_copies
+        copies = launches.snapshot()["rmsnorm_bwd_g_copies"]
         sx, sw = trn.rmsnorm_bwd(x, w, wide[:, :d])
-        assert trn.bwd_g_copies == copies
+        assert launches.snapshot()["rmsnorm_bwd_g_copies"] == copies
         assert torch.equal(sx, dx) and torch.equal(sw, dw)
         xx, ww = x.clone().requires_grad_(), w.clone().requires_grad_()
         y = trn.rmsnorm(xx, ww)

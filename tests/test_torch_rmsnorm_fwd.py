@@ -20,6 +20,7 @@ import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
+from kuberay_tpu_torch.ops import launches
 from kuberay_tpu_torch.ops import rmsnorm as trn
 
 torch.set_num_threads(2)
@@ -105,9 +106,9 @@ def test_wrapper_takes_the_plain_version_on_cpu(xdt, wdt, monkeypatch):
     g = torch.Generator().manual_seed(0)
     x = (torch.rand(3, 5, 40, generator=g) * 2 - 1).to(xdt)
     w = (torch.rand(40, generator=g) + 0.5).to(wdt)
-    before = trn.launches
+    before = launches.snapshot()["rmsnorm"]
     got = trn.rmsnorm_fwd(x, w)
-    assert trn.launches == before
+    assert launches.snapshot()["rmsnorm"] == before
     assert got.dtype == xdt and got.shape == x.shape
     assert torch.equal(got, trn.rmsnorm_ref(x, w))
     assert torch.equal(trn.rmsnorm(x, w), got)
@@ -180,9 +181,9 @@ def test_fwd_kernel_matches_plain_on_card():
         base = torch.rand(rows * d + off, generator=gen, device="cuda")
         x = (base * 2 - 1).to(xdt)[off:].view(rows, d)
         w = (torch.rand(d, generator=gen, device="cuda") + 0.5).to(wdt)
-        before = trn.launches
+        before = launches.snapshot()["rmsnorm"]
         got = trn.rmsnorm_fwd(x, w)
-        assert trn.launches == before + (1 if rows else 0), name
+        assert launches.snapshot()["rmsnorm"] == before + bool(rows), name
         want = trn.rmsnorm_ref(x, w)
         assert got.dtype == xdt and got.shape == x.shape, name
         if rows:
