@@ -114,9 +114,11 @@
    past however much was cached, and bf16 matmuls of other shapes round
    differently), exact launch counts (32 paged or int8 decode attentions
    per decode step, none of the other decode kernels, 65 RMSNorms per
-   forward; the bf16 paged engine's decode steps are CUDA graph replays,
-   each counted as the launches it replays, and every decode step of every
-   phase with an int8 pool or weights, Mixtral or tp is eager), and all
+   forward; the bf16 paged engine's decode steps and its prefills from
+   cache position 0 are CUDA graph replays, each counted as the launches
+   it replays, and every decode step and prefill of every phase with an
+   int8 pool or weights, Mixtral, tp or the dense engine, and every
+   prefill past a cached prefix, is eager), and all
    32 of the batch's and of the repeat's tokens against
    the bf16 no-cache recompute: within 5% of the largest |logit| for the
    bf16 pool and 10% for int8 (int8 K/V carry about 6x bf16's relative
@@ -1799,6 +1801,22 @@ def phase_peak(peaks: dict) -> int:
                torch.cuda.max_memory_allocated())
 
 
+def count_fresh_prefills(engine) -> dict:
+    """Wrap ``engine._prefill_logits`` to count the prefills (chunks
+    counted) that start at cache position 0, the ones a graphed engine
+    replays (``["n"]``); delete the instance's ``_prefill_logits``
+    afterwards."""
+    fresh = {"n": 0}
+    real = engine._prefill_logits
+
+    def prefill_logits(padded, slot, real_len, start_pos=0):
+        fresh["n"] += start_pos == 0
+        return real(padded, slot, real_len, start_pos)
+
+    engine._prefill_logits = prefill_logits
+    return fresh
+
+
 def drive(engine, prompts, repeat: int, same_as_batch: bool) -> dict:
     """The engine behind ServeFrontend on 127.0.0.1: every prompt POSTed
     at once (greedy, MAX_TOKENS new tokens each), then prompts[repeat]
@@ -1814,6 +1832,7 @@ def drive(engine, prompts, repeat: int, same_as_batch: bool) -> dict:
     srv, url = fe.serve_background("127.0.0.1", 0)
     results, errors = {}, []
     peaks = decode_peaks(engine)
+    fresh = count_fresh_prefills(engine)
 
     def client(i):
         try:
@@ -1844,7 +1863,8 @@ def drive(engine, prompts, repeat: int, same_as_batch: bool) -> dict:
         srv.shutdown()
         srv.server_close()
         fe.close()
-        del engine._decode_call         # the wrapper (a reference cycle)
+        del engine._decode_call         # the wrappers (reference cycles)
+        del engine._prefill_logits
     if errors or any(t.is_alive() for t in threads):
         raise AssertionError(f"serve requests failed: {errors}")
     vocab = engine.cfg.vocab_size
@@ -1878,6 +1898,7 @@ def drive(engine, prompts, repeat: int, same_as_batch: bool) -> dict:
             "max_memory_allocated_gb": phase_peak(peaks) / 1e9,
             "decode_peak_memory_gb": peaks["decode"] / 1e9,
             "launches": launches, "engine": stats,
+            "fresh_prefills": fresh["n"],
             "engine_after_batch": batch_stats,
             "tokens": [results[i][2]["tokens"] for i in sorted(results)],
             "ids": [results[i][2]["id"] for i in sorted(results)],
@@ -1929,6 +1950,19 @@ def expect_decode_kernel(run: dict, kernel: str, n_layers: int,
                              f"decode steps (graphed {graphed})")
 
 
+def expect_prefill_graphs(run: dict, graphed: bool) -> None:
+    """Where ``graphed`` every prefill from cache position 0
+    (``fresh_prefills``, chunks counted) was a CUDA graph replay, and
+    elsewhere none was; a prefill past a cached prefix, or a later chunk,
+    is never one."""
+    replays = run["engine"]["prefill_graph_steps"]
+    want = run["fresh_prefills"] if graphed else 0
+    if replays != want:
+        raise AssertionError(f"{replays} prefill graph replays, {want} "
+                             f"expected (graphed {graphed}; stats "
+                             f"{run['engine']})")
+
+
 def serve(cfg, params, seed: int = 0) -> dict:
     """llama3_8b at full width through the dense bf16 engine behind the
     HTTP frontend."""
@@ -1942,6 +1976,7 @@ def serve(cfg, params, seed: int = 0) -> dict:
                for n in PROMPT_LENS]
     run = drive(engine, prompts, repeat=0, same_as_batch=True)
     expect_decode_kernel(run, "decode_attention", cfg.n_layers, False)
+    expect_prefill_graphs(run, False)
     ref = check_against_recompute(cfg, params, prompts[0],
                                   run["tokens"][0][:8])
     del engine
@@ -1983,6 +2018,7 @@ def serve_cached(cfg, params, kv_quant: str, paged: bool,
     run = drive(engine, prompts, repeat=REPEAT, same_as_batch=not paged)
     expect_decode_kernel(run, kernel, cfg.n_layers,
                          paged and kv_quant == "none")
+    expect_prefill_graphs(run, paged and kv_quant == "none")
     out = {"paged": paged, "kv_quant": kv_quant, "setup_s": setup_s, **run}
     if paged:
         out.update(check_prefix_hits(run, prompts))
@@ -2288,9 +2324,10 @@ def serve_option(name: str, cfg, params, smi: str, paged: bool,
     finally:
         if recorder is not None:
             recorder.close()
-    expect_decode_kernel(run, kernel, cfg.n_layers,
-                         paged and not kv8 and not moe_cfg
-                         and options.get("weight_quant", "none") == "none")
+    graphed = paged and not kv8 and not moe_cfg and \
+        options.get("weight_quant", "none") == "none"
+    expect_decode_kernel(run, kernel, cfg.n_layers, graphed)
+    expect_prefill_graphs(run, graphed)
     out = {"phase": name, "paged": paged, "prompts": seed_note,
            "options": options, "setup_s": setup_s, **run}
     if shared_prefix:
@@ -2459,6 +2496,7 @@ def serve_surface(cfg, params, smi: str, seed: int = 3) -> dict:
     check_flash_prefills(engine, launches, stats)
     expect_decode_kernel({"engine": stats, "launches": launches},
                          "decode_attention", cfg.n_layers, False)
+    expect_prefill_graphs({"engine": stats}, False)
     series = {}
     for line in metrics.splitlines():
         if line.startswith("#") or not line:
@@ -2562,6 +2600,7 @@ def serve_tiers(cfg, params, smi: str, seed: int = 5) -> dict:
                               block_size=BLOCK_SIZE, num_blocks=TIER_BLOCKS,
                               host_blocks=TIER_HOST, device="cuda")
     pumps, promotions = [], []
+    fresh = count_fresh_prefills(engine)
     timed_method(engine, "_pump_demotions", pumps)
     timed_method(engine, "_promote_from_tiers", promotions, sync=True)
     fe = ServeFrontend(engine)
@@ -2617,6 +2656,7 @@ def serve_tiers(cfg, params, smi: str, seed: int = 5) -> dict:
         srv.server_close()
         fe.close()
         del engine._pump_demotions, engine._promote_from_tiers
+        del engine._prefill_logits
     if any(waves["evict"]["resident_blocks"]):
         raise AssertionError(f"the evicting wave left first-wave blocks on "
                              f"the device: {waves['evict']}")
@@ -2632,6 +2672,8 @@ def serve_tiers(cfg, params, smi: str, seed: int = 5) -> dict:
     check_flash_prefills(engine, launches, final)
     expect_decode_kernel({"engine": final, "launches": launches},
                          "paged_decode_attention", cfg.n_layers, True)
+    expect_prefill_graphs({"engine": final, "fresh_prefills": fresh["n"]},
+                          True)
     checks = [check_against_recompute(cfg, params, p, t, other=r)
               for p, t, r in zip(prompts, first["tokens"], rep["tokens"])]
     checks += [check_against_recompute(cfg, params, p, t)
@@ -2735,6 +2777,7 @@ def serve_disagg(cfg, params, smi: str, seed: int = 6) -> dict:
     engines = {"prefill": PagedServeEngine(cfg, params, **kw),
                "decode": PagedServeEngine(cfg, params, **kw)}
     xfer = {"export": [], "import": []}
+    fresh = [count_fresh_prefills(e) for e in engines.values()]
     timed_method(engines["prefill"], "export_kv_blocks", xfer["export"])
     timed_method(engines["decode"], "import_kv_blocks", xfer["import"],
                  sync=True)
@@ -2773,6 +2816,8 @@ def serve_disagg(cfg, params, smi: str, seed: int = 6) -> dict:
         for e, name in ((engines["prefill"], "export_kv_blocks"),
                         (engines["decode"], "import_kv_blocks")):
             delattr(e, name)
+        for e in engines.values():
+            del e._prefill_logits
     for row, prompt in zip(rows, prompts):
         want = {"imported": row["blocks"] - row["resident"],
                 "skipped": row["resident"]}
@@ -2790,11 +2835,15 @@ def serve_disagg(cfg, params, smi: str, seed: int = 6) -> dict:
         raise AssertionError(f"the shared prefix was not resident: {rows}")
     both = {k: sum(st[k] for st in stats.values())
             for k in ("prefills", "prefill_kernel", "decode_steps",
-                      "verify_steps", "decode_graph_steps")}
+                      "verify_steps", "decode_graph_steps",
+                      "prefill_graph_steps")}
     check_rmsnorm_launches(engines["decode"], launches, both)
     check_flash_prefills(engines["decode"], launches, both)
     expect_decode_kernel({"engine": both, "launches": launches},
                          "paged_decode_attention", cfg.n_layers, True)
+    expect_prefill_graphs({"engine": both,
+                           "fresh_prefills": sum(f["n"] for f in fresh)},
+                          True)
     engine_ms = {k: [(len(o) if isinstance(o, list) else o["imported"], ms)
                      for o, ms in v] for k, v in xfer.items()}
     out = {"phase": "serve_disagg", "handoffs": rows, "launches": launches,
@@ -4254,9 +4303,9 @@ def tp_variant(name: str, cfg, params, flags, prompts, margin: float,
                            "paged_decode_attention")}
     want.update(rmsnorm=(2 * cfg.n_layers + 1) * calls)
     want[kernel] = cfg.n_layers * stats["decode_steps"]
-    if stats["decode_graph_steps"] != 0:
+    if stats["decode_graph_steps"] or stats["prefill_graph_steps"]:
         raise AssertionError(f"serve_tp {name}: a tp rank replayed a "
-                             f"decode graph ({stats})")
+                             f"graph ({stats})")
     for r, rs in enumerate(ranks):
         if rs["launches"] != want:
             raise AssertionError(f"serve_tp {name} rank {r}: launches "
@@ -4676,8 +4725,8 @@ def serve_tp_tiers(cfg, params, smi: str, seed: int = 10) -> dict:
         failures.append("the promoted repeat's tokens are not the warm "
                         "wave's")
     calls = final["prefills"] + final["decode_steps"] + final["verify_steps"]
-    if final["decode_graph_steps"] != 0:
-        failures.append(f"a tp rank replayed a decode graph: {final}")
+    if final["decode_graph_steps"] or final["prefill_graph_steps"]:
+        failures.append(f"a tp rank replayed a graph: {final}")
     want = {"decode_attention": 0, "decode_attention_quant": 0,
             "paged_decode_attention": cfg.n_layers * final["decode_steps"],
             "rmsnorm": (2 * cfg.n_layers + 1) * calls}

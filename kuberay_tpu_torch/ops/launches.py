@@ -8,7 +8,7 @@ the gradients RMSNorm's backward copies into a row layout first and
 
 Readers take a ``snapshot`` and compare two of them.  A CUDA graph replay
 skips the wrappers' Python, so whoever replays a captured call adds what
-the capture counted (``add``); ``serve/decode_graph.py`` does.
+the capture counted (``add``); ``serve/forward_graphs.py`` does.
 """
 
 from __future__ import annotations

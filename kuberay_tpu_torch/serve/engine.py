@@ -280,10 +280,12 @@ class ServeEngine:
         self.decode_s = 0.0
         self.verify_tokens = 0       # tokens emitted by verify steps
         self.verify_s = 0.0
-        # Decode steps run as CUDA graph replays, and the graph's captures
-        # (the paged engine's, serve/decode_graph.py).
+        # Decode steps and prefills run as CUDA graph replays, and their
+        # graphs' captures (the paged engine's, serve/forward_graphs.py).
         self.decode_graph_steps = 0
         self.decode_graph_captures = 0
+        self.prefill_graph_steps = 0
+        self.prefill_graph_captures = 0
 
     def _now(self) -> float:
         """A span stamp, on the tracer's clock (read at every call: tests
@@ -378,10 +380,12 @@ class ServeEngine:
         returns its first generated token."""
         tr = self._tracer
         with tr.span(None, "prefill-enqueue"):
+            # A blocking host-to-device copy waits for the stream: made
+            # before the forward is queued, it waits for nothing.
+            samp_t = torch.from_numpy(samp).to(self.device)[None]
             logits = self._prefill_logits(padded, slot, real_len, start_pos)
             sample = self._sample if self._filters_on(samp) \
                 else self._sample_plain
-            samp_t = torch.from_numpy(samp).to(self.device)[None]
             noise = self._noise(logits[:, 0], samp[None])
             tok = sample(logits[:, 0], samp_t, noise)
         with tr.span(None, "prefill-sync"):
@@ -571,7 +575,9 @@ class ServeEngine:
                 "verify_tokens": self.verify_tokens,
                 "verify_s": self.verify_s,
                 "decode_graph_steps": self.decode_graph_steps,
-                "decode_graph_captures": self.decode_graph_captures}
+                "decode_graph_captures": self.decode_graph_captures,
+                "prefill_graph_steps": self.prefill_graph_steps,
+                "prefill_graph_captures": self.prefill_graph_captures}
 
     def has_work(self) -> bool:
         # _finished counts: instantly-cancelled requests must still be

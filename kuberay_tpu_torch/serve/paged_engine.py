@@ -47,10 +47,12 @@ them would resolve through the zero-filled tail of its table into block
 0, another request's block, so only real tokens write.  Weight
 quantisation dequantises outermost, around the paged forward.
 
-A decode step replays one CUDA graph of the decode forward
-(``serve/decode_graph.py``) on a CUDA device over a bf16 pool, in one
-process, with the dense FFN and unquantised weights; other engines, and
-every verify step, run the forward eagerly.
+A decode step replays one CUDA graph of the decode forward, and a prefill
+from cache position 0 one graph of the prefill forward a prompt bucket
+(``serve/forward_graphs.py``), on a CUDA device over a bf16 pool, in one
+process, with the dense FFN and unquantised weights; other engines, every
+verify step and every prefill past a cached prefix run the forward
+eagerly.
 
 Tensor parallelism (``layout``, as the dense engine's): the pool holds the
 rank's kv heads and the tables ride every step plan to the followers
@@ -71,7 +73,7 @@ import numpy as np
 import torch
 
 from kuberay_tpu_torch.models.llama import LlamaConfig
-from kuberay_tpu_torch.serve import decode_graph
+from kuberay_tpu_torch.serve import forward_graphs
 from kuberay_tpu_torch.serve.engine import Request, ServeEngine, _bucket
 from kuberay_tpu_torch.serve.kv_cache import base_forward_for
 from kuberay_tpu_torch.serve.kv_tiers import KvTierStore
@@ -115,12 +117,11 @@ class PagedServeEngine(ServeEngine):
                          donate_params=donate_params, metrics=metrics,
                          tracer=tracer, layout=layout)
         self.allocator = BlockAllocator(num_blocks, block_size)
-        # The decode step's CUDA graph, where these settings allow one.
-        self._graph: Optional[decode_graph.DecodeGraph] = None
-        if decode_graph.eligible(self.device, kv_quant, weight_quant, layout,
-                                 cfg):
-            self._graph = decode_graph.DecodeGraph(max_slots, self.max_blocks,
-                                                   self.device)
+        # The forwards' CUDA graphs, where these settings allow them.
+        self._graph: Optional[forward_graphs.ForwardGraphs] = None
+        if forward_graphs.eligible(self.device, kv_quant, weight_quant,
+                                   layout, cfg):
+            self._graph = forward_graphs.ForwardGraphs(self.device)
         self.tables = np.zeros((max_slots, self.max_blocks), dtype=np.int32)
         self.owned: List[List[int]] = [[] for _ in range(max_slots)]
         self._wait_state = None        # (request id, num_free) at last block
@@ -166,6 +167,22 @@ class PagedServeEngine(ServeEngine):
             logits_index=logits_index)
         return logits
 
+    def _graph_prefill(self, tokens, table, n):
+        """The prefill forward from cache position 0 over device inputs (a
+        graph's): ``tokens`` [1, T], the slot's ``table`` [1, max_blocks]
+        and the real length ``n`` [1].  The token mask and the logits'
+        index come from ``n`` on the device, and the prefix length, 0,
+        reaches the forward from the host."""
+        T = tokens.shape[1]
+        dev = tokens.device
+        logits, _ = self._forward(
+            self.cfg, self.params, tokens, self.cache, table,
+            torch.zeros(1, dtype=torch.long, device=dev),
+            torch.ones(1, device=dev),
+            token_mask=(torch.arange(T, device=dev) < n)[None].float(),
+            logits_index=n - 1, prefix_len=0)
+        return logits
+
     def _decode_forward(self, tokens, lens, mask, token_mask=None):
         """Decode or verify over every slot's table; the token mask gates
         the pool's writes (a decode step's is the slot mask)."""
@@ -181,15 +198,30 @@ class PagedServeEngine(ServeEngine):
         return logits
 
     @torch.no_grad()
+    def _prefill_logits(self, padded, slot, real_len, start_pos=0):
+        """A prefill's logits: from cache position 0, one replay of its
+        bucket's CUDA graph (``serve/forward_graphs.py``) where the engine
+        has graphs, else (past a cached prefix, whose length the live
+        forward reads on the host) the eager forward."""
+        if self._graph is None or start_pos:
+            return super()._prefill_logits(padded, slot, real_len, start_pos)
+        logits, captured = self._graph.replay(
+            self._graph_prefill, (self.params, self.cache), padded[None],
+            self.tables[slot:slot + 1], np.array([real_len], np.int64))
+        self.prefill_graph_captures += captured
+        self.prefill_graph_steps += 1
+        return logits
+
+    @torch.no_grad()
     def _decode_logits(self, last, mask):
         """A decode step's logits: one replay of the step's CUDA graph
-        (``serve/decode_graph.py``) where the engine has one, else the
+        (``serve/forward_graphs.py``) where the engine has graphs, else the
         eager forward."""
         if self._graph is None:
             return super()._decode_logits(last, mask)
         logits, captured = self._graph.replay(
-            self._pool_forward, (self.params, self.cache), last, self.lens,
-            mask, self.tables)
+            self._pool_forward, (self.params, self.cache),
+            last.reshape(-1, 1), self.lens, mask, self.tables)
         self.decode_graph_captures += captured
         self.decode_graph_steps += 1
         return logits

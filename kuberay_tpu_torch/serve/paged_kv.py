@@ -376,15 +376,19 @@ def make_paged_forward(block_size: int, base_forward=None, layout=None):
     """Paged counterpart of ``forward_with_cache`` for a fixed block size.
 
     The returned ``fwd(cfg, params, tokens, cache, block_tables, start,
-    write_mask=None, token_mask=None, logits_index=None)`` takes
-    ``block_tables`` [B, max_blocks] int32 of physical block ids per row
+    write_mask=None, token_mask=None, logits_index=None, prefix_len=None)``
+    takes ``block_tables`` [B, max_blocks] int32 of physical block ids per row
     (entries past the live length may be anything: reads stop at the
     length and writes are gated per token).  Writes land in the shared
     pool, so write targets must be disjoint across rows — they are, since
     each live block has one writer and prefix-shared blocks are never
     written — and the rows the gate keeps out land in the pool's sink, so
     ``cache`` is ``init_paged_cache``'s.  Nothing in the forward waits on
-    the device (a CUDA graph can hold a decode step's).  By
+    the device: the "live" route takes the cached prefix's length from
+    ``prefix_len`` where it is given, else from ``start``, which the
+    engines keep on the host (so a CUDA graph can hold a decode step's
+    forward, and a prefill's from position 0 with ``start`` on the device
+    and ``prefix_len`` 0).  By
     ``attention_route``: "decode" hands the raw pool and tables to the
     paged kernel; "live" runs ``_live_attention`` over the row's cached
     prefix's blocks and the new K/V; "masked" gathers per-request views
@@ -395,10 +399,12 @@ def make_paged_forward(block_size: int, base_forward=None, layout=None):
     base = base_forward or forward_with_cache
 
     def fwd(cfg, params, tokens, cache, block_tables, start,
-            write_mask=None, token_mask=None, logits_index=None):
+            write_mask=None, token_mask=None, logits_index=None,
+            prefix_len=None):
         route = attention_route(*tokens.shape, cache)
         # The live prefix's length, read on the host (``forward_with_cache``).
-        s0 = int(start[0]) if route == "live" else 0
+        s0 = 0 if route != "live" else \
+            int(start[0]) if prefix_len is None else prefix_len
         start = start.to(device=tokens.device, dtype=torch.long)
         tables = block_tables.to(device=tokens.device, dtype=torch.int32)
         _check_sinks(cache, block_size)

@@ -1,5 +1,5 @@
 """PyTorch port: the paged forwards' sync-free write plan, and the paged
-engine's decode step as a CUDA graph replay (``serve/decode_graph.py``).
+engine's decode step as a CUDA graph replay (``serve/forward_graphs.py``).
 
 The write plan sends every new K/V row somewhere: a real token of a
 writable row to its position through its table, every other row to the
@@ -25,7 +25,7 @@ import torch
 
 from kuberay_tpu_torch.models import llama, mixtral
 from kuberay_tpu_torch.ops import launches
-from kuberay_tpu_torch.serve import decode_graph as dg
+from kuberay_tpu_torch.serve import forward_graphs as dg
 from kuberay_tpu_torch.serve import kv_cache as kc
 from kuberay_tpu_torch.serve import paged_kv as pk
 from kuberay_tpu_torch.serve.engine import Request
